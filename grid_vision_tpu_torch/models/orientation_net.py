@@ -1,0 +1,91 @@
+"""The MultiBin 3D-box regression net (the VisionOrientation model) as a
+torch module (counterpart of grid_vision_tpu/models/orientation_net.py; I/O
+contract of the reference's TensorRT engine, vision_orientation.cpp:
+192-239): standardized (N, S, S, 3) crops -> orientation (N, 2, 2) cos/sin
+per bin, bin confidence (N, 2), dimension residuals (N, 3).
+
+This slice ports the "s2d" arch with s2d_fold=True: the space-to-depth(4)
+stem runs as the exact equivalent 12x12/s8 conv on raw crops, then a
+stride-2 conv ladder down to 7 (or less), one stride-1 conv, global mean,
+and the three MultiBin heads. Names follow the flax tree (ConvBN_i,
+MultiBinHeads_0).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import ConvBN
+
+
+@dataclasses.dataclass(frozen=True)
+class OrientationConfig:
+    bins: int = 2
+    input_size: int = 224
+    width: int = 64
+    arch: str = "s2d"
+    s2d_fold: bool = True
+
+
+class MultiBinHeads(nn.Module):
+    """orientation (bins, 2) L2-normalized, bin confidence (bins,),
+    dimension residuals (3,)."""
+
+    def __init__(self, c_in: int, bins: int = 2):
+        super().__init__()
+        self.bins = bins
+        self.orient_fc1 = nn.Linear(c_in, 256)
+        self.orient_fc2 = nn.Linear(256, bins * 2)
+        self.conf_fc1 = nn.Linear(c_in, 256)
+        self.conf_fc2 = nn.Linear(256, bins)
+        self.dim_fc1 = nn.Linear(c_in, 512)
+        self.dim_fc2 = nn.Linear(512, 3)
+
+    def forward(self, x):
+        orient = self.orient_fc2(F.relu(self.orient_fc1(x)))
+        orient = orient.reshape(x.shape[0], self.bins, 2)
+        norm = torch.sqrt(torch.sum(orient * orient, dim=-1, keepdim=True))
+        orient = orient / torch.clamp(norm, min=1e-8)
+        conf = self.conf_fc2(F.relu(self.conf_fc1(x)))
+        dims = self.dim_fc2(F.relu(self.dim_fc1(x)))
+        return orient, conf, dims
+
+
+class OrientationNetS2D(nn.Module):
+    """Folded s2d(4) stem + stride-2 ladder with channels (4w, 8w, 8w...)."""
+
+    def __init__(self, cfg: OrientationConfig = OrientationConfig()):
+        super().__init__()
+        if cfg.arch != "s2d" or not cfg.s2d_fold:
+            raise NotImplementedError(
+                "the torch port has the s2d arch with s2d_fold=True only")
+        self.cfg = cfg
+        w = cfg.width
+        stage_ch = (4 * w, 8 * w, 8 * w, 8 * w, 8 * w)
+        self.ConvBN_0 = ConvBN(3, stage_ch[0], 3, 2, act="relu", block=4)
+        # spatial size after the stem: SAME on the 4-pixel block grid
+        n = -(-(cfg.input_size // 4) // 2)
+        c, i = stage_ch[0], 1
+        while n > 7:
+            f = stage_ch[min(i, len(stage_ch) - 1)]
+            setattr(self, f"ConvBN_{i}", ConvBN(c, f, 3, 2, act="relu"))
+            c, n, i = f, -(-n // 2), i + 1
+        setattr(self, f"ConvBN_{i}", ConvBN(c, 8 * w, 3, 1, act="relu"))
+        self.n_conv = i + 1
+        self.MultiBinHeads_0 = MultiBinHeads(8 * w, cfg.bins)
+
+    def forward(self, x: torch.Tensor):
+        """x: (N, S, S, 3) standardized crops (NHWC)."""
+        x = x.float().permute(0, 3, 1, 2)
+        for i in range(self.n_conv):
+            x = getattr(self, f"ConvBN_{i}")(x)
+        return self.MultiBinHeads_0(x.mean(dim=(2, 3)))
+
+
+def forward(model: OrientationNetS2D, crops: torch.Tensor):
+    """crops (N, S, S, 3) -> (orient (N, 2, 2), conf (N, 2), dims (N, 3))."""
+    return model(crops)

@@ -1,0 +1,107 @@
+"""Build and load the hand-written Hopper kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` exports a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into its own shared library, loaded with
+``ctypes``. Nothing here runs at import time: a kernel module asks for its
+library at its first launch, so the package imports on machines without a
+CUDA toolkit. Builds land in ``build/grid_vision_tpu_torch/`` of the
+checkout (git-ignored), keyed by a hash of the source and the flags, so an
+edited source rebuilds and an unchanged one loads the cached library.
+
+``build_all()`` starts one ``nvcc`` per source, all at once, and waits for
+them together — the way ``chip_smoke.py`` builds every kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "grid_vision_tpu_torch"
+SOURCES = ("cuda_grid", "cuda_knn", "cuda_stem")
+
+# No --use_fast_math: the grid kernel's log-odds must be bit-equal to the
+# plain torch twin (IEEE expf / division, explicit _rn intrinsics).
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+ptxas_log: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME); the "
+                           "grid_vision_tpu_torch kernels build with nvcc")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source (None when its library is cached)."""
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, started) -> None:
+    if started is None:
+        return
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    ptxas_log[name] = log
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all(names: Iterable[str] = SOURCES) -> None:
+    """Compile every missing library, one nvcc process per source, all
+    started together."""
+    names = list(names)
+    with _lock:
+        started = {n: _start(n) for n in names}
+        errors = []
+        for n in names:
+            try:
+                _finish(n, started[n])
+            except RuntimeError as e:      # reap every process first
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        _libs[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")

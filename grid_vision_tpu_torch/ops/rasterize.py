@@ -1,0 +1,96 @@
+"""Bayesian log-odds occupancy-grid updates on tensors (counterpart of
+grid_vision_tpu/ops/rasterize.py; reference occupancy_grid.cpp:16-105,
+140-183, grid_vision_node.cpp:270). This is the ``grid_backend="xla"``
+path; ``ops/cuda_grid.py`` holds the fused kernel.
+
+Update order: decay, then + hit times the number of footprints covering the
+cell (summed over boxes first, added as one fused multiply-add), then one
+clamp, then the sigmoid. Free space
+comes only from the decay (quirk Q2); footprints ignore yaw (quirk Q11); a
+box with any corner off the map is skipped whole.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import GridVisionConfig
+from ..geometry import grid_index_from_position
+from ..types import LShapePoses
+
+
+def hit_add(log_odds: torch.Tensor, hit: float,
+            counts: torch.Tensor) -> torch.Tensor:
+    """fma(hit, counts, log_odds) in f32 with one rounding: the JAX
+    package's XLA build contracts ``log_odds + hit * counts`` into a fused
+    multiply-add, so a separately rounded product would differ by an ulp.
+    The product of an f32 and a small count is exact in f64; the sum is
+    rounded to f64 and then to f32."""
+    hit64 = float(torch.tensor(hit, dtype=torch.float32))
+    return (log_odds.double() + hit64 * counts.double()).float()
+
+
+def _finish(log_odds: torch.Tensor, cfg: GridVisionConfig):
+    """Clamp, then log-odds -> probability (occupancy_grid.cpp:21-30)."""
+    log_odds = torch.clamp(log_odds, cfg.min_log_odds, cfg.max_log_odds)
+    return log_odds, 1.0 / (1.0 + torch.exp(-log_odds))
+
+
+def decay_update(log_odds: torch.Tensor, cfg: GridVisionConfig):
+    """updateMap(grid): the decay-only overload."""
+    return _finish(log_odds + cfg.log_odds_decay, cfg)
+
+
+def pose_footprint_corners(poses: LShapePoses) -> torch.Tensor:
+    """(D, 4, 2) axis-aligned footprint corners from pose centers and
+    length / width in base axes, ignoring yaw (quirk Q11)."""
+    px = poses.position[:, 0]
+    py = poses.position[:, 1]
+    half_l = poses.length / 2.0
+    half_w = poses.width / 2.0
+    return torch.stack([
+        torch.stack([px - half_l, py - half_w], dim=-1),
+        torch.stack([px + half_l, py - half_w], dim=-1),
+        torch.stack([px + half_l, py + half_w], dim=-1),
+        torch.stack([px - half_l, py + half_w], dim=-1),
+    ], dim=-2)
+
+
+def corner_window_counts(corners_xy: torch.Tensor, box_valid: torch.Tensor,
+                         center, length, resolution: float,
+                         n_rows: int, n_cols: int, row0: int = 0):
+    """(n_rows, n_cols) f32 count of valid footprint blocks covering each
+    cell (updateGridCellsFast: a box with any corner off the map is skipped,
+    otherwise its inclusive min..max index block counts)."""
+    idx, corner_ok = grid_index_from_position(corners_xy, center, length,
+                                              resolution)
+    ok = box_valid & torch.all(corner_ok, dim=-1)
+    lo = idx.amin(dim=-2)
+    hi = idx.amax(dim=-2)
+    rows = torch.arange(n_rows, dtype=torch.int32,
+                        device=corners_xy.device) + row0
+    cols = torch.arange(n_cols, dtype=torch.int32, device=corners_xy.device)
+    row_mask = ((rows[None, :] >= lo[:, 0:1]) & (rows[None, :] <= hi[:, 0:1])
+                & ok[:, None]).float()
+    col_mask = ((cols[None, :] >= lo[:, 1:2])
+                & (cols[None, :] <= hi[:, 1:2])).float()
+    return torch.einsum("dh,dw->hw", row_mask, col_mask)
+
+
+def lshape_update(log_odds: torch.Tensor, poses: LShapePoses,
+                  cfg: GridVisionConfig):
+    """updateMap(grid, bboxes_pose): decay, footprint hits, clamp, sigmoid.
+    Returns (log_odds, occupancy)."""
+    h, w = cfg.grid_size
+    counts = corner_window_counts(
+        pose_footprint_corners(poses), poses.valid, cfg.grid_center,
+        (float(cfg.grid_x), float(cfg.grid_y)), cfg.resolution, h, w)
+    log_odds = hit_add(log_odds + cfg.log_odds_decay, cfg.log_odds_hit,
+                       counts)
+    return _finish(log_odds, cfg)
+
+
+def export_occupancy_i8(occupancy: torch.Tensor) -> torch.Tensor:
+    """nav_msgs/OccupancyGrid export: probability [0, 1] -> int8 [0, 100]."""
+    return torch.round(torch.clamp(occupancy, 0.0, 1.0) * 100.0).to(
+        torch.int8)

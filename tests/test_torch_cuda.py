@@ -1,0 +1,124 @@
+"""The port's CUDA kernels against their plain torch twins, on the card.
+
+Needs an NVIDIA card and nvcc (a CUDA kernel has no CPU mode): every test
+is marked ``cuda`` and skips without a card. Imports neither JAX nor the
+JAX package, so it runs where only torch is installed:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from grid_vision_tpu_torch.config import GridVisionConfig
+from grid_vision_tpu_torch.models import weights
+from grid_vision_tpu_torch.ops import (association, cuda_grid, cuda_knn,
+                                       cuda_stem)
+from grid_vision_tpu_torch.types import LShapePoses, PointCloud
+
+torch.set_num_threads(1)
+
+CFG = GridVisionConfig()
+K_NP = np.array([[320.0, 0, 320.0], [0, 320.0, 240.0], [0, 0, 1]],
+                np.float32)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _poses(rng, n, device):
+    e = LShapePoses.empty(n, device=device)
+    pos = rng.uniform([-15, -15, 0], [50, 15, 0], (n, 3)).astype(np.float32)
+    pos[1] = pos[0]                                     # overlapping boxes
+    pos[2] = pos[0]
+    return dataclasses.replace(
+        e, position=torch.as_tensor(pos, device=device),
+        length=torch.as_tensor(rng.uniform(0.3, 6, n).astype(np.float32),
+                               device=device),
+        width=torch.as_tensor(rng.uniform(0.3, 3, n).astype(np.float32),
+                              device=device),
+        valid=torch.ones(n, dtype=torch.bool, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_boxes", [0, 8, 64])
+def test_grid_kernel_bit_equal_to_twin(cuda_device, n_boxes):
+    rng = np.random.default_rng(n_boxes)
+    lo = torch.as_tensor(rng.uniform(-2, 3.6, CFG.grid_size)
+                         .astype(np.float32), device=cuda_device)
+    ranges = cuda_grid.box_index_ranges(
+        _poses(rng, max(n_boxes, 3), cuda_device), CFG)[:n_boxes]
+    ranges = ranges.contiguous()
+    n0 = cuda_grid.launches
+    lo_k, occ_k = cuda_grid.grid_update(lo, ranges, CFG)
+    torch.cuda.synchronize()
+    assert cuda_grid.launches == n0 + 1
+    lo_p, occ_p = cuda_grid.grid_update_plain(lo, ranges, CFG)
+    assert torch.equal(lo_k, lo_p)
+    torch.testing.assert_close(occ_k, occ_p, rtol=0, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_grid_wrapper_rejects_bad_inputs(cuda_device):
+    lo = torch.zeros(CFG.grid_size, device=cuda_device)
+    bad = torch.zeros((65, 4), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="at most"):
+        cuda_grid.grid_update(lo, bad, CFG)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_grid.grid_update(lo.t(), bad[:8], CFG)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_knn_kernel_equals_twin_on_tied_cloud(cuda_device, k):
+    rng = np.random.default_rng(k)
+    xyz = rng.integers(-4, 5, size=(16384, 3)).astype(np.float32)
+    xyz[:, 2] = np.abs(xyz[:, 2]) + 1.0                 # many equal d2
+    cloud = PointCloud.from_numpy(xyz[:15000], None, 16384,
+                                  device=cuda_device)
+    uvd, valid = association.project_cloud_to_image(
+        cloud, torch.as_tensor(K_NP, device=cuda_device))
+    centers = torch.as_tensor(
+        rng.uniform(-50, 700, (64, 2)).astype(np.float32), device=cuda_device)
+    got = cuda_knn.knn_median_depth_centers_cuda(uvd, valid, centers, k)
+    torch.cuda.synchronize()
+    ref = cuda_knn.knn_median_depth_plain(uvd, valid, centers, k)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_knn_kernel_empty_cloud(cuda_device):
+    cloud = PointCloud.empty(256, device=cuda_device)
+    uvd, valid = association.project_cloud_to_image(
+        cloud, torch.as_tensor(K_NP, device=cuda_device))
+    centers = torch.zeros((4, 2), device=cuda_device)
+    got = cuda_knn.knn_median_depth_centers_cuda(uvd, valid, centers, 4)
+    assert torch.equal(got.cpu(), torch.full((4,), -1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,size", [(480, 640, 416), (96, 128, 64),
+                                      (100, 130, 68)])
+def test_stem_kernel_matches_twin(cuda_device, h, w, size):
+    """atol = rtol = 1e-4, the JAX package's own bar for its stem kernel
+    (f32 sums in another order; TF32 off for the twin's convs)."""
+    cfg = GridVisionConfig(detection_weights_file="weights/detector.npz",
+                           detection_network_input_size=size)
+    det = weights.load_all(cfg, device=cuda_device)["detector"]
+    consts = cuda_stem.prepare_stem_constants(det)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    img = torch.rand((2, h, w, 3), generator=g, device=cuda_device) * 255
+    got = cuda_stem.detector_stem_cuda(img, consts, size)
+    torch.cuda.synchronize()
+    ref = cuda_stem.detector_stem_plain(img, consts, size)
+    assert got.shape == (2, -(-size // 4), -(-size // 4), 64)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
