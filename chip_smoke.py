@@ -8,15 +8,27 @@ package. Phases, each printing one line:
 
 1. the card (name and power limit from nvidia-smi); TF32 off;
 2. build the kernels of csrc/ (one nvcc per source, in parallel), timed;
-3. each kernel against its plain torch twin on the card at the main path's
-   full shapes: max |error|, the kernel's time, the twin's time and a
-   PyTorch library yardstick, with the least time the card could take;
-4. the Engine at full width (480x640 frames, detector 416, orientation
-   224 / width 32, 16384 points, 500x200 grid, shipped weights) for
-   TICKS ticks of a synthetic scene: every kernel's launch counter must
-   advance once per tick, and the outputs must agree with the same weights
-   run through the plain-torch backends ("xla") on the same card;
-5. a `kernels` JSON line for every ported kernel.
+3. each kernel against its plain torch twin on the card: the single-rig
+   path's kernels at its shapes, then all five kernels at the fleet path's
+   shapes (64 rigs, 320 orientation crops): max |error|, the kernel's
+   time, the twin's time and a PyTorch library yardstick, with the least
+   time the card could take;
+4. the single-rig Engine at full width (480x640 frames, detector 416,
+   orientation 224 / width 32, 16384 points, 500x200 grid, shipped
+   weights) for ENGINE_TICKS ticks of a synthetic scene: the stem, grid
+   and kNN counters must advance once per tick, and the outputs must agree
+   with the same weights run through the plain-torch backends ("xla");
+5. the fleet path (pipeline.fleet_step) in the fleet configuration of
+   bench.py in f32 (detector "pallas2", orientation "pallas", 8192 points,
+   static compaction to 16) for FLEET_TICKS ticks of 64 rigs of the fleet
+   scene pool, orientation budget 320: each of the five kernels must
+   launch once per tick, and the outputs must agree with the same fleet
+   run through the plain-torch backends; one tick with "pallas3" must
+   equal the "pallas2" tick exactly;
+6. a torch.profiler breakdown of three fleet ticks on each backend:
+   device time by kernel name, launches, the device's idle share;
+7. a `kernels` JSON line for every ported kernel (launches: the fleet
+   run's counts), then the card, then the device JSON.
 
 Any failure exits non-zero. The last line is the device JSON.
 """
@@ -31,7 +43,10 @@ import subprocess
 import sys
 import time
 
-TICKS = 20
+ENGINE_TICKS = 20
+FLEET_TICKS = 10
+N_RIGS = 64
+BUDGET = 5 * N_RIGS            # bench.py:206
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12        # H100 SXM FP32 outside the tensor cores
 
@@ -67,14 +82,22 @@ def bound_ms(n_bytes: float, n_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_stem(torch, gv, dev, detector, cfg):
+def timed(fn, plain, library, iters: int = 50):
+    """Kernel, plain twin and library yardstick times (ms), interleaved."""
+    return dict(ms=cuda_time_ms(fn, iters),
+                plain_ms=cuda_time_ms(plain, max(5, iters // 5)),
+                library_ms=(None if library is None
+                            else cuda_time_ms(library, iters)))
+
+
+def check_stem(torch, dev, detector, cfg, batch):
     """Fused resize + ConvBN_0 + ConvBN_1 at 480x640 -> 416 -> 104."""
     import torch.nn.functional as F
     from grid_vision_tpu_torch.models.layers import same_pad
     from grid_vision_tpu_torch.ops import cuda_stem, preprocess
     g = torch.Generator(device=dev).manual_seed(1)
     h, w, size = cfg.camera_image_height, cfg.camera_image_width, cfg.resize
-    img = torch.rand((1, h, w, 3), generator=g, device=dev) * 255.0
+    img = torch.rand((batch, h, w, 3), generator=g, device=dev) * 255.0
     consts = cuda_stem.prepare_stem_constants(detector)
     got = cuda_stem.detector_stem_cuda(img, consts, size)
     torch.cuda.synchronize()
@@ -88,8 +111,8 @@ def check_stem(torch, gv, dev, detector, cfg):
     wb1 = consts["w1_oihw"] * consts["s1"][:, None, None, None]
 
     def library():
-        x = preprocess.preprocess_detector_image(img[0], size)
-        x = x.permute(2, 0, 1)[None]
+        x = torch.stack([preprocess.preprocess_detector_image(im, size)
+                         for im in img]).permute(0, 3, 1, 2)
         for wt, b in ((wb0, consts["b0"]), (wb1, consts["b1"])):
             p = same_pad(x.shape[2], 3, 2)
             x = F.leaky_relu(F.conv2d(F.pad(x, (p[0], p[1], p[0], p[1])),
@@ -103,36 +126,39 @@ def check_stem(torch, gv, dev, detector, cfg):
     _, tx = cuda_stem.resize_taps(w, size)
     s0 = -(-size // 2)
     s1 = -(-s0 // 2)
-    ops = (2 * h * size * 3 * tx.shape[1] + 2 * size * size * 3 * ty.shape[1]
-           + 2 * s0 * s0 * 32 * 27 + 2 * s1 * s1 * 64 * 288)
+    ops = batch * (2 * h * size * 3 * tx.shape[1]
+                   + 2 * size * size * 3 * ty.shape[1]
+                   + 2 * s0 * s0 * 32 * 27 + 2 * s1 * s1 * 64 * 288)
     n_bytes = (img.numel() + got.numel() + 27 * 32 + 288 * 64 + 192) * 4
     return dict(
         name="detector_stem", source="grid_vision_tpu_torch/csrc/cuda_stem.cu",
-        replaces="grid_vision_tpu/ops/pallas_stem.py:359",
+        replaces="grid_vision_tpu/ops/pallas_stem.py:359", shape=list(
+            img.shape),
         max_abs_err=(got - ref).abs().max().item(),
-        ms=cuda_time_ms(lambda: cuda_stem.detector_stem_cuda(img, consts,
-                                                             size)),
-        plain_ms=cuda_time_ms(lambda: cuda_stem.detector_stem_plain(
-            img, consts, size)),
-        library_ms=cuda_time_ms(library), bound=bound_ms(n_bytes, ops))
+        **timed(lambda: cuda_stem.detector_stem_cuda(img, consts, size),
+                lambda: cuda_stem.detector_stem_plain(img, consts, size),
+                library),
+        bound=bound_ms(n_bytes, ops))
 
 
-def check_grid(torch, gv, dev, cfg):
-    """Fused decay + hits + clamp + sigmoid on the 500x200 grid, 8 boxes."""
+def check_grid(torch, dev, cfg, rigs):
+    """Fused decay + hits + clamp + sigmoid on 500x200 grids, 8 boxes a
+    rig; rigs=None is the single-rig (H, W) call."""
     from grid_vision_tpu_torch.ops import cuda_grid
     from grid_vision_tpu_torch.types import LShapePoses
     g = torch.Generator(device=dev).manual_seed(2)
     h, w = cfg.grid_size
-    lo = torch.rand((h, w), generator=g, device=dev) * 5.6 - 2.0
+    lead = () if rigs is None else (rigs,)
+    lo = torch.rand(lead + (h, w), generator=g, device=dev) * 5.6 - 2.0
     n = cfg.max_orientation_batch
-    u = torch.rand((n, 4), generator=g, device=dev)
+    u = torch.rand(lead + (n, 4), generator=g, device=dev)
     empty = LShapePoses.empty(n, device=dev)
     poses = dataclasses.replace(
         empty,
-        position=torch.stack([u[:, 0] * 60 - 15, u[:, 1] * 30 - 15,
-                              torch.zeros(n, device=dev)], dim=-1),
-        length=u[:, 2] * 6 + 0.3, width=u[:, 3] * 3 + 0.3,
-        valid=torch.ones(n, dtype=torch.bool, device=dev))
+        position=torch.stack([u[..., 0] * 60 - 15, u[..., 1] * 30 - 15,
+                              torch.zeros_like(u[..., 0])], dim=-1),
+        length=u[..., 2] * 6 + 0.3, width=u[..., 3] * 3 + 0.3,
+        valid=torch.ones(lead + (n,), dtype=torch.bool, device=dev))
     ranges = cuda_grid.box_index_ranges(poses, cfg)
     lo_k, occ_k = cuda_grid.grid_update(lo, ranges, cfg)
     torch.cuda.synchronize()
@@ -141,29 +167,32 @@ def check_grid(torch, gv, dev, cfg):
         fail("grid kernel log-odds are not bit-equal to the twin")
     if not torch.allclose(occ_k, occ_p, rtol=0, atol=1e-7):
         fail("grid kernel occupancy disagrees with the twin")
-    n_bytes = 3 * h * w * 4 + ranges.numel() * 4
-    ops = h * w * (n + 8)
+    n_bytes = 3 * lo.numel() * 4 + ranges.numel() * 4
+    ops = lo.numel() * (n + 8)
     return dict(
         name="grid_update", source="grid_vision_tpu_torch/csrc/cuda_grid.cu",
         replaces="grid_vision_tpu/ops/pallas_grid.py:97",
+        shape=list(lo.shape),
         max_abs_err=max((lo_k - lo_p).abs().max().item(),
                         (occ_k - occ_p).abs().max().item()),
-        ms=cuda_time_ms(lambda: cuda_grid.grid_update(lo, ranges, cfg)),
-        plain_ms=cuda_time_ms(lambda: cuda_grid.grid_update_plain(
-            lo, ranges, cfg)),
-        library_ms=None, bound=bound_ms(n_bytes, ops))
+        **timed(lambda: cuda_grid.grid_update(lo, ranges, cfg),
+                lambda: cuda_grid.grid_update_plain(lo, ranges, cfg), None),
+        bound=bound_ms(n_bytes, ops))
 
 
-def check_knn(torch, gv, dev, cfg, obs):
-    """k-NN median depth: 16384 projected points, 64 box centers."""
+def check_knn(torch, dev, cfg, cloud):
+    """k-NN median depth of max_static_depth box centers against the
+    projected cloud: (P, 3) single-rig or (R, P, 3) fleet."""
     from grid_vision_tpu_torch.geometry import intrinsic_matrix
     from grid_vision_tpu_torch.ops import association, cuda_knn
     K = intrinsic_matrix(cfg.fx, cfg.fy, cfg.cx, cfg.cy, device=dev)
-    uvd, valid = association.project_cloud_to_image(obs.cloud, K)
+    uvd, valid = association.project_cloud_to_image(cloud, K)
     g = torch.Generator(device=dev).manual_seed(3)
     d = cfg.max_static_depth
-    centers = torch.rand((d, 2), generator=g, device=dev) * torch.tensor(
-        [cfg.camera_image_width, cfg.camera_image_height], device=dev)
+    lead = uvd.shape[:-2]
+    centers = torch.rand(lead + (d, 2), generator=g, device=dev) * \
+        torch.tensor([cfg.camera_image_width, cfg.camera_image_height],
+                     device=dev)
     k = cfg.k_near
     got = cuda_knn.knn_median_depth_centers_cuda(uvd, valid, centers, k)
     torch.cuda.synchronize()
@@ -171,33 +200,166 @@ def check_knn(torch, gv, dev, cfg, obs):
     if not torch.allclose(got, ref, rtol=1e-6, atol=0):
         fail(f"kNN kernel disagrees with its twin: max |d| "
              f"{(got - ref).abs().max().item()}")
-    c3 = torch.cat([centers, torch.zeros((d, 1), device=dev)], dim=1)
+    c3 = torch.cat([centers, torch.zeros(lead + (d, 1), device=dev)], -1)
 
     def library():
-        dist = torch.cdist(c3, uvd).masked_fill(~valid[None, :],
+        dist = torch.cdist(c3, uvd).masked_fill(~valid[..., None, :],
                                                 float("inf"))
         vals, idx = torch.topk(dist, k, largest=False)
-        z = torch.where(torch.isfinite(vals), uvd[:, 2][idx], float("inf"))
+        z = torch.where(torch.isfinite(vals),
+                        torch.gather(uvd[..., None, :, 2].expand(
+                            dist.shape), -1, idx), float("inf"))
         n_found = torch.isfinite(vals).sum(-1)
         med = torch.sort(z, -1).values.gather(
-            1, (n_found // 2).clamp(max=k - 1)[:, None])[:, 0]
+            -1, (n_found // 2).clamp(max=k - 1)[..., None])[..., 0]
         return torch.where(n_found > 0, med, -1.0)
 
     lib = library()
-    lib_err = (lib - ref).abs().max().item()
     p_valid = int(valid.sum())
-    n_bytes = uvd.numel() * 4 + valid.numel() + centers.numel() * 4 + d * 4
+    n_bytes = uvd.numel() * 4 + valid.numel() + centers.numel() * 4 + \
+        got.numel() * 4
     ops = 7 * d * p_valid
     return dict(
-        name="knn_median_depth", source="grid_vision_tpu_torch/csrc/cuda_knn.cu",
+        name="knn_median_depth",
+        source="grid_vision_tpu_torch/csrc/cuda_knn.cu",
         replaces="grid_vision_tpu/ops/pallas_knn.py:72",
+        shape=list(uvd.shape),
         max_abs_err=(got - ref).abs().max().item(),
-        library_max_abs_err=lib_err,
-        ms=cuda_time_ms(lambda: cuda_knn.knn_median_depth_centers_cuda(
-            uvd, valid, centers, k)),
-        plain_ms=cuda_time_ms(lambda: cuda_knn.knn_median_depth_plain(
-            uvd, valid, centers, k)),
-        library_ms=cuda_time_ms(library), bound=bound_ms(n_bytes, ops))
+        library_max_abs_err=(lib - ref).abs().max().item(),
+        **timed(lambda: cuda_knn.knn_median_depth_centers_cuda(
+            uvd, valid, centers, k),
+            lambda: cuda_knn.knn_median_depth_plain(uvd, valid, centers, k),
+            library),
+        bound=bound_ms(n_bytes, ops))
+
+
+def check_csp(torch, dev, detector, cfg, batch):
+    """ConvBN_2 + CSPBlock_0 + max pool on `batch` (104, 104, 64) stem
+    activations (the stem kernel's output of random frames)."""
+    import torch.nn.functional as F
+    from grid_vision_tpu_torch.models.layers import fold_bn
+    from grid_vision_tpu_torch.ops import cuda_csp, cuda_stem
+    g = torch.Generator(device=dev).manual_seed(4)
+    img = torch.rand((batch, cfg.camera_image_height, cfg.camera_image_width,
+                      3), generator=g, device=dev) * 255.0
+    x = cuda_stem.detector_stem_cuda(
+        img, cuda_stem.prepare_stem_constants(detector), cfg.resize)
+    del img
+    consts = cuda_csp.prepare_csp_constants(detector)
+    got = cuda_csp.detector_csp_cuda(x, detector, consts)
+    torch.cuda.synchronize()
+    ref = cuda_csp.detector_csp_plain(x, detector)
+    if not torch.allclose(got, ref, rtol=1e-4, atol=1e-4):
+        fail(f"CSP kernel disagrees with its twin: max |d| "
+             f"{(got - ref).abs().max().item()}")
+
+    def folded(conv_bn):
+        s, b = fold_bn(conv_bn.BatchNorm_0)
+        return conv_bn.Conv_0.weight * s[:, None, None, None], b
+
+    csp = detector.CSPBlock_0
+    (w2, b2), (wa, ba), (wb, bb), (wc, bc) = (
+        folded(m) for m in (detector.ConvBN_2, csp.ConvBN_0, csp.ConvBN_1,
+                            csp.ConvBN_2))
+
+    def library():
+        """cuDNN convs with BN folded, leaky, concats, max_pool2d."""
+        y = F.leaky_relu(F.conv2d(x.permute(0, 3, 1, 2), w2, b2, padding=1),
+                         0.1)
+        x1 = F.leaky_relu(F.conv2d(y[:, 32:], wa, ba, padding=1), 0.1)
+        x2 = F.leaky_relu(F.conv2d(x1, wb, bb, padding=1), 0.1)
+        x3 = F.leaky_relu(F.conv2d(torch.cat([x2, x1], 1), wc, bc), 0.1)
+        return F.max_pool2d(torch.cat([y, x3], 1), 2, 2)
+
+    lib = library().permute(0, 2, 3, 1)
+    if not torch.allclose(lib, ref, rtol=1e-4, atol=1e-4):
+        fail("CSP library yardstick disagrees with the twin")
+    _, h, w, _ = x.shape
+    ops = batch * 2 * h * w * (64 * 576 + 2 * 32 * 288 + 64 * 64)
+    n_bytes = (x.numel() + got.numel() + 576 * 64 + 2 * 288 * 32 + 64 * 64
+               + 2 * 192) * 4
+    with torch.no_grad():
+        t = timed(lambda: cuda_csp.detector_csp_cuda(x, detector, consts),
+                  lambda: cuda_csp.detector_csp_plain(x, detector), library,
+                  iters=20)
+    return dict(
+        name="detector_csp", source="grid_vision_tpu_torch/csrc/cuda_csp.cu",
+        replaces="grid_vision_tpu/ops/pallas_csp.py:404",
+        also_replaces="grid_vision_tpu/ops/pallas_csp.py:343",
+        shape=list(x.shape), max_abs_err=(got - ref).abs().max().item(),
+        library_max_abs_err=(lib - ref).abs().max().item(), **t,
+        bound=bound_ms(n_bytes, ops))
+
+
+def check_orient(torch, dev, net, cfg, rigs, n_crops):
+    """Crop + standardize + folded s2d stem conv for n_crops boxes over
+    `rigs` random frames, clamped, invalid and sliver boxes among them."""
+    import torch.nn.functional as F
+    from grid_vision_tpu_torch.models.layers import same_pad
+    from grid_vision_tpu_torch.ops import cuda_orient, preprocess
+    g = torch.Generator(device=dev).manual_seed(5)
+    h, w, size = (cfg.camera_image_height, cfg.camera_image_width,
+                  cfg.network_height)
+    images = torch.rand((rigs, h, w, 3), generator=g, device=dev) * 255.0
+    u = torch.rand((n_crops, 4), generator=g, device=dev)
+    x0 = u[:, 0] * (w + 60) - 40            # some boxes clamp at each edge
+    y0 = u[:, 1] * (h + 60) - 40
+    xyxy = torch.stack([x0, y0, x0 + 8 + u[:, 2] * 300,
+                        y0 + 8 + u[:, 3] * 250], dim=-1)
+    xyxy[0] = torch.tensor([100.0, 100.0, 100.4, 100.4])    # sliver: flat
+    valid = torch.rand((n_crops,), generator=g, device=dev) > 0.1
+    valid[0] = True
+    rig = torch.sort(torch.randint(0, rigs, (n_crops,), generator=g,
+                                   device=dev)).values
+    consts = cuda_orient.prepare_orient_constants(net)
+    with torch.no_grad():
+        got = cuda_orient.orient_front_cuda(images, xyxy, valid, rig, net,
+                                            consts, size)
+        torch.cuda.synchronize()
+        ref = cuda_orient.orient_front_plain(images, xyxy, valid, rig, net,
+                                             size)
+    # flat crops (any channel's std < 1 grey level) are ill-conditioned
+    # (ROADMAP C): held to finiteness only
+    with torch.no_grad():
+        flat = cuda_orient.crops_by_rig(images, xyxy, rig, size).std(
+            dim=(1, 2)).amin(dim=-1) < 1.0
+    keep = ~flat
+    if not torch.isfinite(got).all():
+        fail("orientation-front kernel output is not finite")
+    if not torch.allclose(got[keep], ref[keep], rtol=1e-3, atol=1e-3):
+        fail(f"orientation-front kernel disagrees with its twin: max |d| "
+             f"{(got[keep] - ref[keep]).abs().max().item()}")
+    wmat4 = consts["wmat"].reshape(12, 12, 3, -1).permute(3, 2, 0, 1) * \
+        consts["s"][:, None, None, None]
+    lo, hi = (4 * p for p in same_pad(size // 4, 3, 2))
+
+    def library():
+        """crop_resize einsums + standardize + cuDNN conv, BN folded."""
+        c = cuda_orient.crops_by_rig(images, xyxy, rig, size)
+        std = preprocess._standardize(c, valid).permute(0, 3, 1, 2)
+        y = F.conv2d(F.pad(std, (lo, hi, lo, hi)), wmat4, consts["t"],
+                     stride=8)
+        return F.relu(y)
+
+    with torch.no_grad():
+        lib = library().permute(0, 2, 3, 1)
+        t = timed(lambda: cuda_orient.orient_front_cuda(
+            images, xyxy, valid, rig, net, consts, size),
+            lambda: cuda_orient.orient_front_plain(
+                images, xyxy, valid, rig, net, size), library, iters=20)
+    n_valid = int(valid.sum())
+    q, f = got.shape[1], got.shape[3]
+    ops = n_valid * (2 * q * q * f * 12 * 12 * 3 + size * size * 3 * 10)
+    n_bytes = (images.numel() + xyxy.numel() + got.numel()
+               + consts["wmat"].numel() + 2 * f) * 4 + 2 * n_crops
+    return dict(
+        name="orient_front", source="grid_vision_tpu_torch/csrc/cuda_orient.cu",
+        replaces="grid_vision_tpu/ops/pallas_orient.py:288",
+        shape=[n_crops, size, size, 3], crops_valid=n_valid,
+        crops_flat_left_out=int(flat.sum()),
+        max_abs_err=(got[keep] - ref[keep]).abs().max().item(),
+        library_max_abs_err=(lib[keep] - ref[keep]).abs().max().item(), **t,
+        bound=bound_ms(n_bytes, ops))
 
 
 def run_ticks(torch, engine, obs_seq):
@@ -211,6 +373,86 @@ def run_ticks(torch, engine, obs_seq):
         times.append((time.perf_counter() - t0) * 1e3)
         outs.append(out)
     return state, outs, times
+
+
+def run_fleet(torch, engine, obs_seq, budget):
+    states = engine.init_states(N_RIGS)
+    outs, times = [], []
+    for obs in obs_seq:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states, out = engine.fleet(states, obs, budget)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+    return states, outs, times
+
+
+def compare_outputs(torch, cfg, outs, plain_outs, per_rig: bool):
+    """occupancy_i8 agreement (per rig with per_rig), identical box counts
+    and pose validity, finite valid slots; returns (min agreement, box
+    counts, pose counts)."""
+    agree, n_boxes, n_poses = [], [], []
+    for o, p in zip(outs, plain_outs):
+        grid_shape = tuple(o.occupancy_i8.shape[-2:])
+        if grid_shape != tuple(cfg.grid_size):
+            fail(f"occupancy_i8 shape {tuple(o.occupancy_i8.shape)}")
+        for name, t in (("static_points", o.static_points),
+                        ("static_depths", o.static_depths),
+                        ("boxes", o.boxes.xyxy[o.boxes.valid]),
+                        ("poses", o.poses.position[o.poses.valid])):
+            if not torch.isfinite(t).all():
+                fail(f"non-finite {name} in a valid slot")
+        eq = (o.occupancy_i8 == p.occupancy_i8).float()
+        agree.append(eq.mean(dim=(-2, -1)).min().item() if per_rig
+                     else eq.mean().item())
+        nb = o.boxes.valid.sum(-1)
+        if not torch.equal(nb, p.boxes.valid.sum(-1)):
+            fail("box counts differ from the plain path")
+        if per_rig and not torch.equal(o.poses.valid, p.poses.valid):
+            fail("pose validity differs from the plain path")
+        n_boxes.append(int(nb.sum()))
+        n_poses.append(int(o.poses.valid.sum()))
+    if min(agree) < 0.999:
+        fail(f"occupancy_i8 agreement {min(agree)} < 0.999")
+    return min(agree), n_boxes, n_poses
+
+
+def profile_fleet(torch, engine, obs, budget, ticks: int = 3):
+    """torch.profiler over `ticks` fleet ticks: device time by kernel name
+    (the top 15, and every kernel of csrc/) and the device's busy share of
+    the host-clock tick (kernels run on one stream, so their times add up
+    without overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+    states, _ = engine.fleet(engine.init_states(N_RIGS), obs, budget)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            states, _ = engine.fleet(states, obs, budget)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
+    by_name, launches = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3 / ticks
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+        launches[e.name] = launches.get(e.name, 0) + 1
+    busy = sum(by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+
+    def rows(items):
+        return [dict(name=n[:90], ms_per_tick=ms,
+                     launches_per_tick=launches[n] / ticks)
+                for n, ms in items]
+
+    return dict(ticks=ticks, tick_ms=wall_ms, device_busy_ms=busy,
+                device_idle_share=(1.0 - busy / wall_ms) if busy else None,
+                device_launches_per_tick=sum(launches.values()) / ticks,
+                top_kernels=rows(ranked[:15]),
+                port_kernels=rows([kv for kv in ranked if "gv_" in kv[0]]))
 
 
 def main() -> None:
@@ -227,9 +469,11 @@ def main() -> None:
         import grid_vision_tpu_torch as gv
         from grid_vision_tpu_torch import pipeline
         from grid_vision_tpu_torch.io.scene import SyntheticScene
-        from grid_vision_tpu_torch.ops import (cuda_build, cuda_grid,
-                                               cuda_knn, cuda_stem)
-        from grid_vision_tpu_torch.runtime.stream import obs_from_scene
+        from grid_vision_tpu_torch.ops import (cuda_build, cuda_csp,
+                                               cuda_grid, cuda_knn,
+                                               cuda_orient, cuda_stem)
+        from grid_vision_tpu_torch.runtime.stream import (FleetPool,
+                                                          obs_from_scene)
         from grid_vision_tpu_torch.demo import default_extrinsics
     except ImportError as e:
         fail(f"grid_vision_tpu_torch not importable next to chip_smoke.py "
@@ -259,7 +503,7 @@ def main() -> None:
             for n, log in cuda_build.ptxas_log.items()}
     phase("build", seconds=round(time.perf_counter() - t0, 3), ptxas=regs)
 
-    # full-width configuration of the main path
+    # the single-rig path's configuration at full width
     cfg = gv.GridVisionConfig(
         detection_weights_file="weights/detector.npz",
         vision_weights_file="weights/orientation.npz",
@@ -271,68 +515,130 @@ def main() -> None:
     scene.add_default_traffic()
     scene.add_default_statics()
     obs_seq = [obs_from_scene(scene, i / 10.0, cfg, dev)
-               for i in range(TICKS)]
+               for i in range(ENGINE_TICKS)]
+    # the fleet configuration of bench.py:240-245 in f32
+    fleet_cfg = dataclasses.replace(
+        cfg, max_points=8192, max_static_depth=16,
+        detector_stem_backend="pallas2", orientation_stem_backend="pallas")
+    fleet = pipeline.Engine(fleet_cfg, extrinsics=engine.extrinsics,
+                            params={k: engine.params[k]
+                                    for k in ("detector", "orientation")},
+                            device=dev)
+    pool = FleetPool(fleet_cfg, N_RIGS, device=dev)
+    t0 = time.perf_counter()
+    fleet_obs = [pool.obs(i) for i in range(FLEET_TICKS)]
+    pool_s = time.perf_counter() - t0
+    det, net = engine.params["detector"], engine.params["orientation"]
 
-    # 3. each kernel against its twin at the main path's shapes
-    results = {}
-    for fn, args in ((check_stem, (engine.params["detector"], cfg)),
-                     (check_grid, (cfg,)),
-                     (check_knn, (cfg, obs_seq[0]))):
-        r = fn(torch, gv, dev, *args)
+    # 3. each kernel against its twin: single-rig shapes, then the fleet's
+    for fn, args in ((check_stem, (det, cfg, 1)), (check_grid, (cfg, None)),
+                     (check_knn, (cfg, obs_seq[0].cloud))):
+        r = fn(torch, dev, *args)
         torch.cuda.synchronize()
+        phase("kernel", path="engine",
+              **{k: v for k, v in r.items() if k != "bound"},
+              bound_ms=r["bound"][0], bound_by=r["bound"][1])
+    results = {}
+    for fn, args in ((check_stem, (det, fleet_cfg, N_RIGS)),
+                     (check_csp, (det, fleet_cfg, N_RIGS)),
+                     (check_orient, (net, fleet_cfg, N_RIGS, BUDGET)),
+                     (check_grid, (fleet_cfg, N_RIGS)),
+                     (check_knn, (fleet_cfg, fleet_obs[0].cloud))):
+        r = fn(torch, dev, *args)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         results[r["name"]] = r
-        phase("kernel", **{k: v for k, v in r.items() if k != "bound"},
+        phase("kernel", path="fleet",
+              **{k: v for k, v in r.items() if k != "bound"},
               bound_ms=r["bound"][0], bound_by=r["bound"][1])
 
-    # 4. the main path, counters from zero
-    modules = {"detector_stem": cuda_stem, "grid_update": cuda_grid,
-               "knn_median_depth": cuda_knn}
+    # 4. the single-rig main path, counters from zero
+    single = {"detector_stem": cuda_stem, "grid_update": cuda_grid,
+              "knn_median_depth": cuda_knn}
+    modules = dict(single, detector_csp=cuda_csp, orient_front=cuda_orient)
     for m in modules.values():
         m.launches = 0
     _, outs, times = run_ticks(torch, engine, obs_seq)
-    launches = {name: m.launches for name, m in modules.items()}
-    for name, n in launches.items():
-        if n != TICKS:
-            fail(f"{name} launched {n} times in {TICKS} ticks")
+    engine_launches = {name: m.launches for name, m in modules.items()}
+    for name, n in engine_launches.items():
+        if n != (ENGINE_TICKS if name in single else 0):
+            fail(f"{name} launched {n} times in {ENGINE_TICKS} ticks")
     plain_cfg = dataclasses.replace(cfg, detector_stem_backend="xla",
                                     grid_backend="xla", knn_backend="xla")
     plain = pipeline.Engine(plain_cfg, extrinsics=engine.extrinsics,
                             params=engine.params, device=dev)
     _, plain_outs, plain_times = run_ticks(torch, plain, obs_seq)
-    agree, n_boxes = [], []
-    for o, p in zip(outs, plain_outs):
-        if o.occupancy_i8.shape != tuple(cfg.grid_size):
-            fail(f"occupancy_i8 shape {tuple(o.occupancy_i8.shape)}")
-        for name, t in (("static_points", o.static_points),
-                        ("static_depths", o.static_depths),
-                        ("boxes", o.boxes.xyxy[o.boxes.valid]),
-                        ("poses", o.poses.position[o.poses.valid])):
-            if not torch.isfinite(t).all():
-                fail(f"non-finite {name} in a valid slot")
-        agree.append((o.occupancy_i8 == p.occupancy_i8).float().mean()
-                     .item())
-        nb = (int(o.boxes.valid.sum()), int(p.boxes.valid.sum()))
-        if nb[0] != nb[1]:
-            fail(f"box counts differ from the plain path: {nb}")
-        n_boxes.append(nb[0])
-    if min(agree) < 0.999:
-        fail(f"occupancy_i8 agreement {min(agree)} < 0.999")
-    phase("engine", ticks=TICKS, launches=launches,
+    agree, n_boxes, n_poses = compare_outputs(torch, cfg, outs, plain_outs,
+                                              per_rig=False)
+    phase("engine", ticks=ENGINE_TICKS, launches=engine_launches,
           median_tick_ms=statistics.median(times),
           plain_median_tick_ms=statistics.median(plain_times),
-          min_occupancy_i8_agreement=min(agree), boxes_per_tick=n_boxes,
-          poses_per_tick=[int(o.poses.valid.sum()) for o in outs],
+          min_occupancy_i8_agreement=agree, boxes_per_tick=n_boxes,
+          poses_per_tick=n_poses,
           occupied_cells_last=int((outs[-1].occupancy_i8 > 50).sum()))
+    del outs, plain_outs
 
-    # 5. the kernels line, then the card, then the device JSON
+    # 5. the fleet path, counters from zero
+    for m in modules.values():
+        m.launches = 0
+    _, fouts, ftimes = run_fleet(torch, fleet, fleet_obs, BUDGET)
+    launches = {name: m.launches for name, m in modules.items()}
+    for name, n in launches.items():
+        if n != FLEET_TICKS:
+            fail(f"{name} launched {n} times in {FLEET_TICKS} fleet ticks")
+    fplain_cfg = dataclasses.replace(
+        fleet_cfg, detector_stem_backend="xla", orientation_stem_backend="xla",
+        grid_backend="xla", knn_backend="xla")
+    fplain = pipeline.Engine(fplain_cfg, extrinsics=engine.extrinsics,
+                             params=fleet.params, device=dev)
+    _, fplain_outs, fplain_times = run_fleet(torch, fplain, fleet_obs,
+                                             BUDGET)
+    fagree, f_boxes, f_poses = compare_outputs(torch, fleet_cfg, fouts,
+                                               fplain_outs, per_rig=True)
+    p3 = pipeline.Engine(dataclasses.replace(
+        fleet_cfg, detector_stem_backend="pallas3"),
+        extrinsics=engine.extrinsics, params=fleet.params, device=dev)
+    _, out3 = p3.fleet(fleet.init_states(N_RIGS), fleet_obs[0], BUDGET)
+    out2 = fouts[0]
+    for name, a, b in (("occupancy_i8", out3.occupancy_i8,
+                        out2.occupancy_i8),
+                       ("boxes", out3.boxes.xyxy, out2.boxes.xyxy),
+                       ("box validity", out3.boxes.valid, out2.boxes.valid),
+                       ("pose validity", out3.poses.valid, out2.poses.valid),
+                       ("poses", out3.poses.position[out3.poses.valid],
+                        out2.poses.position[out2.poses.valid]),
+                       ("static depths", out3.static_depths,
+                        out2.static_depths)):
+        if not torch.equal(a, b):
+            fail(f"the pallas3 fleet tick differs from pallas2 in {name}")
+    med, pmed = statistics.median(ftimes), statistics.median(fplain_times)
+    phase("fleet", rigs=N_RIGS, ticks=FLEET_TICKS, budget=BUDGET,
+          pool_render_s=round(pool_s, 3), launches=launches,
+          median_tick_ms=med, plain_median_tick_ms=pmed,
+          rig_frames_per_s=N_RIGS / med * 1e3,
+          plain_rig_frames_per_s=N_RIGS / pmed * 1e3,
+          tick_ms=ftimes, plain_tick_ms=fplain_times,
+          min_occupancy_i8_agreement_per_rig=fagree, boxes_per_tick=f_boxes,
+          poses_per_tick=f_poses,
+          dropped_per_tick=[int(o.saturation.orientation_dropped.sum())
+                            for o in fouts],
+          pallas3_equals_pallas2=True)
+    # 6. where the fleet tick's device time goes
+    for name, eng in (("kernels", fleet), ("plain", fplain)):
+        phase("profile", path=f"fleet/{name}", **profile_fleet(
+            torch, eng, fleet_obs[0], BUDGET))
+
+    # 7. the kernels line, then the card, then the device JSON
     kernels = []
     for name, r in results.items():
         kernels.append(dict(
             name=name, route="cuda", source=r["source"],
             replaces=r["replaces"], launches=launches[name],
+            launches_single_rig_path=engine_launches[name],
             max_abs_err=r["max_abs_err"], matched=True, ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
-            bound_by=r["bound"][1], library_ms=r["library_ms"]))
+            bound_by=r["bound"][1], library_ms=r["library_ms"],
+            shape=r["shape"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 // k-NN median depth for Hopper (sm_90a).
 //
 // Replaces the TPU kernel grid_vision_tpu/ops/pallas_knn.py
-// (knn_median_depth_pallas -> _knn_kernel): for each box center (cx, cy)
+// (knn_median_depth_pallas -> _knn_kernel, which the fleet path runs under
+// vmap): for each rig and each of its box centers (cx, cy)
 // the k nearest projected cloud points (u, v, depth) under the reference's
 // 3D metric quirk d2 = (cx-u)^2 + (cy-v)^2 + depth^2, then the upper median
 // (index n // 2) of their depths, or -1 when no point is found.
@@ -11,10 +12,13 @@
 // merge key is (d2, index) packed into one 64-bit integer: d2 >= 0 orders
 // like its IEEE bits, the index breaks ties.
 //
-// Bound on this card: launch. At the main path's shapes (16384 points,
-// 64 centers) the call reads ~213 KB once and does ~7 FLOP per
+// Bound on this card: launch. At the single-rig path's shapes (16384
+// points, 64 centers) the call reads ~213 KB once and does ~7 FLOP per
 // (center, point) pair, ~7.3 MFLOP in all: well under a microsecond of
-// either HBM or FP32 time. Design: one block per center; each thread keeps
+// either HBM or FP32 time; a fleet of 64 rigs (8192 points, 16 centers
+// each) is ~59 MFLOP and ~7 MB, still a few microseconds. Design: one
+// launch per fleet tick, one block per (center, rig) with the rig on
+// blockIdx.y; each thread keeps
 // a sorted running top-k over a strided slice of the points in registers
 // (the points stay in L2 across the 64 blocks); the block then merges the
 // per-thread lists in k rounds of a warp-shuffle min over their heads.
@@ -40,10 +44,16 @@ template <int K>
 __global__ void gv_knn_kernel(const float* __restrict__ uvd,
                               const uint8_t* __restrict__ valid,
                               const float* __restrict__ centers, int p,
-                              float* __restrict__ out) {
+                              int n_centers, float* __restrict__ out) {
+  // Per rig (blockIdx.y): uvd (p, 3), valid (p,), centers (n_centers, 2),
+  // out (n_centers,).
+  const int rig = blockIdx.y;
+  uvd += (int64_t)rig * p * 3;
+  valid += (int64_t)rig * p;
   const int box = blockIdx.x;
-  const float cx = centers[2 * box];
-  const float cy = centers[2 * box + 1];
+  const int64_t slot = (int64_t)rig * n_centers + box;
+  const float cx = centers[2 * slot];
+  const float cy = centers[2 * slot + 1];
 
   unsigned long long best[K];
 #pragma unroll
@@ -117,22 +127,25 @@ __global__ void gv_knn_kernel(const float* __restrict__ uvd,
     for (int j = 0; j < K; ++j) {
       if (n_found > 0 && j == n_found / 2) med = d[j];
     }
-    out[box] = med;
+    out[slot] = med;
   }
 }
 
 }  // namespace
 
 extern "C" int gv_knn_median_depth(const float* uvd, const uint8_t* valid,
-                                   const float* centers, int p, int d, int k,
-                                   float* out, cudaStream_t stream) {
-  if (d <= 0) return 0;
+                                   const float* centers, int n_rigs, int p,
+                                   int d, int k, float* out,
+                                   cudaStream_t stream) {
+  if (n_rigs > 65535) return (int)cudaErrorInvalidValue;
+  if (d <= 0 || n_rigs <= 0) return 0;
   const int threads = 256;
+  const dim3 grid(d, n_rigs);
   switch (k) {
 #define GV_KNN_CASE(K)                                                   \
   case K:                                                                \
-    gv_knn_kernel<K><<<d, threads, 0, stream>>>(uvd, valid, centers, p,  \
-                                                out);                    \
+    gv_knn_kernel<K><<<grid, threads, 0, stream>>>(uvd, valid, centers,  \
+                                                   p, d, out);           \
     break;
     GV_KNN_CASE(1)
     GV_KNN_CASE(2)

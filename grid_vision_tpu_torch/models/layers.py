@@ -56,6 +56,12 @@ class BatchNorm(nn.Module):
                             eps=BN_EPS)
 
 
+def fold_bn(bn: BatchNorm) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inference BatchNorm -> per-channel (scale, shift) in f32."""
+    scale = bn.weight.detach() / torch.sqrt(bn.running_var + BN_EPS)
+    return scale, bn.bias.detach() - bn.running_mean * scale
+
+
 class ConvBN(nn.Module):
     """Conv (no bias, SAME) + BatchNorm + activation, NCHW.
     act: "leaky" (slope 0.1, the detector) or "relu" (the orientation net).

@@ -78,14 +78,18 @@ class OrientationNetS2D(nn.Module):
         self.n_conv = i + 1
         self.MultiBinHeads_0 = MultiBinHeads(8 * w, cfg.bins)
 
-    def forward(self, x: torch.Tensor):
-        """x: (N, S, S, 3) standardized crops (NHWC)."""
+    def forward(self, x: torch.Tensor, stem_external: bool = False):
+        """x: (N, S, S, 3) standardized crops (NHWC), or with stem_external
+        ConvBN_0's (N, S/8, S/8, 4w) output (the orientation-front kernel,
+        ops/cuda_orient.py); the parameter tree is the same either way."""
         x = x.float().permute(0, 3, 1, 2)
-        for i in range(self.n_conv):
+        for i in range(1 if stem_external else 0, self.n_conv):
             x = getattr(self, f"ConvBN_{i}")(x)
         return self.MultiBinHeads_0(x.mean(dim=(2, 3)))
 
 
-def forward(model: OrientationNetS2D, crops: torch.Tensor):
-    """crops (N, S, S, 3) -> (orient (N, 2, 2), conf (N, 2), dims (N, 3))."""
-    return model(crops)
+def forward(model: OrientationNetS2D, crops: torch.Tensor,
+            stem_external: bool = False):
+    """crops (N, S, S, 3) (or ConvBN_0's output with stem_external) ->
+    (orient (N, 2, 2), conf (N, 2), dims (N, 3))."""
+    return model(crops, stem_external)

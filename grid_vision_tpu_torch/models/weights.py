@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..config import GridVisionConfig
+from ..device import resolve_device
 from ..utils import checkpoint
 from . import orientation_net, yolov4_tiny
 
@@ -100,11 +101,13 @@ def _resolve(base_dir: str, rel: str) -> str:
 
 
 def load_all(cfg: GridVisionConfig, base_dir: str = ".", seed: int = 0,
-             device="cpu") -> Dict[str, nn.Module]:
+             device="cuda") -> Dict[str, nn.Module]:
     """{"detector": YoloV4Tiny, "orientation": OrientationNetS2D} on
-    `device`, eval mode. Configured npz files load; a net with no file
-    configured, or a missing file (with a WARNING), gets a deterministic
-    random init from a torch.Generator seeded with `seed`."""
+    `device` (the card unless the CPU is asked for), eval mode. Configured
+    npz files load; a net with no file configured, or a missing file (with
+    a WARNING), gets a deterministic random init from a torch.Generator
+    seeded with `seed`."""
+    device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     nets = {"detector": yolov4_tiny.YoloV4Tiny(detector_config(cfg)),
             "orientation": orientation_net.OrientationNetS2D(

@@ -62,7 +62,10 @@ class YoloV4Tiny(nn.Module):
     """Backbone + FPN + 2 raw heads. forward: NHWC in [0, 1] -> two raw
     NHWC head maps. stem_external=True: the input is the post-ConvBN_1
     (B, S/4, S/4, 64) NHWC activation of the fused stem kernel
-    (ops/cuda_stem.py), which reads ConvBN_0/1's weights itself."""
+    (ops/cuda_stem.py), which reads ConvBN_0/1's weights itself.
+    front_external=True: the input is the post-first-max-pool
+    (B, S/8, S/8, 128) activation of the CSP-stage kernel
+    (ops/cuda_csp.py), which also ran ConvBN_2, CSPBlock_0 and the pool."""
 
     def __init__(self, cfg: YoloConfig = YoloConfig()):
         super().__init__()
@@ -84,13 +87,19 @@ class YoloV4Tiny(nn.Module):
         self.ConvBN_9 = ConvBN(384, 256, 3)
         self.head_26 = nn.Conv2d(256, n_out, 1)
 
-    def forward(self, x: torch.Tensor, stem_external: bool = False):
+    def front(self, x: torch.Tensor) -> torch.Tensor:
+        """ConvBN_2 + CSPBlock_0 + the first 2x2 max pool, NCHW: what the
+        CSP-stage kernel computes."""
+        x, _ = self.CSPBlock_0(self.ConvBN_2(x))
+        return F.max_pool2d(x, 2, 2)
+
+    def forward(self, x: torch.Tensor, stem_external: bool = False,
+                front_external: bool = False):
         x = x.float().permute(0, 3, 1, 2)
-        if not stem_external:
-            x = self.ConvBN_1(self.ConvBN_0(x))             # 104
-        x = self.ConvBN_2(x)
-        x, _ = self.CSPBlock_0(x)
-        x = F.max_pool2d(x, 2, 2)                           # 52, 128ch
+        if not front_external:
+            if not stem_external:
+                x = self.ConvBN_1(self.ConvBN_0(x))         # 104
+            x = self.front(x)                               # 52, 128ch
         x = self.ConvBN_3(x)
         x, _ = self.CSPBlock_1(x)
         x = F.max_pool2d(x, 2, 2)                           # 26, 256ch
@@ -143,8 +152,8 @@ def decode(head1: torch.Tensor, head2: torch.Tensor, cfg: YoloConfig):
 
 
 def forward(model: YoloV4Tiny, images: torch.Tensor,
-            stem_external: bool = False):
-    """images (B, S, S, 3) in [0, 1] (or the stem activation) ->
-    (boxes (B, N, 4), confs (B, N, C))."""
-    h1, h2 = model(images, stem_external)
+            stem_external: bool = False, front_external: bool = False):
+    """images (B, S, S, 3) in [0, 1] (or the stem / CSP-stage activation)
+    -> (boxes (B, N, 4), confs (B, N, C))."""
+    h1, h2 = model(images, stem_external, front_external)
     return decode(h1, h2, model.cfg)

@@ -25,7 +25,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "grid_vision_tpu_torch"
-SOURCES = ("cuda_grid", "cuda_knn", "cuda_stem")
+SOURCES = ("cuda_csp", "cuda_grid", "cuda_knn", "cuda_orient", "cuda_stem")
 
 # No --use_fast_math: the grid kernel's log-odds must be bit-equal to the
 # plain torch twin (IEEE expf / division, explicit _rn intrinsics).

@@ -20,18 +20,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..models.layers import BN_EPS, same_pad
+from ..models.layers import fold_bn, same_pad
 from . import cuda_build
 from .preprocess import preprocess_detector_image, _axis_resize_weights
 
 # Kernel launches made by detector_stem_cuda (one per call).
 launches = 0
-
-
-def _fold_bn(bn) -> tuple:
-    """Inference BatchNorm -> per-channel (scale, shift) in f32."""
-    scale = bn.weight.detach() / torch.sqrt(bn.running_var + BN_EPS)
-    return scale, bn.bias.detach() - bn.running_mean * scale
 
 
 def prepare_stem_constants(detector) -> Dict[str, torch.Tensor]:
@@ -43,8 +37,8 @@ def prepare_stem_constants(detector) -> Dict[str, torch.Tensor]:
         c0, c1 = detector.ConvBN_0, detector.ConvBN_1
         w0 = c0.Conv_0.weight.detach()                 # (32, 3, 3, 3)
         w1 = c1.Conv_0.weight.detach()                 # (64, 32, 3, 3)
-        s0, b0 = _fold_bn(c0.BatchNorm_0)
-        s1, b1 = _fold_bn(c1.BatchNorm_0)
+        s0, b0 = fold_bn(c0.BatchNorm_0)
+        s1, b1 = fold_bn(c1.BatchNorm_0)
         return dict(
             w0=w0.permute(2, 3, 1, 0).reshape(27, 32).contiguous(),
             w1=w1.permute(2, 3, 1, 0).reshape(288, 64).contiguous(),

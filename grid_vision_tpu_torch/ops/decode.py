@@ -35,47 +35,53 @@ def denormalize_boxes(xyxy: torch.Tensor, orig_w: int, orig_h: int,
 
 def extract_boxes(boxes_norm: torch.Tensor, confs: torch.Tensor,
                   cfg: GridVisionConfig, with_overflow: bool = False):
-    """boxes_norm (A, 4) normalized xyxy, confs (A, C) -> Boxes of capacity
-    max_detections in confidence-descending order, pixel coordinates. With
+    """boxes_norm (..., A, 4) normalized xyxy, confs (..., A, C) -> Boxes of
+    capacity max_detections in confidence-descending order, pixel
+    coordinates; leading axes are rigs, each decoded on its own. With
     with_overflow also the int32 count of above-threshold anchors dropped by
     the max_candidates compaction."""
     if cfg.class_aware_nms:
         raise NotImplementedError("class_aware_nms is not ported yet")
     dev = boxes_norm.device
-    num_anchors = boxes_norm.shape[0]
-    max_conf, best_class = confs.max(dim=-1)
+    num_anchors = boxes_norm.shape[-2]
+    max_conf = confs.max(dim=-1).values
     # torch.max's index on ties is unspecified; argmax takes the first
     best_class = torch.argmax(
-        (confs == max_conf[:, None]).to(torch.uint8), dim=-1).to(torch.int32)
+        (confs == max_conf[..., None]).to(torch.uint8),
+        dim=-1).to(torch.int32)
     passed = max_conf >= cfg.confidence_threshold
 
     k = min(cfg.max_candidates, num_anchors)
     neg_inf = torch.full((), float("-inf"), device=dev)
     cand_conf, cand_idx = top_k(torch.where(passed, max_conf, neg_inf), k)
     cand_valid = cand_conf > float("-inf")
-    cand_xyxy = boxes_norm[cand_idx]
-    cand_label = best_class[cand_idx]
+    cand_xyxy = torch.take_along_dim(boxes_norm, cand_idx[..., None], dim=-2)
+    cand_label = torch.take_along_dim(best_class, cand_idx, dim=-1)
 
     order, keep = greedy_nms_keep(cand_xyxy, cand_conf, cand_valid,
                                   cfg.iou_threshold)
     # kept rows first, confidence order intact (stable sort of ~keep)
-    compact = torch.sort((~keep).to(torch.uint8), stable=True).indices
-    take = compact[:cfg.max_detections]
-    sel = order[take]
-    out_valid = keep[take]
+    compact = torch.sort((~keep).to(torch.uint8), dim=-1,
+                         stable=True).indices
+    take = compact[..., :cfg.max_detections]
+    sel = torch.take_along_dim(order, take, dim=-1)
+    out_valid = torch.take_along_dim(keep, take, dim=-1)
 
-    xyxy = denormalize_boxes(cand_xyxy[sel], cfg.camera_image_width,
-                             cfg.camera_image_height, cfg.resize)
+    xyxy = denormalize_boxes(
+        torch.take_along_dim(cand_xyxy, sel[..., None], dim=-2),
+        cfg.camera_image_width, cfg.camera_image_height, cfg.resize)
     zero = torch.zeros((), device=dev)
     out = Boxes(
-        xyxy=torch.where(out_valid[:, None], xyxy, zero),
-        confidence=torch.where(out_valid, cand_conf[sel], zero),
-        label=torch.where(out_valid, cand_label[sel],
+        xyxy=torch.where(out_valid[..., None], xyxy, zero),
+        confidence=torch.where(
+            out_valid, torch.take_along_dim(cand_conf, sel, dim=-1), zero),
+        label=torch.where(out_valid,
+                          torch.take_along_dim(cand_label, sel, dim=-1),
                           torch.full((), 10, dtype=torch.int32, device=dev)),
         valid=out_valid,
     )
     if with_overflow:
-        n_passed = passed.sum().to(torch.int32)
+        n_passed = passed.sum(dim=-1).to(torch.int32)
         overflow = torch.clamp(n_passed - k, min=0)
         return out, overflow
     return out

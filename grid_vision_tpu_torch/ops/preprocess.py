@@ -73,10 +73,11 @@ def _interp_weights(length_in: int, lo, hi, frac) -> torch.Tensor:
             + (cols == hi[..., None]) * frac[..., None]).float()
 
 
-def _box_weights(xyxy: torch.Tensor, h: int, w: int, out_size: int):
-    """Per-box bilinear weight matrices ((D, out, h), (D, out, w)) with the
-    getNetworkBoundingBox crop semantics: corners truncated toward zero and
-    clamped to the image, the max column excluded (cv::Rect)."""
+def box_axis_samples(xyxy: torch.Tensor, h: int, w: int, out_size: int):
+    """Per-box bilinear sample triplets ((ylo, yhi, fy), (xlo, xhi, fx)),
+    each (D, out), with the getNetworkBoundingBox crop semantics: corners
+    truncated toward zero and clamped to the image, the max column
+    excluded (cv::Rect)."""
     t = torch.trunc(xyxy).to(torch.int32)
     xmin = t[:, 0].clamp(min=0)
     ymin = t[:, 1].clamp(min=0)
@@ -84,8 +85,14 @@ def _box_weights(xyxy: torch.Tensor, h: int, w: int, out_size: int):
     ymax = t[:, 3].clamp(max=h - 1)
     bw = (xmax - xmin).clamp(min=1).float()
     bh = (ymax - ymin).clamp(min=1).float()
-    ylo, yhi, fy = _bilinear_sample_axis(h, ymin.float(), bh, out_size)
-    xlo, xhi, fx = _bilinear_sample_axis(w, xmin.float(), bw, out_size)
+    return (_bilinear_sample_axis(h, ymin.float(), bh, out_size),
+            _bilinear_sample_axis(w, xmin.float(), bw, out_size))
+
+
+def _box_weights(xyxy: torch.Tensor, h: int, w: int, out_size: int):
+    """Per-box bilinear weight matrices ((D, out, h), (D, out, w)) from
+    box_axis_samples."""
+    (ylo, yhi, fy), (xlo, xhi, fx) = box_axis_samples(xyxy, h, w, out_size)
     return (_interp_weights(h, ylo, yhi, fy),
             _interp_weights(w, xlo, xhi, fx))
 

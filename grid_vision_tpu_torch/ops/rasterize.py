@@ -7,7 +7,8 @@ Update order: decay, then + hit times the number of footprints covering the
 cell (summed over boxes first, added as one fused multiply-add), then one
 clamp, then the sigmoid. Free space
 comes only from the decay (quirk Q2); footprints ignore yaw (quirk Q11); a
-box with any corner off the map is skipped whole.
+box with any corner off the map is skipped whole. Poses and grids may carry
+a leading rig axis.
 """
 
 from __future__ import annotations
@@ -42,10 +43,10 @@ def decay_update(log_odds: torch.Tensor, cfg: GridVisionConfig):
 
 
 def pose_footprint_corners(poses: LShapePoses) -> torch.Tensor:
-    """(D, 4, 2) axis-aligned footprint corners from pose centers and
+    """(..., D, 4, 2) axis-aligned footprint corners from pose centers and
     length / width in base axes, ignoring yaw (quirk Q11)."""
-    px = poses.position[:, 0]
-    py = poses.position[:, 1]
+    px = poses.position[..., 0]
+    py = poses.position[..., 1]
     half_l = poses.length / 2.0
     half_w = poses.width / 2.0
     return torch.stack([
@@ -59,8 +60,8 @@ def pose_footprint_corners(poses: LShapePoses) -> torch.Tensor:
 def corner_window_counts(corners_xy: torch.Tensor, box_valid: torch.Tensor,
                          center, length, resolution: float,
                          n_rows: int, n_cols: int, row0: int = 0):
-    """(n_rows, n_cols) f32 count of valid footprint blocks covering each
-    cell (updateGridCellsFast: a box with any corner off the map is skipped,
+    """(..., n_rows, n_cols) f32 count of valid footprint blocks covering
+    each cell (updateGridCellsFast: a box with any corner off the map is skipped,
     otherwise its inclusive min..max index block counts)."""
     idx, corner_ok = grid_index_from_position(corners_xy, center, length,
                                               resolution)
@@ -70,17 +71,16 @@ def corner_window_counts(corners_xy: torch.Tensor, box_valid: torch.Tensor,
     rows = torch.arange(n_rows, dtype=torch.int32,
                         device=corners_xy.device) + row0
     cols = torch.arange(n_cols, dtype=torch.int32, device=corners_xy.device)
-    row_mask = ((rows[None, :] >= lo[:, 0:1]) & (rows[None, :] <= hi[:, 0:1])
-                & ok[:, None]).float()
-    col_mask = ((cols[None, :] >= lo[:, 1:2])
-                & (cols[None, :] <= hi[:, 1:2])).float()
-    return torch.einsum("dh,dw->hw", row_mask, col_mask)
+    row_mask = ((rows >= lo[..., 0:1]) & (rows <= hi[..., 0:1])
+                & ok[..., None]).float()
+    col_mask = ((cols >= lo[..., 1:2]) & (cols <= hi[..., 1:2])).float()
+    return torch.einsum("...dh,...dw->...hw", row_mask, col_mask)
 
 
 def lshape_update(log_odds: torch.Tensor, poses: LShapePoses,
                   cfg: GridVisionConfig):
     """updateMap(grid, bboxes_pose): decay, footprint hits, clamp, sigmoid.
-    Returns (log_odds, occupancy)."""
+    Returns (log_odds, occupancy), each (..., H, W)."""
     h, w = cfg.grid_size
     counts = corner_window_counts(
         pose_footprint_corners(poses), poses.valid, cfg.grid_center,

@@ -8,17 +8,26 @@ step(params, state, obs, extrinsics, cfg) -> (state', StepOutput):
   3. kNN median depth of the static boxes -> base-frame points;
   4. crop / standardize the dynamic boxes, orientation net, MultiBin;
   5. camera -> base frame;
-  6. grid update (decay, footprint hits, clamp, sigmoid), int8 export.
+  6. grid update (decay, footprint hits, clamp, sigmoid), int8 export;
+  7. the rng split (the JAX package's per-tick jax.random.split).
 
-Backends keep the JAX package's switch values: ``"pallas"`` runs this
-package's CUDA kernel (ops/cuda_stem.py, cuda_grid.py, cuda_knn.py),
-``"xla"`` the plain-torch port of the JAX package's XLA function.
+fleet_step(params, states, obs_b, extrinsics, cfg, orientation_budget)
+runs the same tick over a leading rig axis: one batch-R detector call, the
+orientation crops of all rigs compacted fleet-wide to the top `budget` by
+confidence, and the rest of the tick (the JAX package's vmap of fuse)
+written out with the rig axis, so each kernel launches once per fleet
+tick with the rig batch as its launch grid. The single-rig step is that
+batched tick at R = 1.
 
-This slice ports the vision-orientation path in f32 (the shipped default
-config plus the three kernel backends). Options it does not port yet raise
-NotImplementedError rather than run something else. Divergence: the vision
-path does not advance GridState.rng (the JAX package splits it every tick;
-only the PCA branch draws from it).
+Backends keep the JAX package's switch values: ``"pallas"`` (and for the
+detector ``"pallas2"`` / ``"pallas3"``, which add the CSP-stage kernel)
+runs this package's CUDA kernels (ops/cuda_*.py), ``"xla"`` the
+plain-torch port of the JAX package's XLA function.
+
+This port covers the vision-orientation path in f32 (the shipped default
+config, the fleet configuration of bench.py minus bf16, and every kernel
+backend but the raycast one). Options it does not port yet raise
+NotImplementedError rather than run something else.
 """
 
 from __future__ import annotations
@@ -29,15 +38,17 @@ from typing import Any, Dict
 import torch
 
 from .config import GridVisionConfig
+from .device import resolve_device
 from .geometry import (intrinsic_inverse, intrinsic_matrix, pixel_to_3d,
                        transform_points, transform_pose)
 from .models import orientation_net, weights, yolov4_tiny
-from .ops import (association, cuda_grid, cuda_knn, cuda_stem, multibin,
-                  preprocess, rasterize)
+from .ops import (association, cuda_csp, cuda_grid, cuda_knn, cuda_orient,
+                  cuda_stem, multibin, preprocess, rasterize)
 from .ops.decode import extract_boxes, top_k
 from .taxonomy import is_dynamic
 from .types import (Boxes, Extrinsics, GridState, LShapePoses, Obs,
-                    PointCloud, SaturationStats, StepOutput)
+                    PointCloud, SaturationStats, StepOutput, stack)
+from .utils import prng
 
 
 def check_slice(cfg: GridVisionConfig) -> None:
@@ -48,7 +59,7 @@ def check_slice(cfg: GridVisionConfig) -> None:
         "detector_precision": cfg.detector_precision != "float",
         "detector_s2d_stem": cfg.detector_s2d_stem,
         "detector_stem_backend": cfg.detector_stem_backend not in (
-            "xla", "pallas"),
+            "xla", "pallas", "pallas2", "pallas3"),
         "knn_backend": cfg.knn_backend not in ("xla", "pallas"),
         "use_vision_orientation": not cfg.use_vision_orientation,
         "raycast_free_space": cfg.raycast_free_space,
@@ -57,7 +68,8 @@ def check_slice(cfg: GridVisionConfig) -> None:
         "class_aware_nms": cfg.class_aware_nms,
         "orientation_arch": cfg.orientation_arch != "s2d",
         "orientation_s2d_fold": not cfg.orientation_s2d_fold,
-        "orientation_stem_backend": cfg.orientation_stem_backend != "xla",
+        "orientation_stem_backend": cfg.orientation_stem_backend not in (
+            "xla", "pallas"),
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -66,26 +78,30 @@ def check_slice(cfg: GridVisionConfig) -> None:
             + ", ".join(repr(getattr(cfg, k)) for k in bad))
 
 
-def resolve_device(device) -> torch.device:
-    """torch.device for an entry point; asking for CUDA without a card
-    raises (the port never falls back to the CPU on its own)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: torch.cuda.is_available() is "
-                           "False; pass device='cpu' to run on the CPU")
-    return dev
+def _detector_forward(params, images: torch.Tensor, cfg: GridVisionConfig):
+    """(B, H, W, 3) [0, 255] frames -> (boxes (B, N, 4), confs (B, N, C)).
 
-
-def _detector_input(params, images: torch.Tensor, cfg: GridVisionConfig):
-    """(B, H, W, 3) [0, 255] frames -> (net input, stem_external)."""
-    if cfg.detector_stem_backend == "pallas":
-        consts = params.get("detector_stem")
-        if consts is None:
-            consts = cuda_stem.prepare_stem_constants(params["detector"])
-        return cuda_stem.detector_stem_cuda(images, consts, cfg.resize), True
-    net_in = torch.stack([preprocess.preprocess_detector_image(im, cfg.resize)
-                          for im in images])
-    return net_in, False
+    "pallas" feeds the net the stem kernel's stage-2 activation
+    (stem_external); "pallas2" and "pallas3", two TPU layouts of one CSP
+    stage, both add the CSP-stage kernel (front_external). The folded
+    constants ride in params when the Engine prepared them."""
+    backend = cfg.detector_stem_backend
+    detector = params["detector"]
+    if backend == "xla":
+        net_in = torch.stack([preprocess.preprocess_detector_image(
+            im, cfg.resize) for im in images])
+        return yolov4_tiny.forward(detector, net_in)
+    consts = params.get("detector_stem")
+    if consts is None:
+        consts = cuda_stem.prepare_stem_constants(detector)
+    x = cuda_stem.detector_stem_cuda(images, consts, cfg.resize)
+    if backend == "pallas":
+        return yolov4_tiny.forward(detector, x, stem_external=True)
+    csp = params.get("detector_csp")
+    if csp is None:
+        csp = cuda_csp.prepare_csp_constants(detector)
+    x = cuda_csp.detector_csp_cuda(x, detector, csp)
+    return yolov4_tiny.forward(detector, x, front_external=True)
 
 
 def detect(params: Dict[str, Any], image: torch.Tensor,
@@ -97,24 +113,34 @@ def detect(params: Dict[str, Any], image: torch.Tensor,
 def detect_with_stats(params: Dict[str, Any], image: torch.Tensor,
                       cfg: GridVisionConfig):
     """detect + the pre-NMS overflow counter."""
-    net_in, external = _detector_input(params, image[None], cfg)
-    boxes_norm, confs = yolov4_tiny.forward(params["detector"], net_in,
-                                            external)
+    boxes_norm, confs = _detector_forward(params, image[None], cfg)
     return extract_boxes(boxes_norm[0], confs[0], cfg, with_overflow=True)
 
 
+def detect_batch(params: Dict[str, Any], images: torch.Tensor,
+                 cfg: GridVisionConfig):
+    """detect over a rig batch (R, H, W, 3) -> (Boxes, overflow) with a
+    leading rig axis: one batch-R detector call, then each rig's decode and
+    NMS (batched over the rig axis)."""
+    boxes_norm, confs = _detector_forward(params, images, cfg)
+    return extract_boxes(boxes_norm, confs, cfg, with_overflow=True)
+
+
 def _compact_dynamic(boxes: Boxes, capacity: int):
-    """First `capacity` dynamic boxes in confidence order (quirk Q7 clamp).
-    Returns (Boxes, take_idx)."""
+    """First `capacity` dynamic boxes in confidence order (quirk Q7 clamp),
+    per rig when boxes carry a rig axis. Returns (Boxes, take_idx)."""
     dyn = boxes.valid & is_dynamic(boxes.label)
-    order = torch.sort((~dyn).to(torch.uint8), stable=True).indices
-    order = order[:capacity]
-    return boxes.take(order, valid=dyn[order]), order
+    order = torch.sort((~dyn).to(torch.uint8), dim=-1, stable=True).indices
+    order = order[..., :capacity]
+    return boxes.take(order, valid=torch.take_along_dim(dyn, order, -1)), \
+        order
 
 
 def _vision_orientation_poses(params, image: torch.Tensor, boxes: Boxes,
                               K: torch.Tensor, cfg: GridVisionConfig):
-    """The use_vision_orientation branch (:190-209), camera frame."""
+    """The use_vision_orientation branch (:190-209) of one rig, camera
+    frame: its first max_orientation_batch dynamic boxes through the crop
+    chain and the full net."""
     dyn_boxes, _ = _compact_dynamic(boxes, cfg.max_orientation_batch)
     crops = preprocess.crop_resize_standardize(image, dyn_boxes,
                                                cfg.network_height)
@@ -122,28 +148,89 @@ def _vision_orientation_poses(params, image: torch.Tensor, boxes: Boxes,
     return multibin.multibin_poses(orient, conf, dims, dyn_boxes, K, cfg)
 
 
-@torch.no_grad()
-def step(params: Dict[str, Any], state: GridState, obs: Obs,
-         extrinsics: Extrinsics, cfg: GridVisionConfig):
-    """One fused tick. Returns (new GridState, StepOutput)."""
-    check_slice(cfg)
-    boxes, prenms_overflow = detect_with_stats(params, obs.image, cfg)
-    return fuse(params, state, obs, boxes, extrinsics, cfg,
-                prenms_overflow=prenms_overflow)
+def _fleet_vision_poses(params, images: torch.Tensor, boxes_b: Boxes,
+                        K: torch.Tensor, cfg: GridVisionConfig, budget: int):
+    """Fleet-compacted vision orientation: each rig clamps to
+    max_orientation_batch dynamic boxes (Q7), then the `budget`
+    highest-confidence candidates fleet-wide (ties to the lower slot) go
+    through the orientation net in one batch, and their camera-frame poses
+    scatter back to (R, cap) slots.
+
+    orientation_stem_backend="pallas": the orientation-front kernel crops,
+    standardizes and runs ConvBN_0 for the kept crops only (sorted, so each
+    rig's crops are adjacent), then the net with stem_external; "xla": each
+    rig's slots are cropped against its own frame, the kept crops
+    standardized after compaction, then the full net.
+
+    Returns (poses_b (R, cap) LShapePoses, dropped_b (R,) int32 valid
+    candidates lost to the budget)."""
+    n_rigs = images.shape[0]
+    cap = cfg.max_orientation_batch
+    budget = min(budget, n_rigs * cap)
+    size = cfg.network_height
+
+    dyn_b, _ = _compact_dynamic(boxes_b, cap)                 # (R, cap)
+    flat = Boxes(xyxy=dyn_b.xyxy.reshape(-1, 4),
+                 confidence=dyn_b.confidence.reshape(-1),
+                 label=dyn_b.label.reshape(-1),
+                 valid=dyn_b.valid.reshape(-1))
+    score = torch.where(flat.valid, flat.confidence,
+                        torch.full((), -1.0, device=images.device))
+    _, top_idx = top_k(score, budget)
+    model = params["orientation"]
+    if cfg.orientation_stem_backend == "pallas":
+        top_idx = torch.sort(top_idx).values
+        g_boxes = flat.take(top_idx)
+        consts = params.get("orientation_stem")
+        if consts is None:
+            consts = cuda_orient.prepare_orient_constants(model)
+        acts = cuda_orient.orient_front_cuda(
+            images, g_boxes.xyxy, g_boxes.valid, top_idx // cap, model,
+            consts, size)
+        orient, conf, dims = orientation_net.forward(model, acts,
+                                                     stem_external=True)
+    else:
+        g_boxes = flat.take(top_idx)
+        crops_raw = torch.cat([preprocess.crop_resize(
+            images[r], dyn_b.select(r), size) for r in range(n_rigs)])
+        crops = preprocess._standardize(crops_raw[top_idx], g_boxes.valid)
+        orient, conf, dims = orientation_net.forward(model, crops)
+    poses_g = multibin.multibin_poses(orient, conf, dims, g_boxes, K, cfg)
+
+    def scatter(x, fill):
+        out = torch.full((n_rigs * cap,) + x.shape[1:], fill, dtype=x.dtype,
+                         device=x.device)
+        out[top_idx] = x
+        return out.reshape((n_rigs, cap) + x.shape[1:])
+
+    poses_b = LShapePoses(
+        position=scatter(poses_g.position, 0.0),
+        quat=scatter(poses_g.quat, 0.0),
+        length=scatter(poses_g.length, 0.0),
+        width=scatter(poses_g.width, 0.0),
+        height=scatter(poses_g.height, 0.0),
+        label=scatter(poses_g.label, 0),
+        valid=scatter(poses_g.valid, False))
+    n_valid = flat.valid.reshape(n_rigs, cap).sum(dim=-1)
+    n_kept = scatter(g_boxes.valid, False).sum(dim=-1)
+    return poses_b, (n_valid - n_kept).to(torch.int32)
 
 
-@torch.no_grad()
-def fuse(params: Dict[str, Any], state: GridState, obs: Obs, boxes: Boxes,
-         extrinsics: Extrinsics, cfg: GridVisionConfig,
-         prenms_overflow: torch.Tensor | None = None):
-    """Everything after 2D detection: association, poses, grid update,
-    outputs. Split out so tests can inject known boxes."""
-    check_slice(cfg)
+def _fuse_rigs(state: GridState, obs: Obs, boxes: Boxes,
+               extrinsics: Extrinsics, cfg: GridVisionConfig,
+               poses_cam: LShapePoses, prenms_overflow: torch.Tensor,
+               orientation_dropped: torch.Tensor):
+    """Everything after 2D detection for R rigs at once (the JAX package's
+    vmap of fuse with injected camera-frame poses): every tensor carries a
+    leading rig axis; boxes (R, D), poses_cam (R, cap), counters (R,)."""
     dev = state.log_odds.device
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    n_rigs = state.log_odds.shape[0]
+    zero = torch.zeros((n_rigs,), dtype=torch.int32, device=dev)
     minus_one = torch.full((), -1.0, device=dev)
+    rng_next = prng.split(state.rng)[..., 1, :]
 
-    boxes = dataclasses.replace(boxes, valid=boxes.valid & obs.has_image)
+    boxes = dataclasses.replace(boxes,
+                                valid=boxes.valid & obs.has_image[:, None])
     static_mask = boxes.valid & ~is_dynamic(boxes.label)
 
     # cloud to the camera frame (replaces TF2)
@@ -155,14 +242,15 @@ def fuse(params: Dict[str, Any], state: GridState, obs: Obs, boxes: Boxes,
     uvd, uvd_valid = association.project_cloud_to_image(
         PointCloud(xyz=cloud_cam, intensity=obs.cloud.intensity,
                    count=obs.cloud.count), K)
-    uvd_valid = uvd_valid & obs.has_cloud
+    uvd_valid = uvd_valid & obs.has_cloud[:, None]
     if cfg.max_static_depth < boxes.capacity:
         # compact the static split to max_static_depth query slots
         # (highest confidence first); clamped boxes keep depth -1
         score = torch.where(static_mask, boxes.confidence, minus_one)
         _, knn_take = top_k(score, cfg.max_static_depth)
-        q_boxes = boxes.take(knn_take, valid=static_mask[knn_take])
-        n_static = static_mask.sum().to(torch.int32)
+        q_boxes = boxes.take(knn_take, valid=torch.take_along_dim(
+            static_mask, knn_take, -1))
+        n_static = static_mask.sum(dim=-1).to(torch.int32)
         static_depth_clamped = torch.clamp(n_static - cfg.max_static_depth,
                                            min=0)
     else:
@@ -177,23 +265,21 @@ def fuse(params: Dict[str, Any], state: GridState, obs: Obs, boxes: Boxes,
     if knn_take is None:
         depths = q_depths
     else:
-        depths = torch.full((boxes.capacity,), -1.0, device=dev)
-        depths[knn_take] = torch.where(q_boxes.valid, q_depths, minus_one)
+        depths = torch.full(boxes.valid.shape, -1.0, device=dev).scatter(
+            -1, knn_take, torch.where(q_boxes.valid, q_depths, minus_one))
     cam_points = pixel_to_3d(boxes.centers(), depths, K_inv)
     base_points = transform_points(extrinsics.camera_to_base, cam_points)
-    static_points = torch.where(static_mask[:, None], base_points,
+    static_points = torch.where(static_mask[..., None], base_points,
                                 torch.zeros((), device=dev))
 
-    # dynamic branch: vision-orientation poses (camera frame)
-    poses_cam = _vision_orientation_poses(params, obs.image, boxes, K, cfg)
-    n_dyn = (boxes.valid & is_dynamic(boxes.label)).sum().to(torch.int32)
+    n_dyn = (boxes.valid & is_dynamic(boxes.label)).sum(dim=-1).to(
+        torch.int32)
     saturation = SaturationStats(
-        prenms_overflow=(zero if prenms_overflow is None
-                         else prenms_overflow.to(torch.int32)),
+        prenms_overflow=prenms_overflow.to(torch.int32),
         orientation_clamped=torch.clamp(n_dyn - cfg.max_orientation_batch,
                                         min=0),
         box_cloud_truncated=zero,
-        orientation_dropped=zero,
+        orientation_dropped=orientation_dropped.to(torch.int32),
         static_depth_clamped=static_depth_clamped,
     )
 
@@ -210,11 +296,11 @@ def fuse(params: Dict[str, Any], state: GridState, obs: Obs, boxes: Boxes,
         new_lo, new_occ = rasterize.lshape_update(state.log_odds, poses, cfg)
 
     # Q1 gate: both inputs missing -> no update at all (not even decay)
-    run_gate = obs.has_image | obs.has_cloud
+    run_gate = (obs.has_image | obs.has_cloud)[:, None, None]
     new_lo = torch.where(run_gate, new_lo, state.log_odds)
     new_occ = torch.where(run_gate, new_occ, state.occupancy)
 
-    new_state = GridState(log_odds=new_lo, occupancy=new_occ, rng=state.rng,
+    new_state = GridState(log_odds=new_lo, occupancy=new_occ, rng=rng_next,
                           step=state.step + 1)
     out = StepOutput(
         boxes=boxes,
@@ -228,8 +314,67 @@ def fuse(params: Dict[str, Any], state: GridState, obs: Obs, boxes: Boxes,
     return new_state, out
 
 
+@torch.no_grad()
+def step(params: Dict[str, Any], state: GridState, obs: Obs,
+         extrinsics: Extrinsics, cfg: GridVisionConfig):
+    """One fused tick. Returns (new GridState, StepOutput)."""
+    check_slice(cfg)
+    boxes, prenms_overflow = detect_with_stats(params, obs.image, cfg)
+    return fuse(params, state, obs, boxes, extrinsics, cfg,
+                prenms_overflow=prenms_overflow)
+
+
+@torch.no_grad()
+def fuse(params: Dict[str, Any], state: GridState, obs: Obs, boxes: Boxes,
+         extrinsics: Extrinsics, cfg: GridVisionConfig,
+         prenms_overflow: torch.Tensor | None = None):
+    """Everything after 2D detection for one rig: association, poses, grid
+    update, outputs. Split out so tests can inject known boxes. Runs the
+    rig-batched tick at R = 1."""
+    check_slice(cfg)
+    dev = state.log_odds.device
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    gated = dataclasses.replace(boxes, valid=boxes.valid & obs.has_image)
+    K = intrinsic_matrix(cfg.fx, cfg.fy, cfg.cx, cfg.cy, device=dev)
+    poses_cam = _vision_orientation_poses(params, obs.image, gated, K, cfg)
+    state1, obs1, boxes1, poses1 = (stack([v]) for v in (state, obs, boxes,
+                                                         poses_cam))
+    overflow = zero if prenms_overflow is None else prenms_overflow
+    new_state, out = _fuse_rigs(state1, obs1, boxes1, extrinsics, cfg,
+                                poses1, overflow[None], zero[None])
+    return new_state.select(0), out.select(0)
+
+
+@torch.no_grad()
+def fleet_step(params: Dict[str, Any], states: GridState, obs_b: Obs,
+               extrinsics: Extrinsics, cfg: GridVisionConfig,
+               orientation_budget: int | None = None):
+    """The tick over a leading rig axis: states and obs_b carry (R, ...)
+    tensors (GridState.create_batch, runtime.stream.FleetPool). The
+    orientation crops of all rigs are compacted fleet-wide to the top
+    `orientation_budget` by confidence; None keeps every rig's
+    max_orientation_batch slots, which equals per-rig step. Returns
+    (states', StepOutput with a rig axis)."""
+    check_slice(cfg)
+    if not cfg.use_vision_orientation:
+        raise NotImplementedError("fleet_step's PCA mode is not in the "
+                                  "torch port yet")
+    n_rigs = obs_b.image.shape[0]
+    budget = (n_rigs * cfg.max_orientation_batch
+              if orientation_budget is None else orientation_budget)
+    boxes_b, overflow_b = detect_batch(params, obs_b.image, cfg)
+    boxes_b = dataclasses.replace(
+        boxes_b, valid=boxes_b.valid & obs_b.has_image[:, None])
+    K = intrinsic_matrix(cfg.fx, cfg.fy, cfg.cx, cfg.cy,
+                         device=obs_b.image.device)
+    poses_b, dropped_b = _fleet_vision_poses(
+        params, obs_b.image, boxes_b, K, cfg, budget)
+    return _fuse_rigs(states, obs_b, boxes_b, extrinsics, cfg, poses_b,
+                      overflow_b, dropped_b)
+
+
 class Engine:
-    """Stateful wrapper: owns the nets, the folded stem constants and the
+    """Stateful wrapper: owns the nets, the folded kernel constants and the
     extrinsics on one device (the GridVision ctor, grid_vision_node.cpp:
     5-77). Runs on CUDA unless device="cpu" is asked for; asking for CUDA
     without a card raises.
@@ -252,15 +397,34 @@ class Engine:
             params = weights.load_all(cfg, base_dir=base_dir, seed=seed,
                                       device=self.device)
         params = dict(params)
-        if (cfg.detector_stem_backend == "pallas"
+        # fold the kernels' weights once, not per tick
+        if (cfg.detector_stem_backend != "xla"
                 and "detector_stem" not in params):
-            # fold the stem weights once, not per tick
             params["detector_stem"] = cuda_stem.prepare_stem_constants(
                 params["detector"])
+        if (cfg.detector_stem_backend in ("pallas2", "pallas3")
+                and "detector_csp" not in params):
+            params["detector_csp"] = cuda_csp.prepare_csp_constants(
+                params["detector"])
+        if (cfg.orientation_stem_backend == "pallas"
+                and "orientation_stem" not in params):
+            params["orientation_stem"] = \
+                cuda_orient.prepare_orient_constants(params["orientation"])
         self.params = params
 
     def init_state(self, seed: int = 0) -> GridState:
         return GridState.create(self.cfg, seed, device=self.device)
 
+    def init_states(self, n_rigs: int, seed: int = 0) -> GridState:
+        """Stacked states of n_rigs rigs (rig r seeded seed + r)."""
+        return GridState.create_batch(self.cfg, n_rigs, seed,
+                                      device=self.device)
+
     def __call__(self, state: GridState, obs: Obs):
         return step(self.params, state, obs, self.extrinsics, self.cfg)
+
+    def fleet(self, states: GridState, obs_b: Obs,
+              orientation_budget: int | None = None):
+        """fleet_step on this engine's nets: (states', StepOutput)."""
+        return fleet_step(self.params, states, obs_b, self.extrinsics,
+                          self.cfg, orientation_budget)

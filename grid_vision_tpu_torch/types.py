@@ -8,7 +8,9 @@ Reference counterparts:
   GridState  <-> OccupancyGridMap.grid_map_ (occupancy_grid.hpp:22)
   Obs        <-> (init_image_, cloud_) latest-frame buffers
 
-Every ``create``/``empty`` takes an explicit ``device``.
+Every ``create``/``empty`` takes an explicit ``device``. The fleet path
+carries the same types with a leading rig axis on every tensor
+(``GridState.create_batch``, ``stack``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from .config import GridVisionConfig
+from .utils import prng
 
 
 def _map(obj, fn):
@@ -30,9 +33,32 @@ def _map(obj, fn):
     return type(obj)(**kw)
 
 
+def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[..., idx[...], :] along the axis idx indexes (the last axis of
+    idx); leading axes broadcast, trailing axes of x ride along."""
+    extra = x.dim() - idx.dim()
+    return torch.take_along_dim(x, idx.reshape(idx.shape + (1,) * extra),
+                                dim=idx.dim() - 1)
+
+
 class _Tensors:
     def to(self, device):
         return _map(self, lambda t: t.to(device))
+
+    def select(self, i):
+        """Rig i of a stacked value (every tensor indexed on axis 0)."""
+        return _map(self, lambda t: t[i])
+
+
+def stack(values):
+    """Stack same-typed values along a new leading rig axis."""
+    first = values[0]
+    kw = {}
+    for f in dataclasses.fields(first):
+        parts = [getattr(v, f.name) for v in values]
+        kw[f.name] = (torch.stack(parts) if isinstance(parts[0], torch.Tensor)
+                      else stack(parts))
+    return type(first)(**kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,10 +87,14 @@ class Boxes(_Tensors):
         return self.xyxy.shape[-2]
 
     def take(self, idx: torch.Tensor, valid=None) -> "Boxes":
-        """Rows idx of every field (valid overridable)."""
-        return Boxes(xyxy=self.xyxy[idx], confidence=self.confidence[idx],
-                     label=self.label[idx],
-                     valid=self.valid[idx] if valid is None else valid)
+        """Slots idx of every field (valid overridable). idx indexes the
+        slot axis and may carry leading rig axes: (R, K) picks K slots of
+        each rig."""
+        return Boxes(xyxy=_take_rows(self.xyxy, idx),
+                     confidence=_take_rows(self.confidence, idx),
+                     label=_take_rows(self.label, idx),
+                     valid=(_take_rows(self.valid, idx) if valid is None
+                            else valid))
 
     def centers(self) -> torch.Tensor:
         """``min + (max - min)/2`` (cloud_detections.cpp:57-58)."""
@@ -138,7 +168,7 @@ class PointCloud(_Tensors):
 
     def mask(self) -> torch.Tensor:
         return (torch.arange(self.capacity, device=self.xyz.device)
-                < self.count)
+                < self.count[..., None])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,8 +209,8 @@ class GridState(_Tensors):
     grid_map buffer order, rng, step () int32.
 
     rng is the JAX package's threefry key layout, a (2,) uint32 tensor
-    [0, seed]. Only the PCA branch draws from it; the vision path never
-    advances it (unlike the JAX package, which splits it every step)."""
+    (jax.random.PRNGKey(seed)); every tick splits it as the JAX package
+    does (utils/prng.py)."""
 
     log_odds: torch.Tensor
     occupancy: torch.Tensor
@@ -196,8 +226,22 @@ class GridState(_Tensors):
                                 dtype=torch.float32, device=device),
             occupancy=torch.full((h, w), cfg.init_probability,
                                  dtype=torch.float32, device=device),
-            rng=torch.tensor([0, seed], dtype=torch.uint32, device=device),
+            rng=prng.prng_key(seed, device=device),
             step=torch.zeros((), dtype=torch.int32, device=device))
+
+    @staticmethod
+    def create_batch(cfg: GridVisionConfig, n: int, seed: int = 0,
+                     device=None) -> "GridState":
+        """n stacked rig states; rig r's key is PRNGKey(seed + r)."""
+        h, w = cfg.grid_size
+        return GridState(
+            log_odds=torch.full((n, h, w), cfg.log_odds_prior,
+                                dtype=torch.float32, device=device),
+            occupancy=torch.full((n, h, w), cfg.init_probability,
+                                 dtype=torch.float32, device=device),
+            rng=torch.stack([prng.prng_key(seed + r, device=device)
+                             for r in range(n)]),
+            step=torch.zeros((n,), dtype=torch.int32, device=device))
 
 
 @dataclasses.dataclass(frozen=True)

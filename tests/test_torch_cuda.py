@@ -15,8 +15,8 @@ import torch
 
 from grid_vision_tpu_torch.config import GridVisionConfig
 from grid_vision_tpu_torch.models import weights
-from grid_vision_tpu_torch.ops import (association, cuda_grid, cuda_knn,
-                                       cuda_stem)
+from grid_vision_tpu_torch.ops import (association, cuda_csp, cuda_grid,
+                                       cuda_knn, cuda_orient, cuda_stem)
 from grid_vision_tpu_torch.types import LShapePoses, PointCloud
 
 torch.set_num_threads(1)
@@ -122,3 +122,107 @@ def test_stem_kernel_matches_twin(cuda_device, h, w, size):
     ref = cuda_stem.detector_stem_plain(img, consts, size)
     assert got.shape == (2, -(-size // 4), -(-size // 4), 64)
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_batched_grid_kernel_bit_equal_and_r1_equals_single(cuda_device):
+    rng = np.random.default_rng(5)
+    lo = torch.as_tensor(rng.uniform(-2, 3.6, (4,) + CFG.grid_size)
+                         .astype(np.float32), device=cuda_device)
+    ranges = torch.stack([cuda_grid.box_index_ranges(
+        _poses(rng, 8, cuda_device), CFG) for _ in range(4)]).contiguous()
+    n0 = cuda_grid.launches
+    lo_k, occ_k = cuda_grid.grid_update(lo, ranges, CFG)
+    torch.cuda.synchronize()
+    assert cuda_grid.launches == n0 + 1
+    lo_p, occ_p = cuda_grid.grid_update_plain(lo, ranges, CFG)
+    assert torch.equal(lo_k, lo_p)
+    torch.testing.assert_close(occ_k, occ_p, rtol=0, atol=1e-7)
+    lo1, occ1 = cuda_grid.grid_update(lo[2:3].contiguous(),
+                                      ranges[2:3].contiguous(), CFG)
+    lo_s, occ_s = cuda_grid.grid_update(lo[2].contiguous(),
+                                        ranges[2].contiguous(), CFG)
+    assert torch.equal(lo1[0], lo_s) and torch.equal(occ1[0], occ_s)
+    assert torch.equal(lo1[0], lo_k[2])
+
+
+@pytest.mark.cuda
+def test_batched_knn_kernel_equals_twin_and_r1_equals_single(cuda_device):
+    rng = np.random.default_rng(6)
+    uvds, valids = [], []
+    for r in range(4):
+        xyz = rng.integers(-4, 5, size=(8192, 3)).astype(np.float32)
+        xyz[:, 2] = np.abs(xyz[:, 2]) + 1.0             # many equal d2
+        cloud = PointCloud.from_numpy(xyz[:6000 + 500 * r], None, 8192,
+                                      device=cuda_device)
+        uvd, valid = association.project_cloud_to_image(
+            cloud, torch.as_tensor(K_NP, device=cuda_device))
+        uvds.append(uvd)
+        valids.append(valid)
+    uvd, valid = torch.stack(uvds), torch.stack(valids)
+    centers = torch.as_tensor(rng.uniform(-50, 700, (4, 16, 2))
+                              .astype(np.float32), device=cuda_device)
+    n0 = cuda_knn.launches
+    got = cuda_knn.knn_median_depth_centers_cuda(uvd, valid, centers, 4)
+    torch.cuda.synchronize()
+    assert cuda_knn.launches == n0 + 1 and got.shape == (4, 16)
+    ref = cuda_knn.knn_median_depth_plain(uvd, valid, centers, 4)
+    assert torch.equal(got, ref)
+    one = cuda_knn.knn_median_depth_centers_cuda(
+        uvd[1:2].contiguous(), valid[1:2].contiguous(),
+        centers[1:2].contiguous(), 4)
+    single = cuda_knn.knn_median_depth_centers_cuda(
+        uvd[1].contiguous(), valid[1].contiguous(), centers[1].contiguous(),
+        4)
+    assert torch.equal(one[0], single) and torch.equal(single, got[1])
+
+
+@pytest.mark.cuda
+def test_csp_kernel_matches_twin(cuda_device):
+    """rtol = atol = 1e-4 on the shipped detector (f32 sums in another
+    order; TF32 off for the twin's convs)."""
+    cfg = GridVisionConfig(detection_weights_file="weights/detector.npz")
+    det = weights.load_all(cfg, device=cuda_device)["detector"]
+    consts = cuda_csp.prepare_csp_constants(det)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.rand((2, 104, 104, 64), generator=g, device=cuda_device) * 4
+    n0 = cuda_csp.launches
+    with torch.no_grad():
+        got = cuda_csp.detector_csp_cuda(x, det, consts)
+        torch.cuda.synchronize()
+        ref = cuda_csp.detector_csp_plain(x, det)
+    assert cuda_csp.launches == n0 + 1
+    assert got.shape == (2, 52, 52, 128)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_orient_kernel_matches_twin(cuda_device):
+    """Interior, clamped, tiny and invalid boxes over three frames, atol =
+    rtol = 1e-3; a flat (sub-pixel) crop is held only to finiteness."""
+    cfg = GridVisionConfig(vision_weights_file="weights/orientation.npz")
+    net = weights.load_all(cfg, device=cuda_device)["orientation"]
+    consts = cuda_orient.prepare_orient_constants(net)
+    rng = np.random.default_rng(7)
+    images = torch.as_tensor(rng.uniform(0, 255, (3, 480, 640, 3))
+                             .astype(np.float32), device=cuda_device)
+    xyxy = np.array([[-30, -20, 200, 180], [500, 300, 700, 520],
+                     [100.2, 100.7, 106.4, 105.1], [50, 60, 350, 300],
+                     [10, 400, 90, 470], [300, 100, 330, 400],
+                     [100, 100, 100.4, 100.4]], np.float32)
+    valid = np.array([1, 1, 1, 1, 1, 0, 1], bool)
+    rig = np.array([0, 2, 1, 1, 0, 2, 1], np.int32)
+    args = [torch.as_tensor(a, device=cuda_device)
+            for a in (xyxy, valid, rig)]
+    n0 = cuda_orient.launches
+    with torch.no_grad():
+        got = cuda_orient.orient_front_cuda(images, *args, net, consts, 224)
+        torch.cuda.synchronize()
+        ref = cuda_orient.orient_front_plain(images, *args, net, 224)
+    assert cuda_orient.launches == n0 + 1
+    assert got.shape == (7, 28, 28, 128)
+    torch.testing.assert_close(got[:6], ref[:6], rtol=1e-3, atol=1e-3)
+    assert torch.isfinite(got[6]).all()
+    torch.testing.assert_close(
+        got[5], torch.relu(consts["t"]).expand(28, 28, 128), rtol=0,
+        atol=0)

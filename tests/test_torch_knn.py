@@ -4,6 +4,7 @@ untied clouds at rtol 1e-6, and association.knn_median_depth on a heavily
 tied cloud exactly (equal d2 resolves to the lowest point index; the Pallas
 kernel's own tie rule differs and is not the reference)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -99,3 +100,34 @@ def test_empty_and_sparse_clouds():
         got = cuda_knn.knn_median_depth_cuda(tuvd, tvalid, tb, 4).numpy()
         np.testing.assert_array_equal(got, ref)
 
+
+
+def test_batched_twin_matches_vmapped_pallas():
+    """Three rigs' clouds and boxes in one call ((R, P, 3) points, (R, D)
+    boxes) against the JAX Pallas kernel under vmap, as the JAX fleet path
+    runs it, rtol 1e-6, and against the port's per-rig calls exactly."""
+    projections = [both_projections(random_cloud(seed), 1024)
+                   for seed in (3, 4, 5)]
+    juvd = jnp.stack([p[0][0] for p in projections])
+    jvalid = jnp.stack([p[0][1] for p in projections])
+    tuvd = torch.stack([p[1][0] for p in projections])
+    tvalid = torch.stack([p[1][1] for p in projections])
+    jb, tb = both_boxes()
+    jbb = jax.tree_util.tree_map(lambda a: jnp.stack([a] * 3), jb)
+    shift = torch.tensor([0.0, 30.0, -20.0])[:, None, None]
+    tbb = Boxes(xyxy=tb.xyxy[None] + shift,
+                confidence=torch.stack([tb.confidence] * 3),
+                label=torch.stack([tb.label] * 3),
+                valid=torch.stack([tb.valid] * 3))
+    jbb = jbb.__class__(xyxy=jnp.asarray(tbb.xyxy.numpy()),
+                        confidence=jbb.confidence, label=jbb.label,
+                        valid=jbb.valid)
+    ref = np.asarray(jax.vmap(lambda u, v, b: knn_median_depth_pallas(
+        u, v, b, 4))(juvd, jvalid, jbb))
+    got = cuda_knn.knn_median_depth_cuda(tuvd, tvalid, tbb, 4)
+    assert got.shape == (3, tb.capacity)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6)
+    for r in range(3):
+        one = cuda_knn.knn_median_depth_cuda(tuvd[r], tvalid[r],
+                                             tbb.select(r), 4)
+        assert torch.equal(one, got[r])

@@ -6,7 +6,8 @@ a reduced size, the same random weights on both sides.
 
 Tolerances: boxes, static depths / points and poses 1e-4; occupancy_i8
 agreement >= 99.9% per tick (exact is expected and is what this run
-gives). Also: importing the port pulls in no JAX module."""
+gives); log-odds and the rng key bit-equal. Also: importing the port
+pulls in no JAX module."""
 
 import dataclasses
 import functools
@@ -54,7 +55,7 @@ def _params(seed):
     for head in ("head_13", "head_26"):
         p = tree["detector"]["params"][head]
         p["kernel"] = p["kernel"] * HEAD_SCALE
-    nets = weights.load_all(GridVisionConfig(**SMALL))
+    nets = weights.load_all(GridVisionConfig(**SMALL), device="cpu")
     for key in ("detector", "orientation"):
         weights.load_module(nets[key], tree[key])
     return tree, nets
@@ -70,7 +71,7 @@ def test_step_matches_jax_step(seed):
     jcfg, cfg = JaxConfig(**SMALL), GridVisionConfig(**SMALL)
     tree, nets = _params(seed)
     jstep = jax.jit(functools.partial(jpipe.step, cfg=jcfg))
-    eng = pipeline.Engine(cfg, extrinsics=demo.default_extrinsics(),
+    eng = pipeline.Engine(cfg, extrinsics=demo.default_extrinsics("cpu"),
                           params=nets, device="cpu")
     jscene = JaxScene(jcfg, seed=seed, n_ground=600)
     scene = SyntheticScene(cfg, seed=seed, n_ground=600)
@@ -83,7 +84,7 @@ def test_step_matches_jax_step(seed):
         t = i / 10.0
         jstate, jout = jstep(tree, jstate, jobs_from_scene(jscene, t, jcfg),
                              jdemo.default_extrinsics())
-        state, out = eng(state, obs_from_scene(scene, t, cfg))
+        state, out = eng(state, obs_from_scene(scene, t, cfg, "cpu"))
         valid = np.array(jout.boxes.valid)
         np.testing.assert_array_equal(out.boxes.valid.numpy(), valid)
         np.testing.assert_array_equal(out.boxes.label.numpy(),
@@ -108,6 +109,8 @@ def test_step_matches_jax_step(seed):
         assert agree >= 0.999, f"tick {i}: occupancy_i8 agreement {agree}"
         np.testing.assert_array_equal(state.log_odds.numpy(),
                                       np.asarray(jstate.log_odds))
+        np.testing.assert_array_equal(state.rng.numpy(),
+                                      np.asarray(jstate.rng))
         n_dyn += int(pv.sum())
         n_static += int(static.sum())
     assert int(state.step) == TICKS
@@ -122,6 +125,21 @@ def test_engine_cuda_without_card_raises():
         pipeline.Engine(GridVisionConfig(**SMALL))
 
 
+def test_helpers_default_to_the_card():
+    """weights.load_all, obs_from_scene and default_extrinsics run on the
+    card unless the CPU is asked for; without a card they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    cfg = GridVisionConfig(**SMALL)
+    scene = SyntheticScene(cfg, seed=0, n_ground=50)
+    for call in (lambda: weights.load_all(cfg),
+                 lambda: obs_from_scene(scene, 0.0, cfg),
+                 lambda: demo.default_extrinsics()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert demo.default_extrinsics("cpu").camera_to_base.device.type == "cpu"
+
+
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="use_vision_orientation"):
         pipeline.check_slice(GridVisionConfig(use_vision_orientation=False))
@@ -131,7 +149,10 @@ def test_unported_options_raise():
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, grid_vision_tpu_torch, grid_vision_tpu_torch.pipeline,"
-            " grid_vision_tpu_torch.demo; bad = [m for m in sys.modules if m in"
+            " grid_vision_tpu_torch.demo, grid_vision_tpu_torch.runtime.stream,"
+            " grid_vision_tpu_torch.ops.cuda_csp,"
+            " grid_vision_tpu_torch.ops.cuda_orient,"
+            " grid_vision_tpu_torch.utils.prng; bad = [m for m in sys.modules if m in"
             " ('jax', 'flax', 'optax', 'grid_vision_tpu') or m.startswith("
             "('jax.', 'flax.', 'optax.', 'grid_vision_tpu.'))]; print(bad);"
             " sys.exit(1 if bad else 0)")

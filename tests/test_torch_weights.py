@@ -37,7 +37,7 @@ def _expected(path, arr):
     ("detector", "weights/detector.npz"),
     ("orientation", "weights/orientation.npz")])
 def test_shipped_npz_round_trip(key, file):
-    nets = weights.load_all(GridVisionConfig(**SHIPPED))
+    nets = weights.load_all(GridVisionConfig(**SHIPPED), device="cpu")
     state = nets[key].state_dict()
     flat = dict(np.load(file))
     assert len(flat) == len(state)       # every module tensor is a leaf
@@ -66,15 +66,15 @@ def test_random_jax_trees_load_strictly(size, width, resize):
               orientation_width=width, detection_network_input_size=resize)
     tree = jax.tree_util.tree_map(np.asarray,
                                   jweights.init_all(JaxConfig(**kw), seed=0))
-    nets = weights.load_all(GridVisionConfig(**kw))
+    nets = weights.load_all(GridVisionConfig(**kw), device="cpu")
     for key in ("detector", "orientation"):
         weights.load_module(nets[key], tree[key])
 
 
 def test_missing_file_falls_back_to_seeded_init():
     cfg = GridVisionConfig(detection_weights_file="weights/missing.npz")
-    a = weights.load_all(cfg, seed=3)["detector"].state_dict()
-    b = weights.load_all(cfg, seed=3)["detector"].state_dict()
-    c = weights.load_all(cfg, seed=4)["detector"].state_dict()
+    a = weights.load_all(cfg, seed=3, device="cpu")["detector"].state_dict()
+    b = weights.load_all(cfg, seed=3, device="cpu")["detector"].state_dict()
+    c = weights.load_all(cfg, seed=4, device="cpu")["detector"].state_dict()
     k = "ConvBN_5.Conv_0.weight"
     assert torch.equal(a[k], b[k]) and not torch.equal(a[k], c[k])
