@@ -9,10 +9,12 @@ package. Phases, each printing one line:
 1. the card (name and power limit from nvidia-smi); TF32 off;
 2. build the kernels of csrc/ (one nvcc per source, in parallel), timed;
 3. each kernel against its plain torch twin on the card: the single-rig
-   path's kernels at its shapes, then all five kernels at the fleet path's
-   shapes (64 rigs, 320 orientation crops): max |error|, the kernel's
-   time, the twin's time and a PyTorch library yardstick, with the least
-   time the card could take;
+   path's kernels at its shapes, then the kernels at the fleet path's
+   shapes (64 rigs, 320 orientation crops), then the carve kernel and the
+   kNN kernel at the extension tick's shapes (a real scan's range profile;
+   the depth refine queries all 64 box slots), 1 rig and 64: max |error|,
+   the kernel's time, the twin's time and a PyTorch library yardstick,
+   with the least time the card could take;
 4. the single-rig Engine at full width (480x640 frames, detector 416,
    orientation 224 / width 32, 16384 points, 500x200 grid, shipped
    weights) for ENGINE_TICKS ticks of a synthetic scene: the stem, grid
@@ -27,8 +29,19 @@ package. Phases, each printing one line:
    equal the "pallas2" tick exactly;
 6. a torch.profiler breakdown of three fleet ticks on each backend:
    device time by kernel name, launches, the device's idle share;
-7. a `kernels` JSON line for every ported kernel (launches: the fleet
-   run's counts), then the card, then the device JSON.
+7. the extension-mode tick (compat=False: raycast free-space carving,
+   depth refine, class-aware NMS) at full width, the single-rig Engine for
+   EXT_ENGINE_TICKS ticks and the fleet (64 rigs, budget 320; the refine
+   overrides the static compaction, so the kNN query keeps all 64 slots)
+   for EXT_FLEET_TICKS ticks: the carve kernel must launch once per tick
+   and the hit-only grid kernel not at all, the share of cells carved per
+   tick is printed and must not be zero, and the outputs must agree with
+   the same engine on the plain-torch backends; a profile of three
+   extension fleet ticks; then a few ticks with yaw-aware rasterization
+   (plain torch on every backend) on the card;
+8. a `kernels` JSON line for every ported kernel (launches: the fleet
+   run's counts, the extension fleet run's for the carve kernel), then the
+   card, then the device JSON.
 
 Any failure exits non-zero. The last line is the device JSON.
 """
@@ -45,6 +58,9 @@ import time
 
 ENGINE_TICKS = 20
 FLEET_TICKS = 10
+EXT_ENGINE_TICKS = 20
+EXT_FLEET_TICKS = 10
+YAW_TICKS = 2
 N_RIGS = 64
 BUDGET = 5 * N_RIGS            # bench.py:206
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -141,12 +157,13 @@ def check_stem(torch, dev, detector, cfg, batch):
         bound=bound_ms(n_bytes, ops))
 
 
-def check_grid(torch, dev, cfg, rigs):
-    """Fused decay + hits + clamp + sigmoid on 500x200 grids, 8 boxes a
-    rig; rigs=None is the single-rig (H, W) call."""
+def random_grid_case(torch, dev, cfg, rigs, seed):
+    """Random log-odds in the clamp range and max_orientation_batch random
+    footprints a rig, some off the map; rigs=None is one (H, W) grid.
+    Returns (log_odds, box index ranges)."""
     from grid_vision_tpu_torch.ops import cuda_grid
     from grid_vision_tpu_torch.types import LShapePoses
-    g = torch.Generator(device=dev).manual_seed(2)
+    g = torch.Generator(device=dev).manual_seed(seed)
     h, w = cfg.grid_size
     lead = () if rigs is None else (rigs,)
     lo = torch.rand(lead + (h, w), generator=g, device=dev) * 5.6 - 2.0
@@ -159,7 +176,15 @@ def check_grid(torch, dev, cfg, rigs):
                               torch.zeros_like(u[..., 0])], dim=-1),
         length=u[..., 2] * 6 + 0.3, width=u[..., 3] * 3 + 0.3,
         valid=torch.ones(lead + (n,), dtype=torch.bool, device=dev))
-    ranges = cuda_grid.box_index_ranges(poses, cfg)
+    return lo, cuda_grid.box_index_ranges(poses, cfg)
+
+
+def check_grid(torch, dev, cfg, rigs):
+    """Fused decay + hits + clamp + sigmoid on 500x200 grids, 8 boxes a
+    rig; rigs=None is the single-rig (H, W) call."""
+    from grid_vision_tpu_torch.ops import cuda_grid
+    lo, ranges = random_grid_case(torch, dev, cfg, rigs, 2)
+    n = ranges.shape[-2]
     lo_k, occ_k = cuda_grid.grid_update(lo, ranges, cfg)
     torch.cuda.synchronize()
     lo_p, occ_p = cuda_grid.grid_update_plain(lo, ranges, cfg)
@@ -180,15 +205,70 @@ def check_grid(torch, dev, cfg, rigs):
         bound=bound_ms(n_bytes, ops))
 
 
-def check_knn(torch, dev, cfg, cloud):
-    """k-NN median depth of max_static_depth box centers against the
-    projected cloud: (P, 3) single-rig or (R, P, 3) fleet."""
+def scan_in_base(torch, obs, extrinsics):
+    """(endpoints (..., P, 2), valid (..., P), origin (2,)) of an Obs's
+    scan in the base frame, as the tick hands them to the carve."""
+    from grid_vision_tpu_torch.geometry import transform_points
+    cam = transform_points(extrinsics.lidar_to_camera, obs.cloud.xyz)
+    base = transform_points(extrinsics.camera_to_base, cam)
+    valid = obs.cloud.mask() & obs.has_cloud[..., None]
+    return (base[..., :2].contiguous(), valid,
+            extrinsics.camera_to_base[:2, 3])
+
+
+def check_raycast(torch, dev, cfg, rigs, obs, extrinsics):
+    """Fused carve + decay + hits + clamp + sigmoid on 500x200 grids: random
+    log-odds, 8 footprints a rig, the range profile of the scan(s) in obs;
+    rigs=None is the single-rig (H, W) call. Log-odds bit-equal to the
+    twin, occupancy atol 1e-7; a scan with no valid point must equal the
+    hit-only grid kernel bit for bit."""
+    from grid_vision_tpu_torch.ops import cuda_grid, cuda_raycast, raycast
+    lo, box_ranges = random_grid_case(torch, dev, cfg, rigs, 6)
+    pts, valid, origin = scan_in_base(torch, obs, extrinsics)
+    ranges = raycast.range_profile(origin, pts, valid)
+    cbin, cr = raycast.cell_polar_maps(origin, cfg)
+    args = (lo, box_ranges, ranges, cbin, cr, cfg)
+    lo_k, occ_k = cuda_raycast.fused_carve_update_cuda(*args)
+    torch.cuda.synchronize()
+    lo_p, occ_p = cuda_raycast.carve_update_plain(*args)
+    if not torch.equal(lo_k, lo_p):
+        fail("carve kernel log-odds are not bit-equal to the twin")
+    if not torch.allclose(occ_k, occ_p, rtol=0, atol=1e-7):
+        fail("carve kernel occupancy disagrees with the twin")
+    hit_lo, hit_occ = cuda_grid.grid_update(lo, box_ranges, cfg)
+    carved = (lo_k != hit_lo).float().mean().item()
+    if carved == 0.0:
+        fail("the carve kernel carved no cell of a real scan")
+    none = raycast.range_profile(origin, pts, torch.zeros_like(valid))
+    lo_n, occ_n = cuda_raycast.fused_carve_update_cuda(
+        lo, box_ranges, none, cbin, cr, cfg)
+    if not (torch.equal(lo_n, hit_lo) and torch.equal(occ_n, hit_occ)):
+        fail("the carve kernel on an all-invalid scan differs from the "
+             "hit-only grid kernel")
+    n_bytes = (3 * lo.numel() + ranges.numel() + box_ranges.numel()
+               + cbin.numel() + cr.numel()) * 4
+    ops = lo.numel() * (box_ranges.shape[-2] + 12)
+    return dict(
+        name="carve_update",
+        source="grid_vision_tpu_torch/csrc/cuda_raycast.cu",
+        replaces="grid_vision_tpu/ops/pallas_raycast.py:135",
+        shape=list(lo.shape), bins=ranges.shape[-1], carved_share=carved,
+        max_abs_err=max((lo_k - lo_p).abs().max().item(),
+                        (occ_k - occ_p).abs().max().item()),
+        **timed(lambda: cuda_raycast.fused_carve_update_cuda(*args),
+                lambda: cuda_raycast.carve_update_plain(*args), None),
+        bound=bound_ms(n_bytes, ops))
+
+
+def check_knn(torch, dev, cfg, cloud, d=None):
+    """k-NN median depth of d (max_static_depth unless given) box centers
+    against the projected cloud: (P, 3) single-rig or (R, P, 3) fleet."""
     from grid_vision_tpu_torch.geometry import intrinsic_matrix
     from grid_vision_tpu_torch.ops import association, cuda_knn
     K = intrinsic_matrix(cfg.fx, cfg.fy, cfg.cx, cfg.cy, device=dev)
     uvd, valid = association.project_cloud_to_image(cloud, K)
     g = torch.Generator(device=dev).manual_seed(3)
-    d = cfg.max_static_depth
+    d = cfg.max_static_depth if d is None else d
     lead = uvd.shape[:-2]
     centers = torch.rand(lead + (d, 2), generator=g, device=dev) * \
         torch.tensor([cfg.camera_image_width, cfg.camera_image_height],
@@ -223,7 +303,7 @@ def check_knn(torch, dev, cfg, cloud):
         name="knn_median_depth",
         source="grid_vision_tpu_torch/csrc/cuda_knn.cu",
         replaces="grid_vision_tpu/ops/pallas_knn.py:72",
-        shape=list(uvd.shape),
+        shape=list(uvd.shape), queries=d,
         max_abs_err=(got - ref).abs().max().item(),
         library_max_abs_err=(lib - ref).abs().max().item(),
         **timed(lambda: cuda_knn.knn_median_depth_centers_cuda(
@@ -455,6 +535,18 @@ def profile_fleet(torch, engine, obs, budget, ticks: int = 3):
                 port_kernels=rows([kv for kv in ranked if "gv_" in kv[0]]))
 
 
+def carved_shares(torch, cfg, obs_seq, extrinsics):
+    """Per tick the share of grid cells the scan carves (the mean over
+    rigs where obs carries a rig axis)."""
+    from grid_vision_tpu_torch.ops import raycast
+    shares = []
+    for obs in obs_seq:
+        pts, valid, origin = scan_in_base(torch, obs, extrinsics)
+        shares.append(raycast.carve_mask(origin, pts, valid,
+                                         cfg).mean().item())
+    return shares
+
+
 def main() -> None:
     try:
         import torch
@@ -471,7 +563,8 @@ def main() -> None:
         from grid_vision_tpu_torch.io.scene import SyntheticScene
         from grid_vision_tpu_torch.ops import (cuda_build, cuda_csp,
                                                cuda_grid, cuda_knn,
-                                               cuda_orient, cuda_stem)
+                                               cuda_orient, cuda_raycast,
+                                               cuda_stem)
         from grid_vision_tpu_torch.runtime.stream import (FleetPool,
                                                           obs_from_scene)
         from grid_vision_tpu_torch.demo import default_extrinsics
@@ -552,10 +645,30 @@ def main() -> None:
               **{k: v for k, v in r.items() if k != "bound"},
               bound_ms=r["bound"][0], bound_by=r["bound"][1])
 
+    # ... and the extension tick's: the carve kernel on a real scan, the
+    # kNN kernel at the full box capacity the depth refine asks for
+    carve = {}
+    for path, rigs, c, obs in (("extension", None, cfg, obs_seq[0]),
+                               ("extension_fleet", N_RIGS, fleet_cfg,
+                                fleet_obs[0])):
+        for fn, args in ((check_raycast, (c, rigs, obs, engine.extrinsics)),
+                         (check_knn, (c, obs.cloud, c.max_detections))):
+            r = fn(torch, dev, *args)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            if r["name"] == "carve_update":
+                carve[path] = r
+            phase("kernel", path=path,
+                  **{k: v for k, v in r.items() if k != "bound"},
+                  bound_ms=r["bound"][0], bound_by=r["bound"][1])
+    results["carve_update"] = carve["extension_fleet"]
+    carve_single = carve["extension"]
+
     # 4. the single-rig main path, counters from zero
     single = {"detector_stem": cuda_stem, "grid_update": cuda_grid,
               "knn_median_depth": cuda_knn}
-    modules = dict(single, detector_csp=cuda_csp, orient_front=cuda_orient)
+    modules = dict(single, detector_csp=cuda_csp, orient_front=cuda_orient,
+                   carve_update=cuda_raycast)
     for m in modules.values():
         m.launches = 0
     _, outs, times = run_ticks(torch, engine, obs_seq)
@@ -584,7 +697,7 @@ def main() -> None:
     _, fouts, ftimes = run_fleet(torch, fleet, fleet_obs, BUDGET)
     launches = {name: m.launches for name, m in modules.items()}
     for name, n in launches.items():
-        if n != FLEET_TICKS:
+        if n != (0 if name == "carve_update" else FLEET_TICKS):
             fail(f"{name} launched {n} times in {FLEET_TICKS} fleet ticks")
     fplain_cfg = dataclasses.replace(
         fleet_cfg, detector_stem_backend="xla", orientation_stem_backend="xla",
@@ -623,12 +736,116 @@ def main() -> None:
           dropped_per_tick=[int(o.saturation.orientation_dropped.sum())
                             for o in fouts],
           pallas3_equals_pallas2=True)
+    del fouts, fplain_outs, out2, out3
     # 6. where the fleet tick's device time goes
     for name, eng in (("kernels", fleet), ("plain", fplain)):
         phase("profile", path=f"fleet/{name}", **profile_fleet(
             torch, eng, fleet_obs[0], BUDGET))
+    del fplain, p3
+    torch.cuda.empty_cache()
 
-    # 7. the kernels line, then the card, then the device JSON
+    # 7. the extension-mode tick at full width, counters from zero: the
+    # single-rig Engine, then the fleet
+    ext = dict(compat=False, raycast_free_space=True,
+               vision_depth_refine=True, class_aware_nms=True)
+    nets = {k: engine.params[k] for k in ("detector", "orientation")}
+
+    def ext_pair(base):
+        """The extension engine on the kernel backends and on the plain."""
+        kern = pipeline.Engine(dataclasses.replace(base, **ext),
+                               extrinsics=engine.extrinsics, params=nets,
+                               device=dev)
+        plain = pipeline.Engine(dataclasses.replace(
+            base, **ext, detector_stem_backend="xla",
+            orientation_stem_backend="xla", grid_backend="xla",
+            knn_backend="xla"), extrinsics=engine.extrinsics, params=nets,
+            device=dev)
+        return kern, plain
+
+    def count_run(run, want):
+        for m in modules.values():
+            m.launches = 0
+        result = run()
+        got = {name: m.launches for name, m in modules.items()}
+        if got != want:
+            fail(f"extension tick launches {got}, expected {want}")
+        return result, got
+
+    ext_engine, ext_plain = ext_pair(cfg)
+    ext_obs = obs_seq[:EXT_ENGINE_TICKS]
+    (_, outs, times), ext_engine_launches = count_run(
+        lambda: run_ticks(torch, ext_engine, ext_obs),
+        dict(detector_stem=EXT_ENGINE_TICKS, grid_update=0,
+             knn_median_depth=EXT_ENGINE_TICKS, detector_csp=0,
+             orient_front=0, carve_update=EXT_ENGINE_TICKS))
+    _, plain_outs, plain_times = run_ticks(torch, ext_plain, ext_obs)
+    agree, n_boxes, n_poses = compare_outputs(torch, cfg, outs, plain_outs,
+                                              per_rig=False)
+    shares = carved_shares(torch, cfg, ext_obs, engine.extrinsics)
+    if not max(shares) > 0.0:
+        fail("the extension tick's scans carved no cell")
+    phase("extension", path="engine", ticks=EXT_ENGINE_TICKS,
+          launches=ext_engine_launches, carved_share_per_tick=shares,
+          median_tick_ms=statistics.median(times),
+          plain_median_tick_ms=statistics.median(plain_times),
+          min_occupancy_i8_agreement=agree, boxes_per_tick=n_boxes,
+          poses_per_tick=n_poses,
+          free_cells_last=int((outs[-1].occupancy_i8 < 50).sum()),
+          occupied_cells_last=int((outs[-1].occupancy_i8 > 50).sum()))
+    del outs, plain_outs, ext_engine, ext_plain
+
+    ext_fleet, ext_fplain = ext_pair(fleet_cfg)
+    ext_fobs = fleet_obs[:EXT_FLEET_TICKS]
+    (_, fouts, ftimes), ext_launches = count_run(
+        lambda: run_fleet(torch, ext_fleet, ext_fobs, BUDGET),
+        dict({name: EXT_FLEET_TICKS for name in modules}, grid_update=0))
+    _, fplain_outs, fplain_times = run_fleet(torch, ext_fplain, ext_fobs,
+                                             BUDGET)
+    fagree, f_boxes, f_poses = compare_outputs(torch, fleet_cfg, fouts,
+                                               fplain_outs, per_rig=True)
+    shares = carved_shares(torch, fleet_cfg, ext_fobs, engine.extrinsics)
+    if not max(shares) > 0.0:
+        fail("the extension fleet tick's scans carved no cell")
+    med, pmed = statistics.median(ftimes), statistics.median(fplain_times)
+    phase("extension", path="fleet", rigs=N_RIGS, ticks=EXT_FLEET_TICKS,
+          budget=BUDGET, knn_queries_per_rig=fleet_cfg.max_detections,
+          launches=ext_launches, carved_share_per_tick=shares,
+          median_tick_ms=med, plain_median_tick_ms=pmed,
+          rig_frames_per_s=N_RIGS / med * 1e3,
+          plain_rig_frames_per_s=N_RIGS / pmed * 1e3,
+          min_occupancy_i8_agreement_per_rig=fagree, boxes_per_tick=f_boxes,
+          poses_per_tick=f_poses,
+          static_depth_clamped=int(sum(
+              o.saturation.static_depth_clamped.sum() for o in fouts)))
+    del fouts, fplain_outs, ext_fplain
+    torch.cuda.empty_cache()
+    phase("profile", path="extension_fleet/kernels", **profile_fleet(
+        torch, ext_fleet, ext_fobs[0], BUDGET))
+
+    # yaw-aware rasterization in the carve's place: plain torch on every
+    # backend, shown to run on the card, single rig and fleet
+    yaw = dict(compat=False, yaw_aware_rasterization=True)
+    yaw_engine = pipeline.Engine(dataclasses.replace(cfg, **yaw),
+                                 extrinsics=engine.extrinsics, params=nets,
+                                 device=dev)
+    _, outs, _ = run_ticks(torch, yaw_engine, obs_seq[:YAW_TICKS])
+    _, ref_outs, _ = run_ticks(torch, engine, obs_seq[:YAW_TICKS])
+    yaw_fleet = pipeline.Engine(dataclasses.replace(fleet_cfg, **yaw),
+                                extrinsics=engine.extrinsics, params=nets,
+                                device=dev)
+    _, fouts, _ = run_fleet(torch, yaw_fleet, fleet_obs[:YAW_TICKS], BUDGET)
+    for o in outs + fouts:
+        if not torch.isfinite(o.poses.position[o.poses.valid]).all():
+            fail("non-finite pose in a yaw-aware tick")
+    phase("extension", path="yaw_aware", ticks=YAW_TICKS,
+          occupied_cells_last=int((outs[-1].occupancy_i8 > 50).sum()),
+          axis_aligned_occupied_cells_last=int(
+              (ref_outs[-1].occupancy_i8 > 50).sum()),
+          fleet_occupied_cells_last=int((fouts[-1].occupancy_i8 > 50).sum()))
+
+    # 8. the kernels line, then the card, then the device JSON
+    launches["carve_update"] = ext_launches["carve_update"]
+    engine_launches["carve_update"] = ext_engine_launches["carve_update"]
     kernels = []
     for name, r in results.items():
         kernels.append(dict(
@@ -639,6 +856,10 @@ def main() -> None:
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],
             shape=r["shape"]))
+    kernels[-1].update(single_rig={
+        k: carve_single[k] for k in ("ms", "plain_ms", "shape")},
+        single_rig_bound_ms=carve_single["bound"][0],
+        launches_extension_fleet=ext_launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

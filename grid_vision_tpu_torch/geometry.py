@@ -122,3 +122,12 @@ def grid_index_from_position(pos_xy: torch.Tensor, center_xy, length_xy,
     idx = torch.floor((max_corner - pos_xy) / resolution).to(torch.int32)
     valid = torch.all((idx >= 0) & (idx < size), dim=-1)
     return idx, valid
+
+
+def grid_position_from_index(idx: torch.Tensor, center_xy, length_xy,
+                             resolution: float) -> torch.Tensor:
+    """Cell-center position of (..., 2) int indices."""
+    center = torch.tensor(center_xy, dtype=torch.float32, device=idx.device)
+    length = torch.tensor(length_xy, dtype=torch.float32, device=idx.device)
+    max_corner = center + 0.5 * length
+    return max_corner - (idx.to(torch.float32) + 0.5) * resolution

@@ -25,10 +25,11 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "grid_vision_tpu_torch"
-SOURCES = ("cuda_csp", "cuda_grid", "cuda_knn", "cuda_orient", "cuda_stem")
+SOURCES = ("cuda_csp", "cuda_grid", "cuda_knn", "cuda_orient",
+           "cuda_raycast", "cuda_stem")
 
-# No --use_fast_math: the grid kernel's log-odds must be bit-equal to the
-# plain torch twin (IEEE expf / division, explicit _rn intrinsics).
+# No --use_fast_math: the grid and carve kernels' log-odds must be bit-equal
+# to their plain torch twins (IEEE expf / division, explicit _rn intrinsics).
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

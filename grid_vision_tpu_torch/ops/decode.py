@@ -5,7 +5,8 @@ object_detection.cpp:94-146, 226-239).
 Per anchor the argmax class and max confidence; ``max_conf >= threshold``;
 the survivors compacted to max_candidates by confidence (a stable sort
 stands in for lax.top_k: equal values keep the lower index first); greedy
-NMS; denormalized to pixels with int truncation (quirk Q5).
+NMS, class-agnostic unless cfg.class_aware_nms; denormalized to pixels with
+int truncation (quirk Q5).
 """
 
 from __future__ import annotations
@@ -40,8 +41,6 @@ def extract_boxes(boxes_norm: torch.Tensor, confs: torch.Tensor,
     coordinates; leading axes are rigs, each decoded on its own. With
     with_overflow also the int32 count of above-threshold anchors dropped by
     the max_candidates compaction."""
-    if cfg.class_aware_nms:
-        raise NotImplementedError("class_aware_nms is not ported yet")
     dev = boxes_norm.device
     num_anchors = boxes_norm.shape[-2]
     max_conf = confs.max(dim=-1).values
@@ -58,8 +57,9 @@ def extract_boxes(boxes_norm: torch.Tensor, confs: torch.Tensor,
     cand_xyxy = torch.take_along_dim(boxes_norm, cand_idx[..., None], dim=-2)
     cand_label = torch.take_along_dim(best_class, cand_idx, dim=-1)
 
-    order, keep = greedy_nms_keep(cand_xyxy, cand_conf, cand_valid,
-                                  cfg.iou_threshold)
+    order, keep = greedy_nms_keep(
+        cand_xyxy, cand_conf, cand_valid, cfg.iou_threshold,
+        labels=cand_label if cfg.class_aware_nms else None)
     # kept rows first, confidence order intact (stable sort of ~keep)
     compact = torch.sort((~keep).to(torch.uint8), dim=-1,
                          stable=True).indices

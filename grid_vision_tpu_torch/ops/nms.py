@@ -1,8 +1,9 @@
-"""Class-agnostic greedy NMS with the reference's semantics (counterpart of
+"""Greedy NMS with the reference's semantics (counterpart of
 grid_vision_tpu/ops/nms.py; reference object_detection.cpp:148-211):
 candidates sorted by confidence (stable, invalid last); scanning in that
 order a kept box suppresses every later box with IoU > threshold (strict);
-suppressed boxes suppress nothing; the class is ignored (quirk Q3).
+suppressed boxes suppress nothing; the class is ignored (quirk Q3) unless
+labels are given (the class_aware_nms extension).
 Both functions take leading rig axes.
 """
 
@@ -28,9 +29,11 @@ def pairwise_iou(xyxy: torch.Tensor) -> torch.Tensor:
 
 
 def greedy_nms_keep(xyxy: torch.Tensor, confidence: torch.Tensor,
-                    valid: torch.Tensor, iou_threshold: float):
+                    valid: torch.Tensor, iou_threshold: float,
+                    labels: torch.Tensor | None = None):
     """Returns (order (..., N) int64 stable sort by confidence descending
     with invalid last, keep (..., N) bool decisions in that order).
+    labels (..., N): suppression only between boxes of the same label.
 
     The greedy scan is computed as the fixed point of
     keep = valid & ~any_i(keep_i & suppresses_ij) over the strictly-upper
@@ -47,6 +50,9 @@ def greedy_nms_keep(xyxy: torch.Tensor, confidence: torch.Tensor,
     later = torch.ones((n, n), dtype=torch.bool,
                        device=xyxy.device).triu(diagonal=1)
     sup = later & (pairwise_iou(boxes_s) > iou_threshold)
+    if labels is not None:
+        labels_s = torch.take_along_dim(labels, order, dim=-1)
+        sup = sup & (labels_s[..., :, None] == labels_s[..., None, :])
     keep = valid_s
     for _ in range(n + 1):
         new = valid_s & ~(keep[..., :, None] & sup).any(dim=-2)

@@ -9,6 +9,11 @@ clamp, then the sigmoid. Free space
 comes only from the decay (quirk Q2); footprints ignore yaw (quirk Q11); a
 box with any corner off the map is skipped whole. Poses and grids may carry
 a leading rig axis.
+
+Extensions (compat=False): ``lshape_update_oriented`` rasterizes the
+yaw-rotated rectangles instead (fixes Q11); ops/raycast.py carves free
+space. ``point_bbox_update`` is the reference's per-class overload, dead
+code there (quirk Q6), kept for parity of the interface.
 """
 
 from __future__ import annotations
@@ -16,8 +21,9 @@ from __future__ import annotations
 import torch
 
 from ..config import GridVisionConfig
-from ..geometry import grid_index_from_position
-from ..types import LShapePoses
+from ..geometry import grid_index_from_position, grid_position_from_index
+from ..taxonomy import estimated_depth
+from ..types import Boxes, LShapePoses
 
 
 def hit_add(log_odds: torch.Tensor, hit: float,
@@ -88,6 +94,86 @@ def lshape_update(log_odds: torch.Tensor, poses: LShapePoses,
     log_odds = hit_add(log_odds + cfg.log_odds_decay, cfg.log_odds_hit,
                        counts)
     return _finish(log_odds, cfg)
+
+
+def point_bbox_update(log_odds: torch.Tensor, base_points: torch.Tensor,
+                      boxes: Boxes, cfg: GridVisionConfig):
+    """updateMap(grid, base_points, bboxes): the per-class footprint
+    overload (occupancy_grid.cpp:33-63, 107-138). The footprint is a square
+    reaching estimated_depth forward of the point and depth / 2 to either
+    side; a class without an estimated depth gets -1.0, which still
+    rasterizes a small block behind the point, as the reference would."""
+    h, w = cfg.grid_size
+    depth = estimated_depth(boxes.label)
+    bx = base_points[..., 0]
+    by = base_points[..., 1]
+    corners = torch.stack([
+        torch.stack([bx + depth, by + depth / 2.0], dim=-1),
+        torch.stack([bx + depth, by - depth / 2.0], dim=-1),
+        torch.stack([bx, by - depth / 2.0], dim=-1),
+        torch.stack([bx, by + depth / 2.0], dim=-1),
+    ], dim=-2)
+    counts = corner_window_counts(
+        corners, boxes.valid, cfg.grid_center,
+        (float(cfg.grid_x), float(cfg.grid_y)), cfg.resolution, h, w)
+    return _finish(hit_add(log_odds + cfg.log_odds_decay, cfg.log_odds_hit,
+                           counts), cfg)
+
+
+def yaw_from_quat(quat: torch.Tensor) -> torch.Tensor:
+    """Base-frame z-yaw of (..., 4) xyzw quaternions."""
+    x, y, z, w = quat.unbind(-1)
+    return torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
+
+
+def _cell_centers(h: int, w: int, cfg: GridVisionConfig,
+                  device=None) -> torch.Tensor:
+    """(H, W, 2) base-frame centre of every cell."""
+    rows = torch.arange(h, dtype=torch.int32, device=device)
+    cols = torch.arange(w, dtype=torch.int32, device=device)
+    idx = torch.stack(torch.meshgrid(rows, cols, indexing="ij"), dim=-1)
+    return grid_position_from_index(
+        idx, cfg.grid_center, (float(cfg.grid_x), float(cfg.grid_y)),
+        cfg.resolution)
+
+
+def lshape_update_oriented(log_odds: torch.Tensor, poses: LShapePoses,
+                           cfg: GridVisionConfig):
+    """Extension: rotated-rectangle footprints. A cell is hit when its
+    centre lies inside the pose's yaw-rotated length x width rectangle; a
+    box with any ROTATED corner off the map is skipped whole."""
+    h, w = cfg.grid_size
+    length = (float(cfg.grid_x), float(cfg.grid_y))
+    yaw = yaw_from_quat(poses.quat)                           # (..., D)
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    px = poses.position[..., 0]
+    py = poses.position[..., 1]
+    hl = poses.length / 2.0
+    hw = poses.width / 2.0
+
+    # rotated corners for the validity check
+    cu = torch.stack([hl, hl, -hl, -hl], dim=-1)              # (..., D, 4)
+    cv = torch.stack([hw, -hw, hw, -hw], dim=-1)
+    corners = torch.stack(
+        [px[..., None] + c[..., None] * cu - s[..., None] * cv,
+         py[..., None] + s[..., None] * cu + c[..., None] * cv], dim=-1)
+    _, corner_ok = grid_index_from_position(corners, cfg.grid_center, length,
+                                            cfg.resolution)
+    ok = poses.valid & torch.all(corner_ok, dim=-1)           # (..., D)
+
+    centers = _cell_centers(h, w, cfg, log_odds.device)       # (H, W, 2)
+
+    def cells(x):
+        return x[..., None, None]
+
+    rx = centers[..., 0] - cells(px)                          # (..., D, H, W)
+    ry = centers[..., 1] - cells(py)
+    u = cells(c) * rx + cells(s) * ry
+    v = -cells(s) * rx + cells(c) * ry
+    inside = ((u.abs() <= cells(hl)) & (v.abs() <= cells(hw)) & cells(ok))
+    counts = inside.float().sum(dim=-3)
+    return _finish(hit_add(log_odds + cfg.log_odds_decay, cfg.log_odds_hit,
+                           counts), cfg)
 
 
 def export_occupancy_i8(occupancy: torch.Tensor) -> torch.Tensor:

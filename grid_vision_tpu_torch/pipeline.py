@@ -8,7 +8,9 @@ step(params, state, obs, extrinsics, cfg) -> (state', StepOutput):
   3. kNN median depth of the static boxes -> base-frame points;
   4. crop / standardize the dynamic boxes, orientation net, MultiBin;
   5. camera -> base frame;
-  6. grid update (decay, footprint hits, clamp, sigmoid), int8 export;
+  6. grid update (decay, footprint hits, clamp, sigmoid), int8 export; in
+     extension mode (compat=False) the raycast free-space carve goes in
+     front of it, or the footprints follow the estimated yaw;
   7. the rng split (the JAX package's per-tick jax.random.split).
 
 fleet_step(params, states, obs_b, extrinsics, cfg, orientation_budget)
@@ -24,10 +26,12 @@ detector ``"pallas2"`` / ``"pallas3"``, which add the CSP-stage kernel)
 runs this package's CUDA kernels (ops/cuda_*.py), ``"xla"`` the
 plain-torch port of the JAX package's XLA function.
 
-This port covers the vision-orientation path in f32 (the shipped default
-config, the fleet configuration of bench.py minus bf16, and every kernel
-backend but the raycast one). Options it does not port yet raise
-NotImplementedError rather than run something else.
+This port covers the vision-orientation path in f32: the shipped default
+config, the fleet configuration of bench.py minus bf16, the extension
+flags (raycast_free_space, yaw_aware_rasterization, vision_depth_refine,
+class_aware_nms) and every kernel backend. Options it does not port yet
+(int8, bf16, the PCA branch, knn_backend="approx", the resnet orientation
+arch) raise NotImplementedError rather than run something else.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from .geometry import (intrinsic_inverse, intrinsic_matrix, pixel_to_3d,
                        transform_points, transform_pose)
 from .models import orientation_net, weights, yolov4_tiny
 from .ops import (association, cuda_csp, cuda_grid, cuda_knn, cuda_orient,
-                  cuda_stem, multibin, preprocess, rasterize)
+                  cuda_stem, multibin, preprocess, rasterize, raycast)
 from .ops.decode import extract_boxes, top_k
 from .taxonomy import is_dynamic
 from .types import (Boxes, Extrinsics, GridState, LShapePoses, Obs,
@@ -62,10 +66,6 @@ def check_slice(cfg: GridVisionConfig) -> None:
             "xla", "pallas", "pallas2", "pallas3"),
         "knn_backend": cfg.knn_backend not in ("xla", "pallas"),
         "use_vision_orientation": not cfg.use_vision_orientation,
-        "raycast_free_space": cfg.raycast_free_space,
-        "yaw_aware_rasterization": cfg.yaw_aware_rasterization,
-        "vision_depth_refine": cfg.vision_depth_refine,
-        "class_aware_nms": cfg.class_aware_nms,
         "orientation_arch": cfg.orientation_arch != "s2d",
         "orientation_s2d_fold": not cfg.orientation_s2d_fold,
         "orientation_stem_backend": cfg.orientation_stem_backend not in (
@@ -219,10 +219,12 @@ def _fleet_vision_poses(params, images: torch.Tensor, boxes_b: Boxes,
 def _fuse_rigs(state: GridState, obs: Obs, boxes: Boxes,
                extrinsics: Extrinsics, cfg: GridVisionConfig,
                poses_cam: LShapePoses, prenms_overflow: torch.Tensor,
-               orientation_dropped: torch.Tensor):
+               orientation_dropped: torch.Tensor, carve_maps=None):
     """Everything after 2D detection for R rigs at once (the JAX package's
     vmap of fuse with injected camera-frame poses): every tensor carries a
-    leading rig axis; boxes (R, D), poses_cam (R, cap), counters (R,)."""
+    leading rig axis; boxes (R, D), poses_cam (R, cap), counters (R,).
+    carve_maps: raycast.cell_polar_maps of these extrinsics when the caller
+    keeps them (the Engine does), else computed here."""
     dev = state.log_odds.device
     n_rigs = state.log_odds.shape[0]
     zero = torch.zeros((n_rigs,), dtype=torch.int32, device=dev)
@@ -235,6 +237,7 @@ def _fuse_rigs(state: GridState, obs: Obs, boxes: Boxes,
 
     # cloud to the camera frame (replaces TF2)
     cloud_cam = transform_points(extrinsics.lidar_to_camera, obs.cloud.xyz)
+    cloud_valid = obs.cloud.mask() & obs.has_cloud[:, None]
     K = intrinsic_matrix(cfg.fx, cfg.fy, cfg.cx, cfg.cy, device=dev)
     K_inv = intrinsic_inverse(K)
 
@@ -243,9 +246,11 @@ def _fuse_rigs(state: GridState, obs: Obs, boxes: Boxes,
         PointCloud(xyz=cloud_cam, intensity=obs.cloud.intensity,
                    count=obs.cloud.count), K)
     uvd_valid = uvd_valid & obs.has_cloud[:, None]
-    if cfg.max_static_depth < boxes.capacity:
+    if cfg.max_static_depth < boxes.capacity and not cfg.vision_depth_refine:
         # compact the static split to max_static_depth query slots
-        # (highest confidence first); clamped boxes keep depth -1
+        # (highest confidence first); clamped boxes keep depth -1. The
+        # depth refine reads the dynamic slots' depths too and keeps the
+        # full-capacity query.
         score = torch.where(static_mask, boxes.confidence, minus_one)
         _, knn_take = top_k(score, cfg.max_static_depth)
         q_boxes = boxes.take(knn_take, valid=torch.take_along_dim(
@@ -272,6 +277,10 @@ def _fuse_rigs(state: GridState, obs: Obs, boxes: Boxes,
     static_points = torch.where(static_mask[..., None], base_points,
                                 torch.zeros((), device=dev))
 
+    if cfg.vision_depth_refine:
+        poses_cam = _refine_depth(poses_cam, boxes, depths, obs.has_cloud,
+                                  K)
+
     n_dyn = (boxes.valid & is_dynamic(boxes.label)).sum(dim=-1).to(
         torch.int32)
     saturation = SaturationStats(
@@ -288,8 +297,19 @@ def _fuse_rigs(state: GridState, obs: Obs, boxes: Boxes,
         extrinsics.camera_to_base, poses_cam.position, poses_cam.quat)
     poses = dataclasses.replace(poses_cam, position=base_pos, quat=base_quat)
 
-    # grid update: zero valid poses == the decay-only overload
-    if cfg.grid_backend == "pallas":
+    # grid update: zero valid poses == the decay-only overload. Extension
+    # mode carves raycast free space in front of it (ops/raycast.py, with
+    # the free constant the reference declares and never uses, quirk Q2),
+    # or rasterizes the yaw-rotated footprints; the carve takes precedence.
+    if cfg.raycast_free_space:
+        cloud_base = transform_points(extrinsics.camera_to_base, cloud_cam)
+        new_lo, new_occ = raycast.lshape_update_with_carving(
+            state.log_odds, poses, extrinsics.camera_to_base[:2, 3],
+            cloud_base[..., :2], cloud_valid, cfg, maps=carve_maps)
+    elif cfg.yaw_aware_rasterization:
+        new_lo, new_occ = rasterize.lshape_update_oriented(state.log_odds,
+                                                           poses, cfg)
+    elif cfg.grid_backend == "pallas":
         new_lo, new_occ = cuda_grid.lshape_update_cuda(state.log_odds, poses,
                                                        cfg)
     else:
@@ -314,6 +334,48 @@ def _fuse_rigs(state: GridState, obs: Obs, boxes: Boxes,
     return new_state, out
 
 
+def _refine_depth(poses_cam: LShapePoses, boxes: Boxes,
+                  depths: torch.Tensor, has_cloud: torch.Tensor,
+                  K: torch.Tensor) -> LShapePoses:
+    """The vision_depth_refine extension, rigs on the leading axis: the
+    MultiBin solver recovers range from the 2D box and the dims prior
+    alone, while the kNN median cloud depth of the same box is already
+    there. Rescale each camera-frame location along its ray to the measured
+    depth (keeping bearing, yaw and dims), or to the monocular height cue
+    fy * H / h_px where no cloud depth exists or the cloud depth is clearly
+    nearer than the cue says (an occluder's). Both cues see the object's
+    near surface; the centre sits half the yaw-projected footprint farther
+    along the ray."""
+    # pose slots are the compacted dynamic batch; realign the depths
+    dyn_boxes, take_idx = _compact_dynamic(boxes, poses_cam.capacity)
+    depths_c = torch.take_along_dim(depths, take_idx, -1)
+    px = poses_cam.position[..., 0]
+    z = poses_cam.position[..., 2]
+    o = -2.0 * torch.atan2(poses_cam.quat[..., 1], poses_cam.quat[..., 3])
+    r = torch.sqrt(px * px + z * z)
+    ux = px / torch.clamp(r, min=0.5)
+    uz = z / torch.clamp(r, min=0.5)
+    along = torch.abs(ux * torch.cos(o) - uz * torch.sin(o))
+    across = torch.abs(ux * torch.sin(o) + uz * torch.cos(o))
+    half_ext = 0.5 * (along * poses_cam.length + across * poses_cam.width)
+    ok_knn = (poses_cam.valid & (depths_c > 0.0) & (z > 0.5)
+              & has_cloud[:, None])
+    h_px = dyn_boxes.xyxy[..., 3] - dyn_boxes.xyxy[..., 1]
+    depth_mono = K[1, 1] * poses_cam.height / torch.clamp(h_px, min=1.0)
+    ok_mono = poses_cam.valid & (h_px > 4.0) & (z > 0.5)
+    knn_center = depths_c + half_ext
+    mono_center = depth_mono + half_ext
+    # one-sided: an occluder can only pull the kNN depth nearer
+    consistent = knn_center > 0.8 * mono_center
+    use_knn = ok_knn & (consistent | ~ok_mono)
+    safe_z = torch.clamp(z, min=0.5)
+    scale = torch.where(
+        use_knn, knn_center / safe_z,
+        torch.where(ok_mono, mono_center / safe_z, torch.ones_like(z)))
+    return dataclasses.replace(
+        poses_cam, position=poses_cam.position * scale[..., None])
+
+
 @torch.no_grad()
 def step(params: Dict[str, Any], state: GridState, obs: Obs,
          extrinsics: Extrinsics, cfg: GridVisionConfig):
@@ -330,7 +392,8 @@ def fuse(params: Dict[str, Any], state: GridState, obs: Obs, boxes: Boxes,
          prenms_overflow: torch.Tensor | None = None):
     """Everything after 2D detection for one rig: association, poses, grid
     update, outputs. Split out so tests can inject known boxes. Runs the
-    rig-batched tick at R = 1."""
+    rig-batched tick at R = 1. params["carve_maps"], where present, must
+    be raycast.cell_polar_maps of these extrinsics (the Engine's are)."""
     check_slice(cfg)
     dev = state.log_odds.device
     zero = torch.zeros((), dtype=torch.int32, device=dev)
@@ -341,7 +404,8 @@ def fuse(params: Dict[str, Any], state: GridState, obs: Obs, boxes: Boxes,
                                                          poses_cam))
     overflow = zero if prenms_overflow is None else prenms_overflow
     new_state, out = _fuse_rigs(state1, obs1, boxes1, extrinsics, cfg,
-                                poses1, overflow[None], zero[None])
+                                poses1, overflow[None], zero[None],
+                                params.get("carve_maps"))
     return new_state.select(0), out.select(0)
 
 
@@ -370,7 +434,7 @@ def fleet_step(params: Dict[str, Any], states: GridState, obs_b: Obs,
     poses_b, dropped_b = _fleet_vision_poses(
         params, obs_b.image, boxes_b, K, cfg, budget)
     return _fuse_rigs(states, obs_b, boxes_b, extrinsics, cfg, poses_b,
-                      overflow_b, dropped_b)
+                      overflow_b, dropped_b, params.get("carve_maps"))
 
 
 class Engine:
@@ -410,6 +474,11 @@ class Engine:
                 and "orientation_stem" not in params):
             params["orientation_stem"] = \
                 cuda_orient.prepare_orient_constants(params["orientation"])
+        # the carve's per-cell polar maps depend only on the extrinsics and
+        # the grid geometry, which this engine fixes
+        if cfg.raycast_free_space and "carve_maps" not in params:
+            params["carve_maps"] = raycast.cell_polar_maps(
+                self.extrinsics.camera_to_base[:2, 3], cfg)
         self.params = params
 
     def init_state(self, seed: int = 0) -> GridState:

@@ -16,7 +16,8 @@ import torch
 from grid_vision_tpu_torch.config import GridVisionConfig
 from grid_vision_tpu_torch.models import weights
 from grid_vision_tpu_torch.ops import (association, cuda_csp, cuda_grid,
-                                       cuda_knn, cuda_orient, cuda_stem)
+                                       cuda_knn, cuda_orient, cuda_raycast,
+                                       cuda_stem, raycast)
 from grid_vision_tpu_torch.types import LShapePoses, PointCloud
 
 torch.set_num_threads(1)
@@ -226,3 +227,75 @@ def test_orient_kernel_matches_twin(cuda_device):
     torch.testing.assert_close(
         got[5], torch.relu(consts["t"]).expand(28, 28, 128), rtol=0,
         atol=0)
+
+
+def _scan(rng, lead, n_pts, device):
+    """Ray endpoints around the sensor, some invalid: (lead..., P, 2)."""
+    pts = np.stack([rng.uniform(-20, 45, lead + (n_pts,)),
+                    rng.uniform(-9, 9, lead + (n_pts,))], -1)
+    valid = rng.random(lead + (n_pts,)) < 0.9
+    return (torch.as_tensor(pts.astype(np.float32), device=device),
+            torch.as_tensor(valid, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rigs", [None, 1, 64])
+def test_carve_kernel_bit_equal_to_twin(cuda_device, rigs):
+    """Log-odds bit-equal, occupancy atol 1e-7 (expf against torch.exp),
+    at a single (H, W) grid, one rig and 64 rigs; a scan with no valid
+    point equals the hit-only grid kernel bit for bit."""
+    rng = np.random.default_rng(11)
+    lead = () if rigs is None else (rigs,)
+    lo = torch.as_tensor(rng.uniform(-2, 3.6, lead + CFG.grid_size)
+                         .astype(np.float32), device=cuda_device)
+    poses = [_poses(rng, 8, cuda_device) for _ in range(rigs or 1)]
+    box_ranges = torch.stack([cuda_grid.box_index_ranges(p, CFG)
+                              for p in poses]).contiguous()
+    if rigs is None:
+        box_ranges = box_ranges[0].contiguous()
+    origin = torch.tensor([1.5, 0.0], device=cuda_device)
+    pts, valid = _scan(rng, lead, 4000, cuda_device)
+    ranges = raycast.range_profile(origin, pts, valid)
+    cbin, cr = raycast.cell_polar_maps(origin, CFG)
+    n0 = cuda_raycast.launches
+    lo_k, occ_k = cuda_raycast.fused_carve_update_cuda(lo, box_ranges, ranges,
+                                                       cbin, cr, CFG)
+    torch.cuda.synchronize()
+    assert cuda_raycast.launches == n0 + 1
+    lo_p, occ_p = cuda_raycast.carve_update_plain(lo, box_ranges, ranges,
+                                                  cbin, cr, CFG)
+    assert torch.equal(lo_k, lo_p)
+    torch.testing.assert_close(occ_k, occ_p, rtol=0, atol=1e-7)
+    hit_lo, hit_occ = cuda_grid.grid_update(lo, box_ranges, CFG)
+    assert (lo_k < hit_lo - 0.3).float().mean() > 0.05         # it carved
+    lo_n, occ_n = cuda_raycast.fused_carve_update_cuda(
+        lo, box_ranges, torch.zeros_like(ranges), cbin, cr, CFG)
+    assert torch.equal(lo_n, hit_lo) and torch.equal(occ_n, hit_occ)
+    # a bin outside the table reads as range 0, in the kernel as in the twin
+    bad = cbin.clone()
+    bad[::2] = -1
+    bad[1::2] = ranges.shape[-1]
+    lo_b, _ = cuda_raycast.fused_carve_update_cuda(lo, box_ranges, ranges,
+                                                   bad, cr, CFG)
+    assert torch.equal(lo_b, hit_lo)
+
+
+@pytest.mark.cuda
+def test_carve_wrapper_rejects_bad_inputs(cuda_device):
+    lo = torch.zeros(CFG.grid_size, device=cuda_device)
+    box = torch.zeros((8, 4), dtype=torch.int32, device=cuda_device)
+    ranges = torch.zeros(4096, device=cuda_device)
+    cbin = torch.zeros(CFG.grid_size, dtype=torch.int32, device=cuda_device)
+    cr = torch.zeros(CFG.grid_size, device=cuda_device)
+    for args, match in (
+            ((lo, box, ranges, cbin.long(), cr), "cbin"),
+            ((lo, box, ranges, cbin, cr[:10]), "cr"),
+            ((lo, box, ranges.cpu(), cbin, cr), "ranges"),
+            ((lo, box, torch.zeros(16384, device=cuda_device), cbin, cr),
+             "angle bins"),
+            ((lo, torch.zeros((65, 4), dtype=torch.int32,
+                              device=cuda_device), ranges, cbin, cr),
+             "at most"),
+            ((lo.t(), box, ranges, cbin, cr), "contiguous")):
+        with pytest.raises(ValueError, match=match):
+            cuda_raycast.fused_carve_update_cuda(*args, CFG)

@@ -152,6 +152,8 @@ def test_import_pulls_in_no_jax():
             " grid_vision_tpu_torch.demo, grid_vision_tpu_torch.runtime.stream,"
             " grid_vision_tpu_torch.ops.cuda_csp,"
             " grid_vision_tpu_torch.ops.cuda_orient,"
+            " grid_vision_tpu_torch.ops.cuda_raycast,"
+            " grid_vision_tpu_torch.ops.raycast,"
             " grid_vision_tpu_torch.utils.prng; bad = [m for m in sys.modules if m in"
             " ('jax', 'flax', 'optax', 'grid_vision_tpu') or m.startswith("
             "('jax.', 'flax.', 'optax.', 'grid_vision_tpu.'))]; print(bad);"
