@@ -7,7 +7,8 @@ Run from the root of a checkout. Imports nothing of JAX or of the JAX
 package. Phases, each printing one line:
 
 1. the card (name and power limit from nvidia-smi); TF32 off;
-2. build the kernels of csrc/ (one nvcc per source, in parallel), timed;
+2. build the kernels of csrc/ (one nvcc per source, in parallel), timed,
+   with each kernel's registers, shared memory and spills from ptxas;
 3. each kernel against its plain torch twin on the card: the single-rig
    path's kernels at its shapes, then the kernels at the fleet path's
    shapes (64 rigs, 320 orientation crops), then the carve kernel and the
@@ -40,8 +41,12 @@ package. Phases, each printing one line:
    extension fleet ticks; then a few ticks with yaw-aware rasterization
    (plain torch on every backend) on the card;
 8. a `kernels` JSON line for every ported kernel (launches: the fleet
-   run's counts, the extension fleet run's for the carve kernel), then the
-   card, then the device JSON.
+   run's counts, the extension fleet run's for the carve kernel; for the
+   two tensor-core kernels also `bound_3xtf32_ms`, the bound with three
+   TF32 products per f32 product at the TF32 rate, `device_ms`, their
+   device time per profiled fleet tick, and `check_device_ms`, their
+   device time per call at the kernel check's shapes), then the card, then
+   the device JSON.
 
 Any failure exits non-zero. The last line is the device JSON.
 """
@@ -51,6 +56,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -65,6 +71,7 @@ N_RIGS = 64
 BUDGET = 5 * N_RIGS            # bench.py:206
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12        # H100 SXM FP32 outside the tensor cores
+PEAK_TF32_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 
 
 def fail(msg: str) -> None:
@@ -98,12 +105,53 @@ def bound_ms(n_bytes: float, n_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def bound_3xtf32_ms(n_bytes: float, n_ops: float) -> float:
+    """The bound of a kernel whose products run in 3xTF32 (three TF32
+    tensor-core products per f32 product): bytes, or 3 x operations at the
+    TF32 rate."""
+    return max(n_bytes / PEAK_BYTES_PER_S,
+               3.0 * n_ops / PEAK_TF32_PER_S) * 1e3
+
+
+def ptxas_summary(log: str):
+    """nvcc -Xptxas=-v output -> one "registers / shared memory / spills"
+    line per kernel."""
+    out, name, spills = [], "", ""
+    for ln in log.splitlines():
+        ln = ln.strip()
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln
+            short = re.search(r"gv_[a-z0-9_]+_kernel(I(Li\d+E)+E)?", name)
+            name = short.group(0) if short else name
+        elif "spill" in ln:
+            spills = ln
+        elif "registers" in ln:
+            out.append(f"{name}: {ln.replace('ptxas info    : ', '')}; "
+                       f"{spills}")
+    return out
+
+
 def timed(fn, plain, library, iters: int = 50):
     """Kernel, plain twin and library yardstick times (ms), interleaved."""
     return dict(ms=cuda_time_ms(fn, iters),
                 plain_ms=cuda_time_ms(plain, max(5, iters // 5)),
                 library_ms=(None if library is None
                             else cuda_time_ms(library, iters)))
+
+
+def port_device_ms(torch, fn, iters: int = 5) -> float:
+    """Device time per call of fn() spent in the kernels of csrc/ (named
+    gv_*), from torch.profiler: the call's time without its wrapper and
+    launch gaps."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if "gv_" in e.name) / 1e3 / iters
 
 
 def check_stem(torch, dev, detector, cfg, batch):
@@ -362,20 +410,23 @@ def check_csp(torch, dev, detector, cfg, batch):
         t = timed(lambda: cuda_csp.detector_csp_cuda(x, detector, consts),
                   lambda: cuda_csp.detector_csp_plain(x, detector), library,
                   iters=20)
+        t["check_device_ms"] = port_device_ms(
+            torch, lambda: cuda_csp.detector_csp_cuda(x, detector, consts))
     return dict(
         name="detector_csp", source="grid_vision_tpu_torch/csrc/cuda_csp.cu",
         replaces="grid_vision_tpu/ops/pallas_csp.py:404",
         also_replaces="grid_vision_tpu/ops/pallas_csp.py:343",
         shape=list(x.shape), max_abs_err=(got - ref).abs().max().item(),
         library_max_abs_err=(lib - ref).abs().max().item(), **t,
-        bound=bound_ms(n_bytes, ops))
+        bound=bound_ms(n_bytes, ops),
+        bound_3xtf32_ms=bound_3xtf32_ms(n_bytes, ops))
 
 
 def check_orient(torch, dev, net, cfg, rigs, n_crops):
     """Crop + standardize + folded s2d stem conv for n_crops boxes over
     `rigs` random frames, clamped, invalid and sliver boxes among them."""
     import torch.nn.functional as F
-    from grid_vision_tpu_torch.models.layers import same_pad
+    from grid_vision_tpu_torch.models.layers import fold_bn, same_pad
     from grid_vision_tpu_torch.ops import cuda_orient, preprocess
     g = torch.Generator(device=dev).manual_seed(5)
     h, w, size = (cfg.camera_image_height, cfg.camera_image_width,
@@ -409,16 +460,16 @@ def check_orient(torch, dev, net, cfg, rigs, n_crops):
     if not torch.allclose(got[keep], ref[keep], rtol=1e-3, atol=1e-3):
         fail(f"orientation-front kernel disagrees with its twin: max |d| "
              f"{(got[keep] - ref[keep]).abs().max().item()}")
-    wmat4 = consts["wmat"].reshape(12, 12, 3, -1).permute(3, 2, 0, 1) * \
-        consts["s"][:, None, None, None]
+    with torch.no_grad():
+        bn_s, bn_t = fold_bn(net.ConvBN_0.BatchNorm_0)
+        wmat4 = net.ConvBN_0.conv_weight() * bn_s[:, None, None, None]
     lo, hi = (4 * p for p in same_pad(size // 4, 3, 2))
 
     def library():
         """crop_resize einsums + standardize + cuDNN conv, BN folded."""
         c = cuda_orient.crops_by_rig(images, xyxy, rig, size)
         std = preprocess._standardize(c, valid).permute(0, 3, 1, 2)
-        y = F.conv2d(F.pad(std, (lo, hi, lo, hi)), wmat4, consts["t"],
-                     stride=8)
+        y = F.conv2d(F.pad(std, (lo, hi, lo, hi)), wmat4, bn_t, stride=8)
         return F.relu(y)
 
     with torch.no_grad():
@@ -427,11 +478,14 @@ def check_orient(torch, dev, net, cfg, rigs, n_crops):
             images, xyxy, valid, rig, net, consts, size),
             lambda: cuda_orient.orient_front_plain(
                 images, xyxy, valid, rig, net, size), library, iters=20)
+        t["check_device_ms"] = port_device_ms(
+            torch, lambda: cuda_orient.orient_front_cuda(
+                images, xyxy, valid, rig, net, consts, size))
     n_valid = int(valid.sum())
     q, f = got.shape[1], got.shape[3]
     ops = n_valid * (2 * q * q * f * 12 * 12 * 3 + size * size * 3 * 10)
     n_bytes = (images.numel() + xyxy.numel() + got.numel()
-               + consts["wmat"].numel() + 2 * f) * 4 + 2 * n_crops
+               + wmat4.numel() + 2 * f) * 4 + 2 * n_crops
     return dict(
         name="orient_front", source="grid_vision_tpu_torch/csrc/cuda_orient.cu",
         replaces="grid_vision_tpu/ops/pallas_orient.py:288",
@@ -439,7 +493,8 @@ def check_orient(torch, dev, net, cfg, rigs, n_crops):
         crops_flat_left_out=int(flat.sum()),
         max_abs_err=(got[keep] - ref[keep]).abs().max().item(),
         library_max_abs_err=(lib[keep] - ref[keep]).abs().max().item(), **t,
-        bound=bound_ms(n_bytes, ops))
+        bound=bound_ms(n_bytes, ops),
+        bound_3xtf32_ms=bound_3xtf32_ms(n_bytes, ops))
 
 
 def run_ticks(torch, engine, obs_seq):
@@ -592,8 +647,7 @@ def main() -> None:
     # 2. build every kernel, one nvcc per source, all started together
     t0 = time.perf_counter()
     cuda_build.build_all()
-    regs = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln]
-            for n, log in cuda_build.ptxas_log.items()}
+    regs = {n: ptxas_summary(log) for n, log in cuda_build.ptxas_log.items()}
     phase("build", seconds=round(time.perf_counter() - t0, 3), ptxas=regs)
 
     # the single-rig path's configuration at full width
@@ -738,9 +792,20 @@ def main() -> None:
           pallas3_equals_pallas2=True)
     del fouts, fplain_outs, out2, out3
     # 6. where the fleet tick's device time goes
-    for name, eng in (("kernels", fleet), ("plain", fplain)):
-        phase("profile", path=f"fleet/{name}", **profile_fleet(
-            torch, eng, fleet_obs[0], BUDGET))
+    profiles = {name: profile_fleet(torch, eng, fleet_obs[0], BUDGET)
+                for name, eng in (("kernels", fleet), ("plain", fplain))}
+    for name, prof in profiles.items():
+        phase("profile", path=f"fleet/{name}", **prof)
+    # the redesigned kernels' own device time per fleet tick
+    device_ms = {
+        kernel: sum(row["ms_per_tick"]
+                    for row in profiles["kernels"]["port_kernels"]
+                    if prefix in row["name"])
+        for kernel, prefix in (("detector_csp", "gv_csp_"),
+                               ("orient_front", "gv_orient_"))}
+    for kernel, ms in device_ms.items():
+        if not ms > 0.0:
+            fail(f"the profile shows no device time for {kernel}")
     del fplain, p3
     torch.cuda.empty_cache()
 
@@ -856,6 +921,10 @@ def main() -> None:
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],
             shape=r["shape"]))
+        if name in device_ms:
+            kernels[-1].update(bound_3xtf32_ms=r["bound_3xtf32_ms"],
+                               device_ms=device_ms[name],
+                               check_device_ms=r["check_device_ms"])
     kernels[-1].update(single_rig={
         k: carve_single[k] for k in ("ms", "plain_ms", "shape")},
         single_rig_bound_ms=carve_single["bound"][0],

@@ -11,34 +11,63 @@
 // Mosaic (no strided slices, no safe minor-dim reshapes); none of that is
 // carried over: the crop is sampled directly, the conv reads it directly.
 //
-// Bound on this card: FP32 operations. At S = 224, F = 128 the conv is
-// ~87 MFLOP a crop (28 x 28 outputs x 128 channels x 432 taps x 2), ~28
-// GFLOP for 320 crops (~0.4 ms); the frames the crops read are at most
-// ~240 MB once (~0.07 ms of HBM time), the crops themselves ~0.6 MB each.
-// Design, two launches:
-//   1. one block per crop: reads the crop's rig index, samples the S x S
-//      crop straight from that rig's frame with the per-axis (lo, hi,
-//      frac) triplets the host computed (preprocess.box_axis_samples, the
-//      same positions as the plain twin), writes it to a scratch the
-//      wrapper allocates (L2-resident), and reduces the per-channel mean
-//      and then the variance around it (two passes, as the twin);
-//   2. the conv: one thread per output pixel and 16 output channels, the
-//      432 x 16 weight slice in shared memory (float4 broadcasts). Each
-//      input is standardized on load, (x - mean) * inv: center first, then
+// Bound on this card: operations. At S = 224, F = 128 the conv is ~87
+// MFLOP a crop (28 x 28 outputs x 128 channels x 432 taps x 2), ~28 GFLOP
+// for 320 crops; the frames the crops read are at most ~240 MB once, the
+// output 0.4 MB a crop. The contract is f32 (1e-3 against the twin), so the
+// conv is a matrix product on the tensor cores in 3xTF32 (gv_mma.cuh): the
+// weights are split into hi and lo once on the host with the BN scale
+// folded in, the activations in registers. Design, two launches:
+//   1. one block per crop: computes the crop's sample positions from its
+//      box with the plain twin's f32 operations in the twin's order, each
+//      rounded on its own (preprocess.box_axis_samples: corners truncated
+//      and clamped, extents >= 1, half-pixel positions clamped to the crop),
+//      samples the S x S crop straight from its rig's frame, writes it to a
+//      scratch the wrapper allocates (L2-resident), and reduces the
+//      per-channel mean and then the variance around it (two passes, as the
+//      twin);
+//   2. the conv: a block (896 threads) owns a band of 4 output rows x 28
+//      columns of one crop and all F <= 128 channels. It stages the band's
+//      36 input rows in shared memory with coalesced 16-byte loads,
+//      standardizing on the way in, (x - mean) * inv: center first, then
 //      scale, because the other order cancels catastrophically on flat
-//      crops (pallas_orient.py:35-40). Taps in the SAME padding, which on
-//      the 4-pixel block grid is (0, 4) pixels at S = 224, read zero.
+//      crops (pallas_orient.py:35-40); rows and columns in the SAME padding,
+//      which on the 4-pixel block grid is (0, 4) pixels at S = 224, are
+//      zero. An A-fragment row is then the 36 contiguous floats (12 pixels
+//      x 3 channels) of one input row per uy; the run is padded to 40 (a
+//      multiple of the mma's k = 8) with zero weights, so K = 12 x 40. The
+//      packed weights stream through a double buffer, one uy (40 KB at
+//      F = 128) a chunk. The 112 pixels are 7 m16 tiles; warp w of 28 owns
+//      channels [32 (w % 4), +32) and m-tile w / 4. At 181 KB of shared
+//      memory there is one block an SM, so its own 28 warps hide the
+//      latency of the loads and of the cvt and mma chains (on an H100, 289
+//      valid crops: 1.03 ms with 8 warps, 0.65-0.70 ms with 16 or 28).
+//      Pixels 8 apart in x are 24 floats apart, so the 8-byte A loads of a
+//      half-warp fall in 32 different banks.
 // An invalid crop is an all-zero standardized input: it gets exactly
-// relu(t), and launch 1 skips it.
+// relu(t) and costs no product, and launch 1 skips it.
 
-#include <cuda_runtime.h>
-#include <cstdint>
+#include "gv_mma.cuh"
 
 namespace {
 
-constexpr int kGroup = 16;                    // output channels per thread
-constexpr int kTaps = 12 * 12 * 3;            // 12x12 kernel, 3 channels
-constexpr int kStride = 8;
+constexpr int kStridePx = 8;                  // conv stride in pixels
+constexpr int kTapRows = 12;                  // 12 x 12 kernel
+constexpr int kRun = 40;                      // 12 px x 3 ch, padded to 8s
+constexpr int kBandRows = 4;                  // output rows a block
+constexpr int kBandCols = 28;                 // output columns a block
+constexpr int kMTiles = kBandRows * kBandCols / 16;
+constexpr int kInRows = (kBandRows - 1) * kStridePx + kTapRows;
+constexpr int kRowFloats = (kBandCols - 1) * kStridePx * 3 + kRun;
+constexpr int kBandFloats = kInRows * kRowFloats;
+constexpr int kConvThreads = 896;             // 28 warps: 7 x 4
+constexpr int kWarpMTiles = 1;                // m-tiles a warp
+constexpr int kCropThreads = 672;              // one block a crop, 3 an SM
+constexpr int kMaxF = 128;
+static_assert(kBandRows * kBandCols % 16 == 0, "whole m16 tiles");
+static_assert((kConvThreads / 32 / 4) * kWarpMTiles >= kMTiles,
+              "every m-tile has a warp");
+static_assert(kRowFloats % 4 == 0, "16-byte staging");
 
 // Block-wide sum of three values (blockDim.x a multiple of 32, <= 1024);
 // every thread gets the totals.
@@ -81,29 +110,91 @@ __device__ __forceinline__ float lerp_weight_pair(float frac, bool same,
   return w_lo;
 }
 
-__global__ void gv_orient_crop_kernel(
+// preprocess._bilinear_sample_axis for output index i: the half-pixel
+// position start + (i + 0.5) * (extent / n_out) - 0.5 clamped to the crop,
+// every operation rounded on its own as torch's elementwise ops are (the
+// compiler would contract the multiply-add and move a position by an ulp
+// across a pixel edge).
+__device__ __forceinline__ void axis_sample(int length, float start,
+                                            float extent, int n_out, int i,
+                                            int* lo, int* hi, float* frac) {
+  const float step = __fdiv_rn(extent, (float)n_out);
+  float pos = __fsub_rn(
+      __fadd_rn(start, __fmul_rn(__fadd_rn((float)i, 0.5f), step)), 0.5f);
+  pos = fminf(fmaxf(pos, start), __fsub_rn(__fadd_rn(start, extent), 1.0f));
+  const float fl = floorf(pos);
+  *frac = __fsub_rn(pos, fl);
+  const int l = min(max((int)fl, 0), length - 1);
+  *lo = l;
+  *hi = min(l + 1, length - 1);
+}
+
+// preprocess.box_axis_samples for one box: corners truncated toward zero
+// and clamped to the image, the max column excluded, extents >= 1.
+struct BoxAxes {
+  float x_start, x_extent, y_start, y_extent;
+};
+
+__device__ __forceinline__ BoxAxes box_axes(const float* __restrict__ box,
+                                            int h, int w) {
+  const int xmin = max(__float2int_rz(box[0]), 0);
+  const int ymin = max(__float2int_rz(box[1]), 0);
+  const int xmax = min(__float2int_rz(box[2]), w - 1);
+  const int ymax = min(__float2int_rz(box[3]), h - 1);
+  BoxAxes a;
+  a.x_start = (float)xmin;
+  a.y_start = (float)ymin;
+  a.x_extent = (float)max(xmax - xmin, 1);
+  a.y_extent = (float)max(ymax - ymin, 1);
+  return a;
+}
+
+// The (lo, hi, frac) tables of one box, `size` entries an axis, into
+// ylo | yhi | xlo | xhi (int) and yfr | xfr (float).
+__device__ __forceinline__ void fill_tables(const float* __restrict__ box,
+                                            int h, int w, int size, int* ylo,
+                                            int* yhi, float* yfr, int* xlo,
+                                            int* xhi, float* xfr) {
+  const BoxAxes a = box_axes(box, h, w);
+  for (int i = threadIdx.x; i < size; i += blockDim.x) {
+    axis_sample(h, a.y_start, a.y_extent, size, i, ylo + i, yhi + i,
+                yfr + i);
+    axis_sample(w, a.x_start, a.x_extent, size, i, xlo + i, xhi + i,
+                xfr + i);
+  }
+}
+
+__global__ void __launch_bounds__(kCropThreads) gv_orient_crop_kernel(
     const float* __restrict__ images, int h, int w,
-    const int32_t* __restrict__ rig, const uint8_t* __restrict__ valid,
-    const int32_t* __restrict__ ylo, const int32_t* __restrict__ yhi,
-    const float* __restrict__ yfr, const int32_t* __restrict__ xlo,
-    const int32_t* __restrict__ xhi, const float* __restrict__ xfr, int size,
-    float* __restrict__ crops, float* __restrict__ stats) {
+    const void* __restrict__ rig, int rig_is_i64,
+    const uint8_t* __restrict__ valid, const float* __restrict__ xyxy,
+    int size, float* __restrict__ crops, float* __restrict__ stats) {
+  extern __shared__ __align__(16) float smem[];
   const int n = blockIdx.x;
   if (!valid[n]) return;                      // uniform over the block
-  const float* frame = images + (int64_t)rig[n] * h * w * 3;
+  int* ylo = reinterpret_cast<int*>(smem);
+  int* yhi = ylo + size;
+  int* xlo = yhi + size;
+  int* xhi = xlo + size;
+  float* yfr = smem + 4 * size;
+  float* xfr = yfr + size;
+  fill_tables(xyxy + 4 * n, h, w, size, ylo, yhi, yfr, xlo, xhi, xfr);
+  __syncthreads();
+  const int64_t r = rig_is_i64 ? static_cast<const int64_t*>(rig)[n]
+                               : static_cast<const int32_t*>(rig)[n];
+  const float* frame = images + r * h * w * 3;
   float* crop = crops + (int64_t)n * size * size * 3;
-  const int64_t row0 = (int64_t)n * size;
   const int npix = size * size;
 
   float sum[3] = {0.0f, 0.0f, 0.0f};
   for (int p = threadIdx.x; p < npix; p += blockDim.x) {
     const int i = p / size;
     const int j = p - i * size;
-    const int y0 = ylo[row0 + i], y1 = yhi[row0 + i];
-    const int x0 = xlo[row0 + j], x1 = xhi[row0 + j];
+    const int y0 = ylo[i], y1 = yhi[i];
+    const int x0 = xlo[j], x1 = xhi[j];
     float wy1, wx1;
-    const float wy0 = lerp_weight_pair(yfr[row0 + i], y0 == y1, &wy1);
-    const float wx0 = lerp_weight_pair(xfr[row0 + j], x0 == x1, &wx1);
+    const float wy0 = lerp_weight_pair(yfr[i], y0 == y1, &wy1);
+    const float wx0 = lerp_weight_pair(xfr[j], x0 == x1, &wx1);
     const float* r0 = frame + (int64_t)y0 * w * 3;
     const float* r1 = frame + (int64_t)y1 * w * 3;
 #pragma unroll
@@ -134,104 +225,235 @@ __global__ void gv_orient_crop_kernel(
   }
 }
 
-__global__ void gv_orient_conv_kernel(
-    const float* __restrict__ crops, const float* __restrict__ stats,
-    const uint8_t* __restrict__ valid, int size, int q, int pad,
-    const float* __restrict__ wmat, int f, const float* __restrict__ scale,
-    const float* __restrict__ shift, float* __restrict__ out) {
-  __shared__ __align__(16) float sw[kTaps * kGroup];
-  __shared__ float ss[kGroup], sb[kGroup];
-  const int n = blockIdx.z;
-  const int g0 = blockIdx.y * kGroup;
-  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  float4* dst = reinterpret_cast<float4*>(
-      out + (((int64_t)n * q * q) + pix) * f + g0);
+// The sample tables of every box, as the crop kernel computes them.
+__global__ void gv_orient_samples_kernel(const float* __restrict__ xyxy,
+                                         int h, int w, int size, int* ylo,
+                                         int* yhi, float* yfr, int* xlo,
+                                         int* xhi, float* xfr) {
+  const int64_t o = (int64_t)blockIdx.x * size;
+  fill_tables(xyxy + 4 * blockIdx.x, h, w, size, ylo + o, yhi + o, yfr + o,
+              xlo + o, xhi + o, xfr + o);
+}
+
+// crops: (n, size, size, 3) raw; stats: (n, 6) mean | 1 / std; wfrag: the
+// (12 * 40, f) matrix (rows uy * 40 + ux * 3 + c, rows 36-39 of a run zero,
+// BN scale folded in) packed by tf32x3.pack_b_fragments; out: (n, q, q, f).
+__global__ void __launch_bounds__(kConvThreads)
+gv_orient_conv_kernel(const float* __restrict__ crops,
+                      const float* __restrict__ stats,
+                      const uint8_t* __restrict__ valid, int size, int q,
+                      int pad, const float* __restrict__ wfrag, int f,
+                      const float* __restrict__ shift,
+                      float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  const int chunk_floats = (kRun / 8) * (f / 8) * 32 * 4;
+  float* band = smem;
+  float* wbuf = smem + kBandFloats;
+  float* sshift = wbuf + 2 * chunk_floats;
+  float* sstat = sshift + kMaxF;
+  const int tid = threadIdx.x;
+  const int n = blockIdx.x;
+  const int oy0 = blockIdx.y * kBandRows;
+  const int ox0 = blockIdx.z * kBandCols;
+
   if (!valid[n]) {                            // uniform over the block
-    if (pix < q * q) {
-#pragma unroll
-      for (int c4 = 0; c4 < kGroup / 4; ++c4) {
-        const float* t = shift + g0 + 4 * c4;
-        dst[c4] = make_float4(fmaxf(t[0], 0.0f), fmaxf(t[1], 0.0f),
-                              fmaxf(t[2], 0.0f), fmaxf(t[3], 0.0f));
+    const int vecs = f / 4;
+    for (int i = tid; i < kBandRows * kBandCols * vecs; i += kConvThreads) {
+      const int p = i / vecs;
+      const int v = i - p * vecs;
+      const int oy = oy0 + p / kBandCols;
+      const int ox = ox0 + p % kBandCols;
+      if (oy < q && ox < q) {
+        const float* t = shift + 4 * v;
+        *reinterpret_cast<float4*>(
+            out + (((int64_t)n * q + oy) * q + ox) * f + 4 * v) =
+            make_float4(fmaxf(t[0], 0.0f), fmaxf(t[1], 0.0f),
+                        fmaxf(t[2], 0.0f), fmaxf(t[3], 0.0f));
       }
     }
     return;
   }
-  for (int t = threadIdx.x; t < kTaps * kGroup; t += blockDim.x) {
-    sw[t] = wmat[(t / kGroup) * f + g0 + t % kGroup];
-  }
-  if (threadIdx.x < kGroup) {
-    ss[threadIdx.x] = scale[g0 + threadIdx.x];
-    sb[threadIdx.x] = shift[g0 + threadIdx.x];
-  }
-  __syncthreads();
-  if (pix >= q * q) return;
-  const int oy = pix / q;
-  const int ox = pix - oy * q;
-  const float* crop = crops + (int64_t)n * size * size * 3;
-  const float mean[3] = {stats[n * 6], stats[n * 6 + 1], stats[n * 6 + 2]};
-  const float inv[3] = {stats[n * 6 + 3], stats[n * 6 + 4],
-                        stats[n * 6 + 5]};
 
-  float acc[kGroup];
+  auto load_chunk = [&](int chunk) {
+    const float* s = wfrag + (int64_t)chunk * chunk_floats;
+    float* d = wbuf + (chunk & 1) * chunk_floats;
+    for (int i = tid; i < chunk_floats / 4; i += kConvThreads) {
+      gv::cp_async16(d + 4 * i, s + 4 * i, true);
+    }
+    gv::cp_async_commit();
+  };
+  load_chunk(0);
+  if (tid < f) sshift[tid] = shift[tid];
+  if (tid < 6) sstat[tid] = stats[n * 6 + tid];
+  __syncthreads();
+
+  // stage the band's input rows, standardized; zero outside the crop
+  {
+    const float* crop = crops + (int64_t)n * size * size * 3;
+    const int row_len = size * 3;
+    const int r0 = oy0 * kStridePx - pad;
+    const int col0 = (ox0 * kStridePx - pad) * 3;  // a multiple of 12
+    constexpr int kVecs = kRowFloats / 4;
+    for (int i = tid; i < kInRows * kVecs; i += kConvThreads) {
+      const int rr = i / kVecs;
+      const int v = i - rr * kVecs;
+      const int r = r0 + rr;
+      const int cs = col0 + 4 * v;
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (r >= 0 && r < size && cs >= 0 && cs < row_len) {
+        x = __ldg(reinterpret_cast<const float4*>(
+            crop + (int64_t)r * row_len + cs));
+        const int c = v % 3;                  // channel of x.x: cs % 3
+        const int c1 = c == 2 ? 0 : c + 1;
+        const int c2 = c1 == 2 ? 0 : c1 + 1;
+        x.x = (x.x - sstat[c]) * sstat[3 + c];
+        x.y = (x.y - sstat[c1]) * sstat[3 + c1];
+        x.z = (x.z - sstat[c2]) * sstat[3 + c2];
+        x.w = (x.w - sstat[c]) * sstat[3 + c];
+      }
+      *reinterpret_cast<float4*>(band + rr * kRowFloats + 4 * v) = x;
+    }
+  }
+
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wq = warp & 3;                    // channels [32 wq, 32 wq + 32)
+  const int mt0 = (warp >> 2) * kWarpMTiles;  // its first m-tile
+  const int n_tiles = f / 8;
+
+  int a_off[kWarpMTiles][2];                  // band offset of rows g, g + 8
 #pragma unroll
-  for (int co = 0; co < kGroup; ++co) acc[co] = 0.0f;
-  for (int uy = 0; uy < 12; ++uy) {
-    const int r = oy * kStride + uy - pad;
-    if (r < 0 || r >= size) continue;         // SAME zero pad
-    for (int ux = 0; ux < 12; ++ux) {
-      const int s = ox * kStride + ux - pad;
-      if (s < 0 || s >= size) continue;
-      const float* px = crop + ((int64_t)r * size + s) * 3;
+  for (int mt = 0; mt < kWarpMTiles; ++mt) {
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float x = (__ldg(px + c) - mean[c]) * inv[c];
-        const float4* wr = reinterpret_cast<const float4*>(
-            sw + ((uy * 12 + ux) * 3 + c) * kGroup);
+    for (int half = 0; half < 2; ++half) {
+      const int p = min((mt0 + mt) * 16 + g + 8 * half,
+                        kBandRows * kBandCols - 1);
+      a_off[mt][half] = (p / kBandCols) * kStridePx * kRowFloats +
+                        (p % kBandCols) * kStridePx * 3 + 2 * t;
+    }
+  }
+  float acc[kWarpMTiles][4][4];
 #pragma unroll
-        for (int c4 = 0; c4 < kGroup / 4; ++c4) {
-          const float4 wv = wr[c4];
-          acc[4 * c4] += wv.x * x;
-          acc[4 * c4 + 1] += wv.y * x;
-          acc[4 * c4 + 2] += wv.z * x;
-          acc[4 * c4 + 3] += wv.w * x;
+  for (int mt = 0; mt < kWarpMTiles; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+    }
+  }
+
+  for (int uy = 0; uy < kTapRows; ++uy) {
+    if (uy + 1 < kTapRows) {
+      load_chunk(uy + 1);
+      gv::cp_async_wait<1>();
+    } else {
+      gv::cp_async_wait<0>();
+    }
+    __syncthreads();                          // chunk uy (and the band) landed
+    const float4* wb =
+        reinterpret_cast<const float4*>(wbuf + (uy & 1) * chunk_floats);
+    const float* arow = band + uy * kRowFloats;
+#pragma unroll
+    for (int ks = 0; ks < kRun / 8; ++ks) {
+      float4 b[4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int tile = min(4 * wq + nt, n_tiles - 1);
+        b[nt] = wb[(ks * n_tiles + tile) * 32 + lane];
+      }
+#pragma unroll
+      for (int mt = 0; mt < kWarpMTiles; ++mt) {
+        if (mt0 + mt < kMTiles) {             // uniform over the warp
+          uint32_t ah[4], al[4];
+          gv::load_a(arow + a_off[mt][0] + ks * 8,
+                     arow + a_off[mt][1] + ks * 8, ah, al);
+          gv::mma_3xtf32(acc[mt], ah, al, b);
         }
       }
     }
+    __syncthreads();                          // the buffer is refilled next
   }
+
 #pragma unroll
-  for (int c4 = 0; c4 < kGroup / 4; ++c4) {
-    dst[c4] = make_float4(
-        fmaxf(acc[4 * c4] * ss[4 * c4] + sb[4 * c4], 0.0f),
-        fmaxf(acc[4 * c4 + 1] * ss[4 * c4 + 1] + sb[4 * c4 + 1], 0.0f),
-        fmaxf(acc[4 * c4 + 2] * ss[4 * c4 + 2] + sb[4 * c4 + 2], 0.0f),
-        fmaxf(acc[4 * c4 + 3] * ss[4 * c4 + 3] + sb[4 * c4 + 3], 0.0f));
+  for (int mt = 0; mt < kWarpMTiles; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int p = (mt0 + mt) * 16 + g + 8 * half;
+      const int oy = oy0 + p / kBandCols;
+      const int ox = ox0 + p % kBandCols;
+      if (mt0 + mt < kMTiles && oy < q && ox < q) {
+        float* dst = out + (((int64_t)n * q + oy) * q + ox) * f;
+#pragma unroll
+        for (int pp = 0; pp < 2; ++pp) {
+          const int ch = 32 * wq + 16 * pp + 4 * t;
+          if (ch < f) {
+            const float* sh = sshift + ch;
+            *reinterpret_cast<float4*>(dst + ch) = make_float4(
+                fmaxf(acc[mt][2 * pp][2 * half] + sh[0], 0.0f),
+                fmaxf(acc[mt][2 * pp][2 * half + 1] + sh[1], 0.0f),
+                fmaxf(acc[mt][2 * pp + 1][2 * half] + sh[2], 0.0f),
+                fmaxf(acc[mt][2 * pp + 1][2 * half + 1] + sh[3], 0.0f));
+          }
+        }
+      }
+    }
   }
 }
 
 }  // namespace
 
-// images: (R, h, w, 3); rig / valid: (n,); ylo, yhi, yfr, xlo, xhi, xfr:
-// (n, size); crops: (n, size, size, 3) and stats: (n, 6) scratch; wmat:
-// (432, f) in ((uy * 12 + ux) * 3 + c) row order; scale / shift: (f,);
-// out: (n, q, q, f).
-extern "C" int gv_orient_front(
-    const float* images, int h, int w, const int32_t* rig,
-    const uint8_t* valid, const int32_t* ylo, const int32_t* yhi,
-    const float* yfr, const int32_t* xlo, const int32_t* xhi,
-    const float* xfr, int n, int size, int q, int pad, const float* wmat,
-    int f, const float* scale, const float* shift, float* crops,
-    float* stats, float* out, cudaStream_t stream) {
-  if (f % kGroup != 0 || n > 65535) return (int)cudaErrorInvalidValue;
+// images: (R, h, w, 3); rig: (n,) int32 or int64; valid: (n,) bytes; xyxy:
+// (n, 4); crops: (n, size, size, 3) and stats: (n, 6) scratch; wfrag: the
+// packed (480, f) weights; shift: (f,); out: (n, q, q, f). size % 8 == 0,
+// f % 16 == 0, f <= 128.
+extern "C" int gv_orient_front(const float* images, int h, int w,
+                               const void* rig, int rig_is_i64,
+                               const uint8_t* valid, const float* xyxy, int n,
+                               int size, int q, int pad, const float* wfrag,
+                               int f, const float* shift, float* crops,
+                               float* stats, float* out,
+                               cudaStream_t stream) {
+  if (f <= 0 || f % 16 != 0 || f > kMaxF || size <= 0 || size % 8 != 0 ||
+      pad % 4 != 0 || q <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (n <= 0) return 0;
-  gv_orient_crop_kernel<<<n, 256, 0, stream>>>(images, h, w, rig, valid, ylo,
-                                               yhi, yfr, xlo, xhi, xfr, size,
-                                               crops, stats);
-  cudaError_t err = cudaGetLastError();
+  const int band_rows = (q + kBandRows - 1) / kBandRows;
+  const int band_cols = (q + kBandCols - 1) / kBandCols;
+  if (band_rows > 65535 || band_cols > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int crop_smem = 6 * size * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      gv_orient_crop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      crop_smem);
   if (err != cudaSuccess) return (int)err;
-  const int threads = 128;
-  const dim3 grid((q * q + threads - 1) / threads, f / kGroup, n);
-  gv_orient_conv_kernel<<<grid, threads, 0, stream>>>(
-      crops, stats, valid, size, q, pad, wmat, f, scale, shift, out);
+  gv_orient_crop_kernel<<<n, kCropThreads, crop_smem, stream>>>(
+      images, h, w, rig, rig_is_i64, valid, xyxy, size, crops, stats);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int conv_smem =
+      (kBandFloats + 2 * (kRun / 8) * (f / 8) * 32 * 4 + kMaxF + 8) * 4;
+  err = cudaFuncSetAttribute(gv_orient_conv_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             conv_smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(n, band_rows, band_cols);
+  gv_orient_conv_kernel<<<grid, kConvThreads, conv_smem, stream>>>(
+      crops, stats, valid, size, q, pad, wfrag, f, shift, out);
+  return (int)cudaGetLastError();
+}
+
+// The (n, size) sample tables the crop kernel computes from the boxes
+// (the check against preprocess.box_axis_samples).
+extern "C" int gv_orient_samples(const float* xyxy, int n, int h, int w,
+                                 int size, int* ylo, int* yhi, float* yfr,
+                                 int* xlo, int* xhi, float* xfr,
+                                 cudaStream_t stream) {
+  if (n <= 0 || size <= 0) return 0;
+  gv_orient_samples_kernel<<<n, 128, 0, stream>>>(xyxy, h, w, size, ylo, yhi,
+                                                  yfr, xlo, xhi, xfr);
   return (int)cudaGetLastError();
 }

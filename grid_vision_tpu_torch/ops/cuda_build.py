@@ -5,8 +5,10 @@ Each ``csrc/<name>.cu`` exports a plain C interface and is compiled by
 ``ctypes``. Nothing here runs at import time: a kernel module asks for its
 library at its first launch, so the package imports on machines without a
 CUDA toolkit. Builds land in ``build/grid_vision_tpu_torch/`` of the
-checkout (git-ignored), keyed by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads the cached library.
+checkout (git-ignored), keyed by a hash of the source, the headers of
+``csrc/`` (``*.cuh``, which any source may include) and the flags, so an
+edited source or header rebuilds and an unchanged one loads the cached
+library.
 
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits for
 them together — the way ``chip_smoke.py`` builds every kernel.
@@ -47,8 +49,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

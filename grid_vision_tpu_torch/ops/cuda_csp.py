@@ -7,8 +7,10 @@ stem activation -> ConvBN_2 -> CSPBlock_0 -> 2x2/s2 max pool -> the
 (B, S/8, S/8, 128) NHWC activation that YoloV4Tiny takes with
 front_external=True. On a CUDA tensor ``detector_csp_cuda`` launches the
 hand-written kernels of ``csrc/cuda_csp.cu`` (its note says what bounds
-them and how); on a CPU tensor it runs ``detector_csp_plain``, the
-detector module's own ConvBN_2 -> CSPBlock_0 -> max_pool2d.
+them and how: the convs run on the tensor cores in 3xTF32, from weights
+split and packed here once per model); on a CPU tensor it runs
+``detector_csp_plain``, the detector module's own ConvBN_2 -> CSPBlock_0 ->
+max_pool2d.
 """
 
 from __future__ import annotations
@@ -18,41 +20,33 @@ from typing import Dict
 
 import torch
 
-from ..models.layers import fold_bn
-from . import cuda_build
+from . import cuda_build, tf32x3
 
 # Kernel calls made by detector_csp_cuda (one per call; a call is four
 # launches of csrc/cuda_csp.cu).
 launches = 0
 
 
-def _conv_fold(conv_bn):
-    """A ConvBN's OIHW weight -> the kernel's (k*k*C_in, C_out) matrix in
-    (ty, tx, c) row order, plus the folded BN scale / shift."""
-    w = conv_bn.Conv_0.weight.detach()
-    o, i, kh, kw = w.shape
-    scale, shift = fold_bn(conv_bn.BatchNorm_0)
-    return (w.permute(2, 3, 1, 0).reshape(kh * kw * i, o).contiguous(),
-            scale.contiguous(), shift.contiguous())
-
-
 def prepare_csp_constants(detector) -> Dict[str, torch.Tensor]:
     """Fold ConvBN_2 and CSPBlock_0 of a YoloV4Tiny once (Engine init), on
-    the detector's device: w2 (576, 64), wa / wb (288, 32), wc (64, 64)
-    and each conv's folded BN scale / shift."""
+    the detector's device. Each conv's (k * k * C_in, C_out) matrix in
+    (ty, tx, c) row order, BN scale folded in, split into TF32 hi and lo
+    and packed in mma fragment order (tf32x3.pack_b_fragments): w2
+    (72, 8, 32, 4), wa / wb (36, 4, 32, 4), wc (8, 8, 32, 4); and each
+    conv's BN shift b2, ba, bb, bc."""
     with torch.no_grad():
         csp = detector.CSPBlock_0
         out = {}
         for key, conv_bn in (("2", detector.ConvBN_2), ("a", csp.ConvBN_0),
                              ("b", csp.ConvBN_1), ("c", csp.ConvBN_2)):
-            out[f"w{key}"], out[f"s{key}"], out[f"b{key}"] = _conv_fold(
-                conv_bn)
+            wmat, shift = tf32x3.folded_matrix(conv_bn)
+            out[f"w{key}"] = tf32x3.pack_b_fragments(wmat)
+            out[f"b{key}"] = shift.contiguous()
         return out
 
 
-_SHAPES = dict(w2=(576, 64), s2=(64,), b2=(64,), wa=(288, 32), sa=(32,),
-               ba=(32,), wb=(288, 32), sb=(32,), bb=(32,), wc=(64, 64),
-               sc=(64,), bc=(64,))
+_SHAPES = dict(w2=(72, 8, 32, 4), b2=(64,), wa=(36, 4, 32, 4), ba=(32,),
+               wb=(36, 4, 32, 4), bb=(32,), wc=(8, 8, 32, 4), bc=(64,))
 
 
 def detector_csp_plain(x: torch.Tensor, detector) -> torch.Tensor:
@@ -84,7 +78,7 @@ def _launch(x: torch.Tensor, consts) -> torch.Tensor:
     fn = lib.gv_detector_csp
     fn.restype = ctypes.c_int
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, I, I, I] + [P] * 12 + [P, P, P, P]
+    fn.argtypes = [P, I, I, I] + [P] * 8 + [P, P, P, P]
     stream = torch.cuda.current_stream(dev).cuda_stream
     cuda_build.check(
         fn(x.data_ptr(), b, h, w,
@@ -93,6 +87,32 @@ def _launch(x: torch.Tensor, consts) -> torch.Tensor:
         "gv_detector_csp")
     launches += 1
     return out
+
+
+def mma_product_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M, K) @ b (K, N) on the card through the kernels' 3xTF32 tile
+    product, one warp per 16 x 8 tile (the check of gv_mma.cuh's fragment
+    layout and of tf32x3.pack_b_fragments against a library product; no
+    path calls it). M % 16 == N % 16 == K % 8 == 0."""
+    if (a.device.type != "cuda" or b.device != a.device
+            or a.dtype != torch.float32 or b.dtype != torch.float32
+            or a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]
+            or a.shape[0] % 16 or not a.is_contiguous()):
+        raise ValueError("a (M, K) and b (K, N) must be float32 CUDA "
+                         "matrices, a contiguous, M % 16 == 0")
+    bfrag = tf32x3.pack_b_fragments(b)
+    c = torch.empty((a.shape[0], b.shape[1]), dtype=torch.float32,
+                    device=a.device)
+    fn = cuda_build.load("cuda_csp").gv_mma_product
+    fn.restype = ctypes.c_int
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, P, P, I, I, I, P]
+    cuda_build.check(
+        fn(a.data_ptr(), bfrag.data_ptr(), c.data_ptr(), a.shape[0],
+           b.shape[1], a.shape[1],
+           torch.cuda.current_stream(a.device).cuda_stream),
+        "gv_mma_product")
+    return c
 
 
 def detector_csp_cuda(x: torch.Tensor, detector, consts) -> torch.Tensor:

@@ -54,8 +54,12 @@ def _bilinear_sample_axis(length_in: int, start, extent, n_out: int):
     """cv2-style half-pixel sample positions along one axis, clamped to
     the crop. start / extent: (D,) f32. Returns (lo, hi, frac), (D, n_out)."""
     i = torch.arange(n_out, dtype=torch.float32, device=start.device)
-    pos = start[:, None] + (i[None, :] + 0.5) * (extent[:, None] / n_out) \
-        - 0.5
+    # divide by a tensor on the device: by a Python scalar a CUDA tensor is
+    # multiplied by the reciprocal, an ulp off the CPU's (and the
+    # orientation-front kernel's) true division
+    step = extent[:, None] / torch.full((), float(n_out),
+                                        device=start.device)
+    pos = start[:, None] + (i[None, :] + 0.5) * step - 0.5
     pos = torch.minimum(torch.maximum(pos, start[:, None]),
                         start[:, None] + extent[:, None] - 1.0)
     lo = torch.floor(pos)

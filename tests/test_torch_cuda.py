@@ -14,10 +14,11 @@ import pytest
 import torch
 
 from grid_vision_tpu_torch.config import GridVisionConfig
-from grid_vision_tpu_torch.models import weights
+from grid_vision_tpu_torch.models import orientation_net, weights
 from grid_vision_tpu_torch.ops import (association, cuda_csp, cuda_grid,
                                        cuda_knn, cuda_orient, cuda_raycast,
-                                       cuda_stem, raycast)
+                                       cuda_stem, preprocess, raycast,
+                                       tf32x3)
 from grid_vision_tpu_torch.types import LShapePoses, PointCloud
 
 torch.set_num_threads(1)
@@ -227,6 +228,141 @@ def test_orient_kernel_matches_twin(cuda_device):
     torch.testing.assert_close(
         got[5], torch.relu(consts["t"]).expand(28, 28, 128), rtol=0,
         atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(16, 16, 8), (64, 96, 432)])
+def test_mma_tile_product_matches_matmul(cuda_device, m, n, k):
+    """The 3xTF32 warp-tile product of csrc/gv_mma.cuh (fragment layout,
+    host packing, the three mma.sync) against torch.matmul in f64: f32
+    accuracy, rtol = atol = 1e-5, where one TF32 product is ~1e-3 off."""
+    rng = np.random.default_rng(m + n + k)
+    a = torch.as_tensor(rng.normal(0, 1, (m, k)).astype(np.float32),
+                        device=cuda_device)
+    b = torch.as_tensor(rng.normal(0, 1, (k, n)).astype(np.float32),
+                        device=cuda_device)
+    got = cuda_csp.mma_product_cuda(a, b)
+    torch.cuda.synchronize()
+    exact = a.double() @ b.double()
+    torch.testing.assert_close(got.double(), exact, rtol=1e-5, atol=1e-5)
+    # and equal to the CPU emulation's split and order up to f32 summation
+    b_hi, b_lo = tf32x3.split_tf32(b)
+    torch.testing.assert_close(got, tf32x3.matmul_3xtf32(a, b_hi, b_lo),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,batch", [(16, 16, 1), (16, 16, 3), (24, 32, 1),
+                                       (24, 32, 3), (18, 22, 2)])
+def test_csp_kernel_ragged_tiles(cuda_device, h, w, batch):
+    """Frames smaller than, and not a multiple of, the kernels' 8 x 16 and
+    16 x 16 pixel tiles; rtol = atol = 1e-4 as at full size."""
+    cfg = GridVisionConfig(detection_weights_file="weights/detector.npz")
+    det = weights.load_all(cfg, device=cuda_device)["detector"]
+    consts = cuda_csp.prepare_csp_constants(det)
+    g = torch.Generator(device=cuda_device).manual_seed(h + w + batch)
+    x = torch.rand((batch, h, w, 64), generator=g, device=cuda_device) * 4
+    with torch.no_grad():
+        got = cuda_csp.detector_csp_cuda(x, det, consts)
+        torch.cuda.synchronize()
+        ref = cuda_csp.detector_csp_plain(x, det)
+    assert got.shape == (batch, h // 2, w // 2, 128)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_orient_sample_positions_bit_equal_to_box_axis_samples(cuda_device):
+    """The crop kernel computes its sample tables from the boxes itself:
+    lo, hi and frac equal preprocess.box_axis_samples bit for bit on
+    interior, clamped (every edge, fully outside), sliver and fractional
+    boxes, so kernel and twin sample the same pixels."""
+    rng = np.random.default_rng(9)
+    xy = rng.uniform(-60, 660, (200, 2))
+    wh = rng.uniform(0.2, 400, (200, 2))
+    xyxy = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    xyxy[:8] = [[-30, -20, 200, 180], [500, 300, 700, 520],
+                [100.2, 100.7, 106.4, 105.1], [100, 100, 100.4, 100.4],
+                [0, 0, 640, 480], [639, 479, 700, 500], [-50, -50, -10, -10],
+                [17.9, 33.1, 18.2, 300.7]]
+    boxes = torch.as_tensor(xyxy, device=cuda_device)
+    for h, w, size in ((480, 640, 224), (96, 128, 64)):
+        got = cuda_orient.box_axis_samples_cuda(boxes, h, w, size)
+        torch.cuda.synchronize()
+        want = preprocess.box_axis_samples(boxes, h, w, size)
+        for (lo, hi, fr), (wlo, whi, wfr) in zip(got, want):
+            assert torch.equal(lo, wlo.to(torch.int32))
+            assert torch.equal(hi, whi.to(torch.int32))
+            assert torch.equal(fr, wfr)
+
+
+@pytest.mark.cuda
+def test_orient_kernel_takes_int64_rigs_and_rejects_bad_inputs(cuda_device):
+    cfg = GridVisionConfig(vision_weights_file="weights/orientation.npz")
+    net = weights.load_all(cfg, device=cuda_device)["orientation"]
+    consts = cuda_orient.prepare_orient_constants(net)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    images = torch.rand((2, 480, 640, 3), generator=g,
+                        device=cuda_device) * 255
+    xyxy = torch.tensor([[40.0, 50, 300, 260], [600, 400, 700, 500],
+                         [10, 10, 90, 200]], device=cuda_device)
+    valid = torch.tensor([True, True, True], device=cuda_device)
+    rig = torch.tensor([0, 1, 1], device=cuda_device)          # int64
+    with torch.no_grad():
+        got = cuda_orient.orient_front_cuda(images, xyxy, valid, rig, net,
+                                            consts, 224)
+        same = cuda_orient.orient_front_cuda(images, xyxy, valid,
+                                             rig.to(torch.int32), net,
+                                             consts, 224)
+        torch.cuda.synchronize()
+        ref = cuda_orient.orient_front_plain(images, xyxy, valid, rig, net,
+                                             224)
+    assert torch.equal(got, same)
+    torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-3)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_orient.orient_front_cuda(images, xyxy.t().contiguous().t(),
+                                      valid, rig, net, consts, 224)
+    with pytest.raises(ValueError, match="orientation constants"):
+        cuda_orient.orient_front_cuda(
+            images, xyxy, valid, rig, net,
+            dict(consts, wfrag=consts["wfrag"][:-1]), 224)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,width,h,w", [(64, 8, 96, 128),
+                                            (240, 4, 300, 400),
+                                            (32, 12, 50, 60)])
+def test_orient_kernel_other_sizes_and_widths(cuda_device, size, width, h, w):
+    """Crops smaller than one 4 x 28 band of outputs, wider than one (240:
+    30 columns), and 32, 16 and 48 channels on a randomly initialized net
+    with non-trivial BN; rtol = atol = 1e-3 as at full size."""
+    torch.manual_seed(size)
+    net = orientation_net.OrientationNetS2D(orientation_net.OrientationConfig(
+        input_size=size, width=width)).eval()
+    bn = net.ConvBN_0.BatchNorm_0
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5)
+        bn.bias.normal_(0, 0.5)
+        bn.running_mean.normal_(0, 0.3)
+        bn.running_var.uniform_(0.5, 2.0)
+    net = net.to(cuda_device)
+    consts = cuda_orient.prepare_orient_constants(net)
+    rng = np.random.default_rng(size)
+    images = torch.as_tensor(rng.uniform(0, 255, (2, h, w, 3))
+                             .astype(np.float32), device=cuda_device)
+    xyxy = torch.tensor([[-10.0, -6, 50, 40], [20, 10, 48, 45],
+                         [20.2, 20.7, 26.4, 25.1], [5, 5, 30, 30]],
+                        device=cuda_device)
+    valid = torch.tensor([True, True, True, False], device=cuda_device)
+    rig = torch.tensor([0, 1, 1, 0], dtype=torch.int32, device=cuda_device)
+    with torch.no_grad():
+        got = cuda_orient.orient_front_cuda(images, xyxy, valid, rig, net,
+                                            consts, size)
+        torch.cuda.synchronize()
+        ref = cuda_orient.orient_front_plain(images, xyxy, valid, rig, net,
+                                             size)
+    assert got.shape == (4, size // 8, size // 8, 4 * width)
+    torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-3)
+    assert torch.equal(got[3], torch.relu(consts["t"]).expand_as(got[3]))
 
 
 def _scan(rng, lead, n_pts, device):
