@@ -2,20 +2,27 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels stem,knn
 
 Run from the root of a checkout. Imports nothing of JAX or of the JAX
-package. Phases, each printing one line:
+package. With `--kernels` and a list of names (stem, grid, knn, csp, orient,
+carve) it stops after phase 3 and checks only those: the quick look at a
+kernel under work; no device JSON follows. Phases, each printing one line:
 
 1. the card (name and power limit from nvidia-smi); TF32 off;
 2. build the kernels of csrc/ (one nvcc per source, in parallel), timed,
-   with each kernel's registers, shared memory and spills from ptxas;
+   with each kernel's registers, shared memory and spills from ptxas, and
+   the stem kernels' dynamic shared memory and blocks per SM;
 3. each kernel against its plain torch twin on the card: the single-rig
    path's kernels at its shapes, then the kernels at the fleet path's
    shapes (64 rigs, 320 orientation crops), then the carve kernel and the
    kNN kernel at the extension tick's shapes (a real scan's range profile;
    the depth refine queries all 64 box slots), 1 rig and 64: max |error|,
    the kernel's time, the twin's time and a PyTorch library yardstick,
-   with the least time the card could take;
+   with the least time the card could take; then, for the stem, CSP,
+   orientation and kNN kernels, their device time per call from the
+   profiler (after all host-clock timings: the profiler, once used, makes
+   every launch dearer);
 4. the single-rig Engine at full width (480x640 frames, detector 416,
    orientation 224 / width 32, 16384 points, 500x200 grid, shipped
    weights) for ENGINE_TICKS ticks of a synthetic scene: the stem, grid
@@ -42,11 +49,12 @@ package. Phases, each printing one line:
    (plain torch on every backend) on the card;
 8. a `kernels` JSON line for every ported kernel (launches: the fleet
    run's counts, the extension fleet run's for the carve kernel; for the
-   two tensor-core kernels also `bound_3xtf32_ms`, the bound with three
-   TF32 products per f32 product at the TF32 rate, `device_ms`, their
-   device time per profiled fleet tick, and `check_device_ms`, their
-   device time per call at the kernel check's shapes), then the card, then
-   the device JSON.
+   tensor-core kernels also `bound_3xtf32_ms`, the bound with three TF32
+   products per f32 product at the TF32 rate; for them and the kNN kernel
+   `device_ms`, their device time per profiled fleet tick, and
+   `check_device_ms`, their device time per call at the kernel check's
+   shapes; the kNN kernel's other shapes, 64 queries a rig and the single
+   rig, under `other_shapes`), then the card, then the device JSON.
 
 Any failure exits non-zero. The last line is the device JSON.
 """
@@ -144,12 +152,13 @@ def port_device_ms(torch, fn, iters: int = 5) -> float:
     gv_*), from torch.profiler: the call's time without its wrapper and
     launch gaps."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    with torch.no_grad():
+        fn()
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
     return sum(e.time_range.elapsed_us() for e in prof.events()
                if "gv_" in e.name) / 1e3 / iters
 
@@ -194,15 +203,17 @@ def check_stem(torch, dev, detector, cfg, batch):
                    + 2 * size * size * 3 * ty.shape[1]
                    + 2 * s0 * s0 * 32 * 27 + 2 * s1 * s1 * 64 * 288)
     n_bytes = (img.numel() + got.numel() + 27 * 32 + 288 * 64 + 192) * 4
+    t = timed(lambda: cuda_stem.detector_stem_cuda(img, consts, size),
+              lambda: cuda_stem.detector_stem_plain(img, consts, size),
+              library)
     return dict(
+        call=lambda: cuda_stem.detector_stem_cuda(img, consts, size),
         name="detector_stem", source="grid_vision_tpu_torch/csrc/cuda_stem.cu",
         replaces="grid_vision_tpu/ops/pallas_stem.py:359", shape=list(
             img.shape),
-        max_abs_err=(got - ref).abs().max().item(),
-        **timed(lambda: cuda_stem.detector_stem_cuda(img, consts, size),
-                lambda: cuda_stem.detector_stem_plain(img, consts, size),
-                library),
-        bound=bound_ms(n_bytes, ops))
+        max_abs_err=(got - ref).abs().max().item(), **t,
+        bound=bound_ms(n_bytes, ops),
+        bound_3xtf32_ms=bound_3xtf32_ms(n_bytes, ops))
 
 
 def random_grid_case(torch, dev, cfg, rigs, seed):
@@ -347,17 +358,21 @@ def check_knn(torch, dev, cfg, cloud, d=None):
     n_bytes = uvd.numel() * 4 + valid.numel() + centers.numel() * 4 + \
         got.numel() * 4
     ops = 7 * d * p_valid
+    t = timed(lambda: cuda_knn.knn_median_depth_centers_cuda(
+        uvd, valid, centers, k),
+        lambda: cuda_knn.knn_median_depth_plain(uvd, valid, centers, k),
+        library)
+    n_rigs = lead[0] if lead else 1
     return dict(
+        call=lambda: cuda_knn.knn_median_depth_centers_cuda(
+            uvd, valid, centers, k),
         name="knn_median_depth",
         source="grid_vision_tpu_torch/csrc/cuda_knn.cu",
         replaces="grid_vision_tpu/ops/pallas_knn.py:72",
         shape=list(uvd.shape), queries=d,
+        slices=cuda_knn.knn_split(n_rigs, uvd.shape[-2], d, k)[0],
         max_abs_err=(got - ref).abs().max().item(),
-        library_max_abs_err=(lib - ref).abs().max().item(),
-        **timed(lambda: cuda_knn.knn_median_depth_centers_cuda(
-            uvd, valid, centers, k),
-            lambda: cuda_knn.knn_median_depth_plain(uvd, valid, centers, k),
-            library),
+        library_max_abs_err=(lib - ref).abs().max().item(), **t,
         bound=bound_ms(n_bytes, ops))
 
 
@@ -410,9 +425,8 @@ def check_csp(torch, dev, detector, cfg, batch):
         t = timed(lambda: cuda_csp.detector_csp_cuda(x, detector, consts),
                   lambda: cuda_csp.detector_csp_plain(x, detector), library,
                   iters=20)
-        t["check_device_ms"] = port_device_ms(
-            torch, lambda: cuda_csp.detector_csp_cuda(x, detector, consts))
     return dict(
+        call=lambda: cuda_csp.detector_csp_cuda(x, detector, consts),
         name="detector_csp", source="grid_vision_tpu_torch/csrc/cuda_csp.cu",
         replaces="grid_vision_tpu/ops/pallas_csp.py:404",
         also_replaces="grid_vision_tpu/ops/pallas_csp.py:343",
@@ -478,15 +492,14 @@ def check_orient(torch, dev, net, cfg, rigs, n_crops):
             images, xyxy, valid, rig, net, consts, size),
             lambda: cuda_orient.orient_front_plain(
                 images, xyxy, valid, rig, net, size), library, iters=20)
-        t["check_device_ms"] = port_device_ms(
-            torch, lambda: cuda_orient.orient_front_cuda(
-                images, xyxy, valid, rig, net, consts, size))
     n_valid = int(valid.sum())
     q, f = got.shape[1], got.shape[3]
     ops = n_valid * (2 * q * q * f * 12 * 12 * 3 + size * size * 3 * 10)
     n_bytes = (images.numel() + xyxy.numel() + got.numel()
                + wmat4.numel() + 2 * f) * 4 + 2 * n_crops
     return dict(
+        call=lambda: cuda_orient.orient_front_cuda(
+            images, xyxy, valid, rig, net, consts, size),
         name="orient_front", source="grid_vision_tpu_torch/csrc/cuda_orient.cu",
         replaces="grid_vision_tpu/ops/pallas_orient.py:288",
         shape=[n_crops, size, size, 3], crops_valid=n_valid,
@@ -602,7 +615,18 @@ def carved_shares(torch, cfg, obs_seq, extrinsics):
     return shares
 
 
+def kernel_phase(path: str, r: dict) -> None:
+    phase("kernel", path=path,
+          **{k: v for k, v in r.items() if k not in ("bound", "call")},
+          bound_ms=r["bound"][0], bound_by=r["bound"][1])
+
+
 def main() -> None:
+    only = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--kernels":
+        only = set(sys.argv[2].split(","))
+    elif len(sys.argv) > 1:
+        fail("usage: chip_smoke.py [--kernels stem,grid,knn,csp,orient,carve]")
     try:
         import torch
     except ImportError:
@@ -677,46 +701,55 @@ def main() -> None:
     pool_s = time.perf_counter() - t0
     det, net = engine.params["detector"], engine.params["orientation"]
 
-    # 3. each kernel against its twin: single-rig shapes, then the fleet's
-    for fn, args in ((check_stem, (det, cfg, 1)), (check_grid, (cfg, None)),
-                     (check_knn, (cfg, obs_seq[0].cloud))):
-        r = fn(torch, dev, *args)
-        torch.cuda.synchronize()
-        phase("kernel", path="engine",
-              **{k: v for k, v in r.items() if k != "bound"},
-              bound_ms=r["bound"][0], bound_by=r["bound"][1])
-    results = {}
-    for fn, args in ((check_stem, (det, fleet_cfg, N_RIGS)),
-                     (check_csp, (det, fleet_cfg, N_RIGS)),
-                     (check_orient, (net, fleet_cfg, N_RIGS, BUDGET)),
-                     (check_grid, (fleet_cfg, N_RIGS)),
-                     (check_knn, (fleet_cfg, fleet_obs[0].cloud))):
-        r = fn(torch, dev, *args)
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        results[r["name"]] = r
-        phase("kernel", path="fleet",
-              **{k: v for k, v in r.items() if k != "bound"},
-              bound_ms=r["bound"][0], bound_by=r["bound"][1])
-
-    # ... and the extension tick's: the carve kernel on a real scan, the
-    # kNN kernel at the full box capacity the depth refine asks for
-    carve = {}
+    # 3. each kernel against its twin: single-rig shapes, then the fleet's,
+    # then the extension tick's: the carve kernel on a real scan, the kNN
+    # kernel at the full box capacity the depth refine asks for
+    checks = [
+        ("engine", "stem", check_stem, (det, cfg, 1)),
+        ("engine", "grid", check_grid, (cfg, None)),
+        ("engine", "knn", check_knn, (cfg, obs_seq[0].cloud)),
+        ("fleet", "stem", check_stem, (det, fleet_cfg, N_RIGS)),
+        ("fleet", "csp", check_csp, (det, fleet_cfg, N_RIGS)),
+        ("fleet", "orient", check_orient, (net, fleet_cfg, N_RIGS, BUDGET)),
+        ("fleet", "grid", check_grid, (fleet_cfg, N_RIGS)),
+        ("fleet", "knn", check_knn, (fleet_cfg, fleet_obs[0].cloud))]
     for path, rigs, c, obs in (("extension", None, cfg, obs_seq[0]),
                                ("extension_fleet", N_RIGS, fleet_cfg,
                                 fleet_obs[0])):
-        for fn, args in ((check_raycast, (c, rigs, obs, engine.extrinsics)),
-                         (check_knn, (c, obs.cloud, c.max_detections))):
-            r = fn(torch, dev, *args)
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            if r["name"] == "carve_update":
-                carve[path] = r
-            phase("kernel", path=path,
-                  **{k: v for k, v in r.items() if k != "bound"},
-                  bound_ms=r["bound"][0], bound_by=r["bound"][1])
-    results["carve_update"] = carve["extension_fleet"]
-    carve_single = carve["extension"]
+        checks += [
+            (path, "carve", check_raycast, (c, rigs, obs, engine.extrinsics)),
+            (path, "knn", check_knn, (c, obs.cloud, c.max_detections))]
+    phase("stem_occupancy", **cuda_stem.blocks_per_sm(
+        cfg.camera_image_height, cfg.camera_image_width, cfg.resize))
+    checked = {}                              # (path, kernel name) -> result
+    for path, short, fn, args in checks:
+        if only is not None and short not in only:
+            continue
+        r = fn(torch, dev, *args)
+        torch.cuda.synchronize()
+        checked[path, r["name"]] = r
+    # the kernels' device time per call, after every host-clock timing: once
+    # the profiler has run in a process, each launch costs the host more
+    for (path, _), r in checked.items():
+        call = r.pop("call", None)
+        if call is not None:
+            r["check_device_ms"] = port_device_ms(torch, call)
+        del call
+        kernel_phase(path, r)
+    torch.cuda.empty_cache()
+    if only is not None:
+        return
+    results = {name: checked["fleet", name]
+               for name in ("detector_stem", "detector_csp", "orient_front",
+                            "grid_update", "knn_median_depth")}
+    results["carve_update"] = checked["extension_fleet", "carve_update"]
+    carve_single = checked["extension", "carve_update"]
+    knn_other = [dict({k: r[k] for k in (
+        "shape", "queries", "slices", "ms", "check_device_ms", "plain_ms",
+        "library_ms", "max_abs_err")}, path=path, bound_ms=r["bound"][0],
+        bound_by=r["bound"][1])
+        for (path, name), r in checked.items()
+        if name == "knn_median_depth" and path != "fleet"]
 
     # 4. the single-rig main path, counters from zero
     single = {"detector_stem": cuda_stem, "grid_update": cuda_grid,
@@ -796,13 +829,16 @@ def main() -> None:
                 for name, eng in (("kernels", fleet), ("plain", fplain))}
     for name, prof in profiles.items():
         phase("profile", path=f"fleet/{name}", **prof)
-    # the redesigned kernels' own device time per fleet tick
+    # the redesigned kernels' own device time per fleet tick (the profiler
+    # may drop events of a long run: check_device_ms is the steadier number)
     device_ms = {
         kernel: sum(row["ms_per_tick"]
                     for row in profiles["kernels"]["port_kernels"]
                     if prefix in row["name"])
-        for kernel, prefix in (("detector_csp", "gv_csp_"),
-                               ("orient_front", "gv_orient_"))}
+        for kernel, prefix in (("detector_stem", "gv_stem_"),
+                               ("detector_csp", "gv_csp_"),
+                               ("orient_front", "gv_orient_"),
+                               ("knn_median_depth", "gv_knn_"))}
     for kernel, ms in device_ms.items():
         if not ms > 0.0:
             fail(f"the profile shows no device time for {kernel}")
@@ -922,9 +958,13 @@ def main() -> None:
             bound_by=r["bound"][1], library_ms=r["library_ms"],
             shape=r["shape"]))
         if name in device_ms:
-            kernels[-1].update(bound_3xtf32_ms=r["bound_3xtf32_ms"],
-                               device_ms=device_ms[name],
+            kernels[-1].update(device_ms=device_ms[name],
                                check_device_ms=r["check_device_ms"])
+        if "bound_3xtf32_ms" in r:
+            kernels[-1].update(bound_3xtf32_ms=r["bound_3xtf32_ms"])
+        if name == "knn_median_depth":
+            kernels[-1].update(queries=r["queries"], slices=r["slices"],
+                               other_shapes=knn_other)
     kernels[-1].update(single_rig={
         k: carve_single[k] for k in ("ms", "plain_ms", "shape")},
         single_rig_bound_ms=carve_single["bound"][0],

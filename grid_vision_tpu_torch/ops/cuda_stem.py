@@ -6,7 +6,9 @@ Counterpart of grid_vision_tpu/ops/pallas_stem.py (detector_stem_pallas):
 (B, S/4, S/4, 64) NHWC activation that YoloV4Tiny takes with
 stem_external=True. On a CUDA tensor ``detector_stem_cuda`` launches the
 hand-written kernels of ``csrc/cuda_stem.cu`` (its note says what bounds
-them and how); on a CPU tensor it runs ``detector_stem_plain``: the resize
+them and how: the resize and ConvBN_0 from staged frame tiles, ConvBN_1 on
+the tensor cores in 3xTF32 from weights split and packed here once per
+model); on a CPU tensor it runs ``detector_stem_plain``: the resize
 matmuls, then F.conv2d with the BN folded to a scale and shift.
 """
 
@@ -21,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.layers import fold_bn, same_pad
-from . import cuda_build
+from . import cuda_build, tf32x3
 from .preprocess import preprocess_detector_image, _axis_resize_weights
 
 # Kernel launches made by detector_stem_cuda (one per call).
@@ -30,18 +32,22 @@ launches = 0
 
 def prepare_stem_constants(detector) -> Dict[str, torch.Tensor]:
     """Fold the stem weights of a YoloV4Tiny once (Engine init), on the
-    detector's device. Conv weights in the kernel's im2col order:
-    w0[(ty*3 + tx)*3 + c, co], w1[(ty*3 + tx)*32 + c, co]; OIHW copies for
-    the plain twin."""
+    detector's device. For the kernels: w0[(ty*3 + tx)*3 + c, co] with its
+    BN scale s0 and shift b0; w1frag, the (288, 64) matrix
+    w1[(ty*3 + tx)*32 + c, co] with the BN scale folded in, split into TF32
+    hi and lo and packed in mma fragment order (tf32x3.pack_b_fragments:
+    (36, 8, 32, 4)), and its BN shift b1. For the plain twin: OIHW copies
+    and s1."""
     with torch.no_grad():
         c0, c1 = detector.ConvBN_0, detector.ConvBN_1
         w0 = c0.Conv_0.weight.detach()                 # (32, 3, 3, 3)
         w1 = c1.Conv_0.weight.detach()                 # (64, 32, 3, 3)
         s0, b0 = fold_bn(c0.BatchNorm_0)
         s1, b1 = fold_bn(c1.BatchNorm_0)
+        w1mat = w1.permute(2, 3, 1, 0).reshape(288, 64) * s1
         return dict(
             w0=w0.permute(2, 3, 1, 0).reshape(27, 32).contiguous(),
-            w1=w1.permute(2, 3, 1, 0).reshape(288, 64).contiguous(),
+            w1frag=tf32x3.pack_b_fragments(w1mat),
             w0_oihw=w0.contiguous(), w1_oihw=w1.contiguous(),
             s0=s0.contiguous(), b0=b0.contiguous(),
             s1=s1.contiguous(), b1=b1.contiguous())
@@ -82,6 +88,82 @@ def detector_stem_plain(images: torch.Tensor, consts, size: int):
     return x.permute(0, 2, 3, 1).contiguous()
 
 
+# The conv0 kernel's tile of 8 x 32 outputs lies over 2 * 8 + 1 resized
+# rows and 2 * 32 + 1 resized columns (csrc/cuda_stem.cu: kR0H, kR0W).
+_TILE_RESIZED_ROWS = 17
+_TILE_RESIZED_COLS = 65
+_MAX_SHARED_BYTES = 232448          # dynamic shared memory a block can get
+_FOUR_BLOCKS_BYTES = 233472 // 4 - 1024     # ... and four blocks of one SM
+
+
+def window_extent(start: np.ndarray, taps: int, span: int) -> int:
+    """The most input rows that the tap windows of `span` consecutive
+    output rows cover together: what a block of the conv0 kernel stages of
+    the frame for its tile. The windows' starts must not decrease."""
+    if (np.diff(start) < 0).any():
+        raise ValueError("tap window starts must be non-decreasing")
+    last = start[np.minimum(np.arange(len(start)) + span - 1,
+                            len(start) - 1)]
+    return int((last + taps - start).max())
+
+
+def conv0_shared_bytes(fh_max: int, fw_max: int, band: int) -> int:
+    """Dynamic shared memory of the conv0 kernel (csrc/cuda_stem.cu):
+    constants, `band` rows of the frame patch (or the resized tile,
+    whichever is larger) and all fh_max rows resampled along x (or the
+    four warps' output staging)."""
+    resized = -(-_TILE_RESIZED_ROWS * 2 * (_TILE_RESIZED_COLS // 2 + 1) * 3
+                // 4) * 4
+    patch_row = (fw_max * 3 + 6) // 4 * 4       # c0_patch_row
+    return 4 * (27 * 32 + 64 + max(band * patch_row, resized)
+                + max(fh_max * _TILE_RESIZED_COLS * 3, 4 * 1024))
+
+
+def conv0_band(fh_max: int, fw_max: int) -> int:
+    """How many rows of its frame patch a conv0 block stages at a time: all
+    of them if four blocks then fit an SM, else as many as do, else as many
+    as fit one block's shared memory."""
+    for budget in (_FOUR_BLOCKS_BYTES, _MAX_SHARED_BYTES):
+        for band in range(fh_max, 0, -1):
+            if conv0_shared_bytes(fh_max, fw_max, band) <= budget:
+                return band
+    raise ValueError(
+        f"a {fh_max} x {fw_max} pixel frame patch under one conv0 tile "
+        f"needs {conv0_shared_bytes(fh_max, fw_max, 1)} bytes of shared "
+        f"memory, more than the {_MAX_SHARED_BYTES} a block can have")
+
+
+@functools.lru_cache(maxsize=None)
+def conv0_patch(h: int, w: int, size: int):
+    """(fh_max, fw_max, band): the frame rows and columns under a conv0
+    tile of an h x w frame resized to `size`, and the rows staged at a
+    time."""
+    ry0, ryw = resize_taps(h, size)
+    rx0, rxw = resize_taps(w, size)
+    fh = window_extent(ry0, ryw.shape[1], _TILE_RESIZED_ROWS)
+    fw = window_extent(rx0, rxw.shape[1], _TILE_RESIZED_COLS)
+    return fh, fw, conv0_band(fh, fw)
+
+
+def blocks_per_sm(h: int, w: int, size: int) -> Dict[str, int]:
+    """What the card gives the two stem kernels at h x w frames resized to
+    `size` (for the build report): each kernel's dynamic shared memory and
+    the blocks of it that fit one SM."""
+    fh, fw, band = conv0_patch(h, w, size)
+    blocks = (ctypes.c_int * 4)()
+    fn = cuda_build.load("cuda_stem").gv_stem_blocks_per_sm
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    cuda_build.check(fn(fh, fw, band, ctypes.addressof(blocks)),
+                     "gv_stem_blocks_per_sm")
+    if blocks[2] != conv0_shared_bytes(fh, fw, band):
+        raise RuntimeError("conv0_shared_bytes and csrc/cuda_stem.cu's "
+                           "c0_smem_bytes disagree")
+    return dict(patch_rows=fh, patch_cols=fw, band=band,
+                conv0_shared_bytes=blocks[2], conv0_blocks_per_sm=blocks[0],
+                conv1_shared_bytes=blocks[3], conv1_blocks_per_sm=blocks[1])
+
+
 _device_taps: Dict[tuple, tuple] = {}
 
 
@@ -95,6 +177,11 @@ def _taps_on(device, h: int, w: int, size: int):
     return _device_taps[key]
 
 
+# the constants the kernels read
+_SHAPES = dict(w0=(27, 32), s0=(32,), b0=(32,), w1frag=(36, 8, 32, 4),
+               b1=(64,))
+
+
 def _launch(images: torch.Tensor, consts, size: int) -> torch.Tensor:
     global launches
     dev = images.device
@@ -102,9 +189,7 @@ def _launch(images: torch.Tensor, consts, size: int) -> torch.Tensor:
             or images.shape[-1] != 3 or not images.is_contiguous()):
         raise ValueError("images must be a contiguous (B, H, W, 3) float32 "
                          "tensor")
-    shapes = dict(w0=(27, 32), w1=(288, 64), s0=(32,), b0=(32,), s1=(64,),
-                  b1=(64,))
-    for name, shape in shapes.items():
+    for name, shape in _SHAPES.items():
         t = consts[name]
         if (t.device != dev or t.dtype != torch.float32
                 or tuple(t.shape) != shape or not t.is_contiguous()):
@@ -116,22 +201,25 @@ def _launch(images: torch.Tensor, consts, size: int) -> torch.Tensor:
     pad0 = same_pad(size, 3, 2)[0]
     pad1 = same_pad(s0, 3, 2)[0]
     ry0, ryw, rx0, rxw = _taps_on(dev, h, w, size)
+    fh_max, fw_max, band = conv0_patch(h, w, size)
     mid = torch.empty((b, s0, s0, 32), dtype=torch.float32, device=dev)
     out = torch.empty((b, s1, s1, 64), dtype=torch.float32, device=dev)
     lib = cuda_build.load("cuda_stem")
     fn = lib.gv_detector_stem
     fn.restype = ctypes.c_int
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, I, I, I, P, P, I, P, P, I, I, P, P, P, I, I, P, P, P,
-                   P, I, I, P, P]
+    fn.argtypes = [P, I, I, I, P, P, I, P, P, I, I, I, I, I, I, P, P, P, I,
+                   I, P, P, P, I, I, P, P]
     stream = torch.cuda.current_stream(dev).cuda_stream
     cuda_build.check(
         fn(images.data_ptr(), b, h, w, ry0.data_ptr(), ryw.data_ptr(),
            ryw.shape[1], rx0.data_ptr(), rxw.data_ptr(), rxw.shape[1], size,
+           fh_max, fw_max, band,
+           int(w * 3 % 4 == 0 and images.data_ptr() % 16 == 0),
            consts["w0"].data_ptr(), consts["s0"].data_ptr(),
            consts["b0"].data_ptr(), pad0, s0, mid.data_ptr(),
-           consts["w1"].data_ptr(), consts["s1"].data_ptr(),
-           consts["b1"].data_ptr(), pad1, s1, out.data_ptr(), stream),
+           consts["w1frag"].data_ptr(), consts["b1"].data_ptr(), pad1, s1,
+           out.data_ptr(), stream),
         "gv_detector_stem")
     launches += 1
     return out

@@ -9,15 +9,15 @@ here:
 
 - what the kernels need on the host: ``split_tf32`` and
   ``pack_b_fragments``, which lay a weight matrix out in the order the
-  ``mma.sync.m16n8k8`` B fragments are read (``prepare_csp_constants`` and
-  ``prepare_orient_constants`` call it once per model);
+  ``mma.sync.m16n8k8`` B fragments are read (``prepare_stem_constants``,
+  ``prepare_csp_constants`` and ``prepare_orient_constants`` call it once
+  per model);
 - an emulation of the kernels' product for the CPU tests
-  (``matmul_3xtf32``, ``conv2d_3xtf32``, ``detector_csp_3xtf32``,
-  ``orient_conv_3xtf32``): the same split, the same three products per
-  k step in the same order, the steps accumulated in f32. It shows what
-  the arithmetic costs in
-  accuracy; it is not a twin of any kernel and nothing on a main path
-  calls it.
+  (``matmul_3xtf32``, ``conv2d_3xtf32``, ``detector_stem_3xtf32``,
+  ``detector_csp_3xtf32``, ``orient_conv_3xtf32``): the same split, the
+  same three products per k step in the same order, the steps accumulated
+  in f32. It shows what the arithmetic costs in accuracy; it is not a twin
+  of any kernel and nothing on a main path calls it.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.layers import fold_bn, same_pad
+from .preprocess import preprocess_detector_image
 
 
 def round_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -134,6 +135,20 @@ def folded_matrix(conv_bn):
     o, i, kh, kw = w.shape
     scale, shift = fold_bn(conv_bn.BatchNorm_0)
     return w.permute(2, 3, 1, 0).reshape(kh * kw * i, o) * scale, shift
+
+
+def detector_stem_3xtf32(images: torch.Tensor, detector,
+                         size: int) -> torch.Tensor:
+    """The stem of ops/cuda_stem.py as its kernels compute it: the resize
+    and ConvBN_0 in plain f32 (the kernel runs them in FFMA: the module's
+    own forward here), ConvBN_1 (3x3/s2, 32->64) a 3xTF32 product with the
+    BN scale folded into the weights: (B, H, W, 3) frames in [0, 255] ->
+    (B, S/4, S/4, 64), NHWC."""
+    x = torch.stack([preprocess_detector_image(im, size) for im in images])
+    y = detector.ConvBN_0(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    wmat, shift = folded_matrix(detector.ConvBN_1)
+    out = conv2d_3xtf32(y, wmat, 3, 2, same_pad(y.shape[1], 3, 2))
+    return F.leaky_relu(out + shift, 0.1)
 
 
 def detector_csp_3xtf32(x: torch.Tensor, detector) -> torch.Tensor:

@@ -127,6 +127,102 @@ def test_stem_kernel_matches_twin(cuda_device, h, w, size):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h,w,size", [(200, 260, 148), (120, 160, 150)])
+def test_stem_kernel_ragged_tiles_batch_3(cuda_device, h, w, size):
+    """Batch 3 at sizes whose conv0 (74, 75) and conv1 (37, 38) outputs are
+    no multiple of the kernels' 8 x 32 and 8 x 16 tiles in either axis; 150
+    is no multiple of 4 either, so ConvBN_1 sees an odd input and pads
+    (1, 1). atol = rtol = 1e-4 as at full size."""
+    cfg = GridVisionConfig(detection_weights_file="weights/detector.npz",
+                           detection_network_input_size=size)
+    det = weights.load_all(cfg, device=cuda_device)["detector"]
+    consts = cuda_stem.prepare_stem_constants(det)
+    g = torch.Generator(device=cuda_device).manual_seed(size)
+    img = torch.rand((3, h, w, 3), generator=g, device=cuda_device) * 255
+    n0 = cuda_stem.launches
+    got = cuda_stem.detector_stem_cuda(img, consts, size)
+    torch.cuda.synchronize()
+    assert cuda_stem.launches == n0 + 1
+    ref = cuda_stem.detector_stem_plain(img, consts, size)
+    s1 = -(-(-(-size // 2)) // 2)
+    assert got.shape == (3, s1, s1, 64)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    # a frame's result does not depend on its place in the batch
+    one = cuda_stem.detector_stem_cuda(img[1:2].contiguous(), consts, size)
+    assert torch.equal(one[0], got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [0.0, 255.0])
+def test_stem_kernel_constant_frames(cuda_device, level):
+    """An all-zero and an all-255 frame: the resize's weights sum to 1, so
+    the padding and the tap windows at the frame's edges show."""
+    cfg = GridVisionConfig(detection_weights_file="weights/detector.npz")
+    det = weights.load_all(cfg, device=cuda_device)["detector"]
+    consts = cuda_stem.prepare_stem_constants(det)
+    img = torch.full((1, 480, 640, 3), level, device=cuda_device)
+    got = cuda_stem.detector_stem_cuda(img, consts, 416)
+    torch.cuda.synchronize()
+    ref = cuda_stem.detector_stem_plain(img, consts, 416)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def _tied_fleet_cloud(rng, n_rigs, p, device):
+    """(R, P, 3) grid-quantized clouds (many equal d2) projected to the
+    image; rig 0 holds no valid point and the last rig fewer than k where
+    there is more than one rig, and about a tenth of the rest is invalid."""
+    xyz = rng.integers(-4, 5, size=(n_rigs, p, 3)).astype(np.float32)
+    xyz[..., 2] = np.abs(xyz[..., 2]) + 1.0
+    uvds, valids = [], []
+    for r in range(n_rigs):
+        n = p - p // 10
+        if n_rigs > 1 and r == 0:
+            n = 0
+        elif n_rigs > 1 and r == n_rigs - 1:
+            n = 3
+        cloud = PointCloud.from_numpy(xyz[r, :n], None, p, device=device)
+        uvd, valid = association.project_cloud_to_image(
+            cloud, torch.as_tensor(K_NP, device=device))
+        uvds.append(uvd)
+        valids.append(valid)
+    return torch.stack(uvds), torch.stack(valids)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rigs,p,d", [(1, 16384, 64), (64, 8192, 16),
+                                        (64, 8192, 64), (3, 1000, 5)])
+@pytest.mark.parametrize("k", [4, 8])
+def test_knn_kernel_equals_twin_at_the_ticks_shapes(cuda_device, n_rigs, p, d,
+                                                    k):
+    """The shapes of the single-rig, fleet and extension fleet ticks and an
+    odd one (P no multiple of 16: the narrow copies), tied clouds, an empty
+    rig and one with fewer than k points: equal to the twin, atol = 0. Two
+    calls back to back on one stream give the same result."""
+    rng = np.random.default_rng(n_rigs + p + d + k)
+    uvd, valid = _tied_fleet_cloud(rng, n_rigs, p, cuda_device)
+    centers = torch.as_tensor(rng.uniform(-50, 700, (n_rigs, d, 2))
+                              .astype(np.float32), device=cuda_device)
+    n0 = cuda_knn.launches
+    got = cuda_knn.knn_median_depth_centers_cuda(uvd, valid, centers, k)
+    again = cuda_knn.knn_median_depth_centers_cuda(uvd, valid, centers, k)
+    torch.cuda.synchronize()
+    assert cuda_knn.launches == n0 + 2
+    ref = cuda_knn.knn_median_depth_plain(uvd, valid, centers, k)
+    assert got.shape == (n_rigs, d)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    assert torch.equal(again, got)
+    if n_rigs > 1:
+        assert torch.equal(got[0], torch.full_like(got[0], -1.0))
+        assert (got[-1] > 0).all()                  # 3 points: their median
+    # the model of the kernel's partition agrees on the card too
+    n_slices, _ = cuda_knn.knn_split(n_rigs, p, d, k)
+    model = cuda_knn.knn_partition_model(uvd, valid, centers, k, n_slices,
+                                         group=cuda_knn.center_group(k))
+    assert torch.equal(model, ref)
+
+
+@pytest.mark.cuda
 def test_batched_grid_kernel_bit_equal_and_r1_equals_single(cuda_device):
     rng = np.random.default_rng(5)
     lo = torch.as_tensor(rng.uniform(-2, 3.6, (4,) + CFG.grid_size)
@@ -435,3 +531,49 @@ def test_carve_wrapper_rejects_bad_inputs(cuda_device):
             ((lo.t(), box, ranges, cbin, cr), "contiguous")):
         with pytest.raises(ValueError, match=match):
             cuda_raycast.fused_carve_update_cuda(*args, CFG)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["late_valid", "falling", "rising",
+                                  "one_spot"])
+def test_knn_kernel_when_threads_run_out_of_slots(cuda_device, case):
+    """Clouds that fill a thread's candidate slots, so that the block has to
+    select out of turn: the first 300 points of every slice invalid (no
+    k-th key to hold the next ones against), distances that fall point after
+    point (every point beats the k-th so far), distances that rise, and all
+    points on one spot (every d2 tied). Equal to the twin, atol = 0."""
+    rng = np.random.default_rng(len(case))
+    n_rigs, p, d, k = 2, 8192, 11, 4
+    t = np.arange(p, dtype=np.float32)
+    uvd = np.zeros((n_rigs, p, 3), np.float32)
+    valid = np.ones((n_rigs, p), bool)
+    if case == "late_valid":
+        uvd[:] = rng.uniform([0, 0, 1], [640, 480, 60], (n_rigs, p, 3))
+        for lo in range(0, p, 512):
+            valid[:, lo:lo + 300] = False
+    elif case in ("falling", "rising"):
+        far = (p - t) if case == "falling" else t
+        uvd[..., 0] = 320.0 + 0.05 * far
+        uvd[..., 1] = 240.0
+        uvd[..., 2] = 1.0 + 0.01 * far
+    else:
+        uvd[:] = [100.0, 200.0, 7.0]
+    centers = rng.uniform(0, 640, (n_rigs, d, 2)).astype(np.float32)
+    uvd, valid, centers = (torch.as_tensor(a, device=cuda_device)
+                           for a in (uvd, valid, centers))
+    for lead in (slice(None), 0):                  # 2 rigs: 4 slices; 1: 32
+        args = (uvd[lead].contiguous(), valid[lead].contiguous(),
+                centers[lead].contiguous())
+        got = cuda_knn.knn_median_depth_centers_cuda(*args, k)
+        torch.cuda.synchronize()
+        ref = cuda_knn.knn_median_depth_plain(*args, k)
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    # one slice a rig (the rigs fill the card): every chunk in one block
+    many = 140
+    assert cuda_knn.knn_split(many, p, d, k)[0] == 1
+    got = cuda_knn.knn_median_depth_centers_cuda(
+        uvd[:1].expand(many, p, 3).contiguous(),
+        valid[:1].expand(many, p).contiguous(),
+        centers[:1].expand(many, d, 2).contiguous(), k)
+    assert torch.equal(got[7], cuda_knn.knn_median_depth_plain(
+        uvd[0], valid[0], centers[0], k))
