@@ -238,30 +238,73 @@ def random_grid_case(torch, dev, cfg, rigs, seed):
     return lo, cuda_grid.box_index_ranges(poses, cfg)
 
 
-def check_grid(torch, dev, cfg, rigs):
-    """Fused decay + hits + clamp + sigmoid on 500x200 grids, 8 boxes a
-    rig; rigs=None is the single-rig (H, W) call."""
-    from grid_vision_tpu_torch.ops import cuda_grid
-    lo, ranges = random_grid_case(torch, dev, cfg, rigs, 2)
-    n = ranges.shape[-2]
-    lo_k, occ_k = cuda_grid.grid_update(lo, ranges, cfg)
-    torch.cuda.synchronize()
-    lo_p, occ_p = cuda_grid.grid_update_plain(lo, ranges, cfg)
+def gate_case(torch, dev, lo, seed):
+    """The run gate and the previous occupancy of the grid epilogue: every
+    fourth rig gated off (one (H, W) grid: on); probabilities in [0, 1],
+    the first few exactly on a half of the int8 export's unit (round half
+    to even)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    occ_prev = torch.rand(lo.shape, generator=g, device=dev)
+    occ_prev.view(-1)[:4] = torch.tensor([0.125, 0.375, 0.625, 0.875],
+                                         device=dev)
+    if lo.dim() == 2:
+        return torch.ones((), dtype=torch.bool, device=dev), occ_prev
+    return torch.arange(lo.shape[0], device=dev) % 4 != 3, occ_prev
+
+
+def compare_epilogue(torch, what, got, ref):
+    """(log_odds, occupancy, occupancy_i8) of a kernel against its plain
+    path: log-odds and the export bit-equal, occupancy atol 1e-7. Returns
+    the max |error| of the three."""
+    (lo_k, occ_k, i8_k), (lo_p, occ_p, i8_p) = got, ref
     if not torch.equal(lo_k, lo_p):
-        fail("grid kernel log-odds are not bit-equal to the twin")
+        fail(f"{what} kernel log-odds are not bit-equal to the plain path")
     if not torch.allclose(occ_k, occ_p, rtol=0, atol=1e-7):
-        fail("grid kernel occupancy disagrees with the twin")
-    n_bytes = 3 * lo.numel() * 4 + ranges.numel() * 4
+        fail(f"{what} kernel occupancy disagrees with the plain path")
+    if i8_k.dtype != torch.int8 or not torch.equal(i8_k, i8_p):
+        fail(f"{what} kernel occupancy_i8 differs from the plain path")
+    return max((lo_k - lo_p).abs().max().item(),
+               (occ_k - occ_p).abs().max().item(),
+               (i8_k.int() - i8_p.int()).abs().max().item())
+
+
+def epilogue_bytes(lo, gate) -> int:
+    """Compulsory bytes of a grid pass with the epilogue: per cell 4 read
+    and 9 written (log-odds, occupancy, int8), plus the previous occupancy
+    of gated-off rigs."""
+    cells = lo.shape[-2] * lo.shape[-1]
+    return lo.numel() * 13 + int((~gate).sum()) * cells * 4
+
+
+def check_grid(torch, dev, cfg, rigs):
+    """Fused decay + hits + clamp + sigmoid + run gate + int8 export on
+    500x200 grids, 8 boxes a rig, every fourth rig gated off; rigs=None is
+    the single-rig (H, W) call."""
+    from grid_vision_tpu_torch.ops import cuda_grid, rasterize
+    lo, ranges = random_grid_case(torch, dev, cfg, rigs, 2)
+    gate, occ_prev = gate_case(torch, dev, lo, 7)
+    args = (lo, ranges, gate, occ_prev, cfg)
+
+    def plain():
+        return rasterize.gate_and_export(
+            *cuda_grid.grid_update_plain(lo, ranges, cfg), gate, lo, occ_prev)
+
+    got = cuda_grid.grid_update_gated(*args)
+    torch.cuda.synchronize()
+    err = compare_epilogue(torch, "grid", got, plain())
+    n = ranges.shape[-2]
+    n_bytes = epilogue_bytes(lo, gate) + ranges.numel() * 4
     ops = lo.numel() * (n + 8)
     return dict(
+        call=lambda: cuda_grid.grid_update_gated(*args),
         name="grid_update", source="grid_vision_tpu_torch/csrc/cuda_grid.cu",
         replaces="grid_vision_tpu/ops/pallas_grid.py:97",
-        shape=list(lo.shape),
-        max_abs_err=max((lo_k - lo_p).abs().max().item(),
-                        (occ_k - occ_p).abs().max().item()),
-        **timed(lambda: cuda_grid.grid_update(lo, ranges, cfg),
-                lambda: cuda_grid.grid_update_plain(lo, ranges, cfg), None),
-        bound=bound_ms(n_bytes, ops))
+        shape=list(lo.shape), gated_off=int((~gate).sum()),
+        max_abs_err=err,
+        **timed(lambda: cuda_grid.grid_update_gated(*args), plain, None),
+        bound=bound_ms(n_bytes, ops),
+        bound_old_bytes_ms=bound_ms(3 * lo.numel() * 4 + ranges.numel() * 4,
+                                    ops)[0])
 
 
 def scan_in_base(torch, obs, extrinsics):
@@ -276,47 +319,104 @@ def scan_in_base(torch, obs, extrinsics):
 
 
 def check_raycast(torch, dev, cfg, rigs, obs, extrinsics):
-    """Fused carve + decay + hits + clamp + sigmoid on 500x200 grids: random
-    log-odds, 8 footprints a rig, the range profile of the scan(s) in obs;
-    rigs=None is the single-rig (H, W) call. Log-odds bit-equal to the
-    twin, occupancy atol 1e-7; a scan with no valid point must equal the
-    hit-only grid kernel bit for bit."""
-    from grid_vision_tpu_torch.ops import cuda_grid, cuda_raycast, raycast
+    """Fused carve + decay + hits + clamp + sigmoid + run gate + int8
+    export on 500x200 grids: random log-odds, 8 footprints a rig, the range
+    profile of the scan(s) in obs, every fourth rig gated off; rigs=None is
+    the single-rig (H, W) call. Log-odds and the export bit-equal to the
+    plain path, occupancy atol 1e-7; a scan with no valid point must equal
+    the grid kernel bit for bit on all three outputs."""
+    from grid_vision_tpu_torch.ops import (cuda_grid, cuda_raycast,
+                                           rasterize, raycast)
     lo, box_ranges = random_grid_case(torch, dev, cfg, rigs, 6)
+    gate, occ_prev = gate_case(torch, dev, lo, 8)
     pts, valid, origin = scan_in_base(torch, obs, extrinsics)
     ranges = raycast.range_profile(origin, pts, valid)
     cbin, cr = raycast.cell_polar_maps(origin, cfg)
-    args = (lo, box_ranges, ranges, cbin, cr, cfg)
-    lo_k, occ_k = cuda_raycast.fused_carve_update_cuda(*args)
+    args = (lo, box_ranges, ranges, cbin, cr, gate, occ_prev, cfg)
+
+    def plain():
+        return rasterize.gate_and_export(*cuda_raycast.carve_update_plain(
+            lo, box_ranges, ranges, cbin, cr, cfg), gate, lo, occ_prev)
+
+    got = cuda_raycast.fused_carve_update_gated(*args)
     torch.cuda.synchronize()
-    lo_p, occ_p = cuda_raycast.carve_update_plain(*args)
-    if not torch.equal(lo_k, lo_p):
-        fail("carve kernel log-odds are not bit-equal to the twin")
-    if not torch.allclose(occ_k, occ_p, rtol=0, atol=1e-7):
-        fail("carve kernel occupancy disagrees with the twin")
-    hit_lo, hit_occ = cuda_grid.grid_update(lo, box_ranges, cfg)
-    carved = (lo_k != hit_lo).float().mean().item()
+    err = compare_epilogue(torch, "carve", got, plain())
+    hit = cuda_grid.grid_update_gated(lo, box_ranges, gate, occ_prev, cfg)
+    carved = (got[0] != hit[0]).float().mean().item()
     if carved == 0.0:
         fail("the carve kernel carved no cell of a real scan")
     none = raycast.range_profile(origin, pts, torch.zeros_like(valid))
-    lo_n, occ_n = cuda_raycast.fused_carve_update_cuda(
-        lo, box_ranges, none, cbin, cr, cfg)
-    if not (torch.equal(lo_n, hit_lo) and torch.equal(occ_n, hit_occ)):
+    got_n = cuda_raycast.fused_carve_update_gated(
+        lo, box_ranges, none, cbin, cr, gate, occ_prev, cfg)
+    if not all(torch.equal(a, b) for a, b in zip(got_n, hit)):
         fail("the carve kernel on an all-invalid scan differs from the "
-             "hit-only grid kernel")
-    n_bytes = (3 * lo.numel() + ranges.numel() + box_ranges.numel()
-               + cbin.numel() + cr.numel()) * 4
+             "grid kernel")
+    maps_bytes = (ranges.numel() + box_ranges.numel() + cbin.numel()
+                  + cr.numel()) * 4
     ops = lo.numel() * (box_ranges.shape[-2] + 12)
     return dict(
+        call=lambda: cuda_raycast.fused_carve_update_gated(*args),
         name="carve_update",
         source="grid_vision_tpu_torch/csrc/cuda_raycast.cu",
         replaces="grid_vision_tpu/ops/pallas_raycast.py:135",
         shape=list(lo.shape), bins=ranges.shape[-1], carved_share=carved,
-        max_abs_err=max((lo_k - lo_p).abs().max().item(),
-                        (occ_k - occ_p).abs().max().item()),
-        **timed(lambda: cuda_raycast.fused_carve_update_cuda(*args),
-                lambda: cuda_raycast.carve_update_plain(*args), None),
-        bound=bound_ms(n_bytes, ops))
+        gated_off=int((~gate).sum()), max_abs_err=err,
+        **timed(lambda: cuda_raycast.fused_carve_update_gated(*args), plain,
+                None),
+        bound=bound_ms(epilogue_bytes(lo, gate) + maps_bytes, ops),
+        bound_old_bytes_ms=bound_ms(3 * lo.numel() * 4 + maps_bytes, ops)[0])
+
+
+def device_profile(torch, fn, iters: int = 10):
+    """(device ms, device launches) per call of fn(), every kernel counted,
+    from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type != torch.autograd.DeviceType.CPU]
+    return (sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters,
+            len(events) / iters)
+
+
+def grid_stage(torch, dev, cfg, obs, extrinsics):
+    """The fleet tick's grid stage at 64 rigs, from the box ranges to
+    StepOutput, in its two forms: unfused (the kernel, then the run gate's
+    two torch.where and the int8 export in eager torch,
+    rasterize.gate_and_export: what _fuse_rigs ran before the kernels took
+    the epilogue) and fused (one launch); device ms and device launches per
+    call, for the grid and the carve kernel."""
+    from grid_vision_tpu_torch.ops import (cuda_grid, cuda_raycast,
+                                           rasterize, raycast)
+    lo, box = random_grid_case(torch, dev, cfg, N_RIGS, 9)
+    gate, prev = gate_case(torch, dev, lo, 10)
+    pts, valid, origin = scan_in_base(torch, obs, extrinsics)
+    ranges = raycast.range_profile(origin, pts, valid)
+    cbin, cr = raycast.cell_polar_maps(origin, cfg)
+    forms = {
+        "grid_unfused": lambda: rasterize.gate_and_export(
+            *cuda_grid.grid_update(lo, box, cfg), gate, lo, prev),
+        "grid_fused": lambda: cuda_grid.grid_update_gated(
+            lo, box, gate, prev, cfg),
+        "carve_unfused": lambda: rasterize.gate_and_export(
+            *cuda_raycast.fused_carve_update_cuda(lo, box, ranges, cbin, cr,
+                                                  cfg), gate, lo, prev),
+        "carve_fused": lambda: cuda_raycast.fused_carve_update_gated(
+            lo, box, ranges, cbin, cr, gate, prev, cfg)}
+    for kind in ("grid", "carve"):
+        a, b = forms[kind + "_unfused"](), forms[kind + "_fused"]()
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            fail(f"the fused {kind} stage differs from the unfused")
+    out = {}
+    for name, fn in forms.items():
+        ms, n = device_profile(torch, fn)
+        out[name] = dict(device_ms=ms, device_launches=n)
+    return out
 
 
 def check_knn(torch, dev, cfg, cloud, d=None):
@@ -615,6 +715,50 @@ def carved_shares(torch, cfg, obs_seq, extrinsics):
     return shares
 
 
+def jax_fixture(torch, dev, root, cfg, nets, extrinsics):
+    """The port's kernel path at full width against the JAX package's own
+    outputs (tests/fixtures/full_width_jax.npz, written on the CPU by
+    tools/jax_full_width_fixture.py): the same scene, weights and ticks, compat
+    and extension mode; occupancy_i8 agreement >= 99 % (BASELINE.md's bar)
+    and equal box counts every tick. Returns the per-tick agreement."""
+    import numpy as np
+    from grid_vision_tpu_torch import pipeline
+    from grid_vision_tpu_torch.io.scene import SyntheticScene
+    from grid_vision_tpu_torch.runtime.stream import obs_from_scene
+    ref = np.load(os.path.join(root, "tests", "fixtures",
+                               "full_width_jax.npz"))
+    meta = json.loads(str(ref["meta"]))
+    off = torch.zeros((), dtype=torch.bool, device=dev)
+    out = {}
+    for mode, flags in meta["modes"].items():
+        mcfg = dataclasses.replace(cfg, **flags)
+        eng = pipeline.Engine(mcfg, extrinsics=extrinsics, params=nets,
+                              device=dev)
+        scene = SyntheticScene(mcfg, **meta["scene"])
+        scene.add_default_traffic()
+        scene.add_default_statics()
+        state = eng.init_state()
+        agree, boxes = [], []
+        for i in range(meta["ticks"]):
+            obs = obs_from_scene(scene, i / 10.0, mcfg, dev)
+            if i == meta["gated_off_tick"]:
+                obs = dataclasses.replace(obs, has_image=off, has_cloud=off)
+            state, o = eng(state, obs)
+            key = f"{mode}/{i}/"
+            n_box = int(o.boxes.valid.sum())
+            if n_box != int(ref[key + "boxes_valid"].sum()):
+                fail(f"{mode} tick {i}: {n_box} boxes, the JAX package "
+                     f"{int(ref[key + 'boxes_valid'].sum())}")
+            agree.append(float((o.occupancy_i8.cpu().numpy()
+                                == ref[key + "occupancy_i8"]).mean()))
+            boxes.append(n_box)
+        if min(agree) < 0.99:
+            fail(f"{mode}: occupancy_i8 agreement with the JAX package "
+                 f"{min(agree)} < 0.99")
+        out[mode] = dict(occupancy_i8_agreement=agree, boxes=boxes)
+    return out
+
+
 def kernel_phase(path: str, r: dict) -> None:
     phase("kernel", path=path,
           **{k: v for k, v in r.items() if k not in ("bound", "call")},
@@ -721,6 +865,16 @@ def main() -> None:
             (path, "knn", check_knn, (c, obs.cloud, c.max_detections))]
     phase("stem_occupancy", **cuda_stem.blocks_per_sm(
         cfg.camera_image_height, cfg.camera_image_width, cfg.resize))
+    # the grid and carve kernels' vector path: blocks (of 256 threads) an
+    # SM, and the bytes in flight an SM before the first store: a thread's
+    # cells of log-odds (the carve adds their angle bins and centre ranges)
+    grid_blocks = cuda_grid.blocks_per_sm()
+    carve_blocks = cuda_raycast.blocks_per_sm()
+    cell_bytes = 256 * cuda_grid.CELLS_PER_THREAD * 4
+    phase("grid_occupancy", grid_blocks_per_sm=grid_blocks,
+          carve_blocks_per_sm=carve_blocks,
+          grid_loads_in_flight_per_sm=grid_blocks["vector"] * cell_bytes,
+          carve_loads_in_flight_per_sm=carve_blocks["vector"] * cell_bytes * 3)
     checked = {}                              # (path, kernel name) -> result
     for path, short, fn, args in checks:
         if only is not None and short not in only:
@@ -736,6 +890,9 @@ def main() -> None:
             r["check_device_ms"] = port_device_ms(torch, call)
         del call
         kernel_phase(path, r)
+    if only is None or only & {"grid", "carve"}:
+        phase("grid_stage", rigs=N_RIGS, **grid_stage(
+            torch, dev, fleet_cfg, fleet_obs[0], engine.extrinsics))
     torch.cuda.empty_cache()
     if only is not None:
         return
@@ -838,7 +995,8 @@ def main() -> None:
         for kernel, prefix in (("detector_stem", "gv_stem_"),
                                ("detector_csp", "gv_csp_"),
                                ("orient_front", "gv_orient_"),
-                               ("knn_median_depth", "gv_knn_"))}
+                               ("knn_median_depth", "gv_knn_"),
+                               ("grid_update", "gv_grid_"))}
     for kernel, ms in device_ms.items():
         if not ms > 0.0:
             fail(f"the profile shows no device time for {kernel}")
@@ -920,8 +1078,13 @@ def main() -> None:
               o.saturation.static_depth_clamped.sum() for o in fouts)))
     del fouts, fplain_outs, ext_fplain
     torch.cuda.empty_cache()
-    phase("profile", path="extension_fleet/kernels", **profile_fleet(
-        torch, ext_fleet, ext_fobs[0], BUDGET))
+    ext_profile = profile_fleet(torch, ext_fleet, ext_fobs[0], BUDGET)
+    phase("profile", path="extension_fleet/kernels", **ext_profile)
+    device_ms["carve_update"] = sum(
+        row["ms_per_tick"] for row in ext_profile["port_kernels"]
+        if "gv_carve_" in row["name"])
+    if not device_ms["carve_update"] > 0.0:
+        fail("the profile shows no device time for carve_update")
 
     # yaw-aware rasterization in the carve's place: plain torch on every
     # backend, shown to run on the card, single rig and fleet
@@ -944,6 +1107,10 @@ def main() -> None:
               (ref_outs[-1].occupancy_i8 > 50).sum()),
           fleet_occupied_cells_last=int((fouts[-1].occupancy_i8 > 50).sum()))
 
+    # the kernel path at full width against the JAX package's outputs
+    phase("jax_fixture", **jax_fixture(torch, dev, root, cfg, nets,
+                                       engine.extrinsics))
+
     # 8. the kernels line, then the card, then the device JSON
     launches["carve_update"] = ext_launches["carve_update"]
     engine_launches["carve_update"] = ext_engine_launches["carve_update"]
@@ -960,8 +1127,9 @@ def main() -> None:
         if name in device_ms:
             kernels[-1].update(device_ms=device_ms[name],
                                check_device_ms=r["check_device_ms"])
-        if "bound_3xtf32_ms" in r:
-            kernels[-1].update(bound_3xtf32_ms=r["bound_3xtf32_ms"])
+        for key in ("bound_3xtf32_ms", "bound_old_bytes_ms", "gated_off"):
+            if key in r:
+                kernels[-1][key] = r[key]
         if name == "knn_median_depth":
             kernels[-1].update(queries=r["queries"], slices=r["slices"],
                                other_shapes=knn_other)

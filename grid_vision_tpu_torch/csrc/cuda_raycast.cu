@@ -6,26 +6,30 @@
 // looks up each cell's measured beam range in the rig's polar range
 // profile, carves free space where the cell lies strictly inside the beam,
 // decays, adds log_odds_hit times the number of the rig's pose footprints
-// covering the cell, clamps, and writes both log-odds and occupancy. It is
-// csrc/cuda_grid.cu with the carve in front, and shares its box-range
-// staging and its rounding discipline.
+// covering the cell, clamps, and writes log-odds and occupancy; with the
+// epilogue on, it also applies the run gate and writes the int8 export. It
+// is csrc/cuda_grid.cu with the carve in front, and shares its layout, its
+// box-range staging, its epilogue and its rounding (csrc/gv_grid.cuh).
 //
-// Bound on this card: bytes. Per rig the (500, 200) grid is 400 KB read
-// and 800 KB written, the 4096-bin profile 16 KB; the two per-cell maps
-// (angle bin, centre range; 800 KB) are shared by all rigs and count once
-// per launch. One rig is about 2 MB, well under a microsecond of HBM time,
-// so the launch bounds it; a fleet of 64 rigs moves ~79 MB (~23 us).
-// Design: one launch per tick, the rig on blockIdx.y. A block stages its
-// rig's profile (n_bins floats) and <= 64 box ranges in shared memory
-// once, then walks GV_CARVE_CELLS_PER_THREAD strides of blockDim.x cells,
-// so the 16 KB table costs 8 bytes a cell of L2 traffic instead of 64; the
-// cell loads and stores are coalesced along the row. The lookup is one
-// indexed shared-memory load: the Pallas kernel's factored one-hot matmul
-// (and its n_bins == 64 * 64 rule), its (16, W) tiles and its padding to
-// (512, 256) were the TPU's and are gone; the ragged edge is masked by the
-// cell count. Any n_bins that fits the shared memory asked for at launch
-// works (the wrapper bounds it). A bin index outside [0, n_bins) reads as
-// range 0: never carved, never out of bounds.
+// Bound on this card: bytes. Per cell the pass reads 4 bytes of log-odds
+// and writes 9 (log-odds, occupancy, int8); the two per-cell maps (angle
+// bin, centre range; 800 KB at (500, 200)) are shared by all rigs and count
+// once per launch, the 4096-bin profile 16 KB a rig. A fleet of 64 rigs
+// moves ~85 MB (~25 us at 3.35 TB/s); one rig ~2 MB, so the launch bounds
+// it. Design: one launch per tick, the rig on blockIdx.y, 16-byte vectors
+// (float4 log-odds and ranges, int4 bins), 8 cells a thread. A thread
+// issues the loads of all its cells (log-odds and maps) before it stages
+// the box ranges and before its first store; the ragged edge is masked,
+// never returned from. The lookup is one indexed load of the rig's profile
+// through L1 (__ldg): neighbouring cells read neighbouring bins, and a
+// block touches only the bins its cells fall in. Staging the whole 16 KB
+// profile in shared memory once a block instead (with the cell loads issued
+// before the barrier that ends the staging) was 4.6 us slower at 64 rigs on
+// an H100: 25 blocks a rig each copied the table. The Pallas kernel's
+// factored one-hot matmul (and its n_bins == 64 * 64 rule), its (16, W)
+// tiles and its padding to (512, 256) were the TPU's and are gone. Any
+// n_bins up to GV_CARVE_MAX_BINS works. A bin index outside [0, n_bins)
+// reads as range 0: never carved, never out of bounds.
 //
 // Bit-equality with the plain torch twin (grid_vision_tpu_torch/ops/
 // cuda_raycast.py) and, given the same maps, with the JAX package's jitted
@@ -38,83 +42,139 @@
 // them): atan2f / sqrtf here would not be bit-equal to torch's, and one
 // ulp moves a cell across a bin edge.
 
-#include <cuda_runtime.h>
-#include <cstdint>
+#include "gv_grid.cuh"
 
-#define GV_CARVE_MAX_BOXES 64
-#define GV_CARVE_THREADS 256
-#define GV_CARVE_CELLS_PER_THREAD 8
+#define GV_CARVE_MAX_BINS 8192            // MAX_BINS in ops/cuda_raycast.py
 
-__global__ void gv_carve_update_kernel(
-    const float* __restrict__ lo_in, float* __restrict__ lo_out,
-    float* __restrict__ occ_out, const int32_t* __restrict__ box_ranges,
-    const float* __restrict__ profile, const int32_t* __restrict__ cbin,
-    const float* __restrict__ cr, int n_boxes, int n_bins, int h, int w,
-    float decay, float hit, float free_lo, float margin, float lo_min,
-    float lo_max) {
-  // box_ranges: (R, n_boxes, 4) inclusive [row_lo, row_hi, col_lo, col_hi],
-  // skipped boxes carry an empty range (lo > hi). profile: (R, n_bins).
-  // cbin, cr: (h, w), shared by the rigs. Grids: (R, h, w).
-  extern __shared__ float table[];                    // n_bins floats
-  __shared__ int32_t r[4 * GV_CARVE_MAX_BOXES];
+template <int N>
+__global__ void __launch_bounds__(GV_GRID_THREADS)
+    gv_carve_update_kernel(const float* __restrict__ lo_in,
+                           float* __restrict__ lo_out,
+                           float* __restrict__ occ_out,
+                           int8_t* __restrict__ i8_out,
+                           const uint8_t* __restrict__ gate,
+                           const float* __restrict__ occ_prev,
+                           const int32_t* __restrict__ box_ranges,
+                           const float* __restrict__ profile,
+                           const int32_t* __restrict__ cbin,
+                           const float* __restrict__ cr, int n_boxes,
+                           int n_bins, int h, int w, float decay, float hit,
+                           float free_lo, float margin, float lo_min,
+                           float lo_max) {
+  // box_ranges: (R, n_boxes, 4); profile: (R, n_bins); cbin, cr: (h, w),
+  // shared by the rigs; grids (R, h, w); gate (R,) or null (all on);
+  // occ_prev read only for gated-off rigs; i8_out null: no export.
+  constexpr int ITEMS = GV_GRID_CELLS_PER_THREAD / N;
+  __shared__ int4 r[GV_GRID_MAX_BOXES];
+  __shared__ int n_live;
   const int rig = blockIdx.y;
-  const float* rig_profile = profile + (int64_t)rig * n_bins;
-  for (int t = threadIdx.x; t < n_bins; t += blockDim.x) {
-    table[t] = rig_profile[t];
+  const int cells = h * w;
+  const int n_items = cells / N;
+  const int64_t off = (int64_t)rig * cells;
+  const int block_first = blockIdx.x * GV_GRID_THREADS * ITEMS;
+  const int first = block_first + threadIdx.x;
+  lo_in += off;
+  lo_out += off;
+  occ_out += off;
+  if (i8_out != nullptr) i8_out += off;
+  float lo[ITEMS][N];
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const int it = first + i * GV_GRID_THREADS;
+    if (it < n_items) gv_grid::load<N>(lo_in + it * N, lo[i]);
   }
-  const int32_t* rig_ranges = box_ranges + (int64_t)rig * 4 * n_boxes;
-  for (int t = threadIdx.x; t < 4 * n_boxes; t += blockDim.x) {
-    r[t] = rig_ranges[t];
+  if (gate != nullptr && gate[rig] == 0) {
+    gv_grid::keep<N, ITEMS>(lo, occ_prev + off, lo_out, occ_out, i8_out,
+                            first, n_items);
+    return;
   }
-  __syncthreads();
-  const int64_t cells = (int64_t)h * w;
-  const int64_t base =
-      (int64_t)blockIdx.x * blockDim.x * GV_CARVE_CELLS_PER_THREAD;
-  for (int i = 0; i < GV_CARVE_CELLS_PER_THREAD; ++i) {
-    const int64_t cell = base + (int64_t)i * blockDim.x + threadIdx.x;
-    if (cell >= cells) return;
-    const int row = (int)(cell / w);
-    const int col = (int)(cell - (int64_t)row * w);
-    const int64_t idx = (int64_t)rig * cells + cell;
-    const int32_t b = cbin[cell];
-    const float cell_range = (b >= 0 && b < n_bins) ? table[b] : 0.0f;
-    const bool carve =
-        cr[cell] < __fsub_rn(cell_range, margin) && cell_range > 0.0f;
-    float x = __fmaf_rn(free_lo, carve ? 1.0f : 0.0f, lo_in[idx]);
-    x = __fadd_rn(x, decay);
-    float cnt = 0.0f;
-    for (int d = 0; d < n_boxes; ++d) {
-      const bool in_box = row >= r[4 * d] && row <= r[4 * d + 1] &&
-                          col >= r[4 * d + 2] && col <= r[4 * d + 3];
-      cnt = __fadd_rn(cnt, in_box ? 1.0f : 0.0f);
+  int bin[ITEMS][N];
+  float range[ITEMS][N];
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const int it = first + i * GV_GRID_THREADS;
+    if (it < n_items) {
+      gv_grid::load<N>(cbin + it * N, bin[i]);
+      gv_grid::load<N>(cr + it * N, range[i]);
     }
-    x = __fmaf_rn(hit, cnt, x);
-    x = fminf(fmaxf(x, lo_min), lo_max);
-    lo_out[idx] = x;
-    occ_out[idx] = 1.0f / (1.0f + expf(-x));
+  }
+  const float* __restrict__ rig_profile = profile + (int64_t)rig * n_bins;
+  const int block_last =
+      min(block_first + GV_GRID_THREADS * ITEMS, n_items) * N - 1;
+  const int n = gv_grid::stage_ranges(
+      box_ranges + (int64_t)rig * 4 * n_boxes, n_boxes,
+      block_first * N / w, block_last / w, r, &n_live);
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const int it = first + i * GV_GRID_THREADS;
+    if (it < n_items) {
+      int row[N], col[N];
+      float cnt[N], x[N];
+      gv_grid::rows_cols<N>(it * N, w, row, col);
+      gv_grid::counts<N>(r, n, row, col, cnt);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const int b = bin[i][j];
+        const bool in_table = b >= 0 && b < n_bins;
+        const float cell_range = in_table ? __ldg(rig_profile + b) : 0.0f;
+        const bool carve =
+            range[i][j] < __fsub_rn(cell_range, margin) && cell_range > 0.0f;
+        x[j] = __fmaf_rn(free_lo, carve ? 1.0f : 0.0f, lo[i][j]);
+        x[j] = __fmaf_rn(hit, cnt[j], __fadd_rn(x[j], decay));
+      }
+      gv_grid::finish<N>(x, lo_min, lo_max, lo_out + it * N,
+                         occ_out + it * N,
+                         i8_out == nullptr ? nullptr : i8_out + it * N);
+    }
   }
 }
 
 extern "C" int gv_carve_update(const float* lo_in, float* lo_out,
-                               float* occ_out, const int32_t* box_ranges,
+                               float* occ_out, int8_t* i8_out,
+                               const uint8_t* gate, const float* occ_prev,
+                               const int32_t* box_ranges,
                                const float* profile, const int32_t* cbin,
                                const float* cr, int n_rigs, int n_boxes,
                                int n_bins, int h, int w, float decay,
                                float hit, float free_lo, float margin,
                                float lo_min, float lo_max,
                                cudaStream_t stream) {
-  const size_t smem = (size_t)n_bins * sizeof(float);
-  if (n_boxes < 0 || n_boxes > GV_CARVE_MAX_BOXES || n_rigs > 65535 ||
-      n_bins <= 0 || smem > 32 * 1024) {
+  if (n_boxes < 0 || n_boxes > GV_GRID_MAX_BOXES || n_rigs > 65535 ||
+      n_bins <= 0 || n_bins > GV_CARVE_MAX_BINS || h <= 0 || w <= 0 ||
+      (int64_t)h * w > INT32_MAX ||
+      (gate != nullptr && occ_prev == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_rigs <= 0) return 0;
-  const int64_t cells = (int64_t)h * w;
-  const int64_t per_block =
-      (int64_t)GV_CARVE_THREADS * GV_CARVE_CELLS_PER_THREAD;
-  const dim3 blocks((unsigned)((cells + per_block - 1) / per_block), n_rigs);
-  gv_carve_update_kernel<<<blocks, GV_CARVE_THREADS, smem, stream>>>(
-      lo_in, lo_out, occ_out, box_ranges, profile, cbin, cr, n_boxes, n_bins,
-      h, w, decay, hit, free_lo, margin, lo_min, lo_max);
+  const int cells = h * w;
+  const dim3 blocks(
+      (unsigned)((cells + GV_GRID_CELLS_PER_BLOCK - 1) /
+                 GV_GRID_CELLS_PER_BLOCK),
+      n_rigs);
+  const bool vec = cells % 4 == 0 && gv_grid::aligned16(lo_in) &&
+                   gv_grid::aligned16(lo_out) && gv_grid::aligned16(occ_out) &&
+                   gv_grid::aligned16(occ_prev) && gv_grid::aligned16(cbin) &&
+                   gv_grid::aligned16(cr) && ((uintptr_t)i8_out & 3u) == 0;
+  if (vec) {
+    gv_carve_update_kernel<4><<<blocks, GV_GRID_THREADS, 0, stream>>>(
+        lo_in, lo_out, occ_out, i8_out, gate, occ_prev, box_ranges, profile,
+        cbin, cr, n_boxes, n_bins, h, w, decay, hit, free_lo, margin, lo_min,
+        lo_max);
+  } else {
+    gv_carve_update_kernel<1><<<blocks, GV_GRID_THREADS, 0, stream>>>(
+        lo_in, lo_out, occ_out, i8_out, gate, occ_prev, box_ranges, profile,
+        cbin, cr, n_boxes, n_bins, h, w, decay, hit, free_lo, margin, lo_min,
+        lo_max);
+  }
   return (int)cudaGetLastError();
+}
+
+// What the card gives the kernel (for the build report): blocks an SM of
+// the vector and of the scalar path.
+extern "C" int gv_carve_blocks_per_sm(int* blocks) {
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks[0], gv_carve_update_kernel<4>, GV_GRID_THREADS, 0);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks[1], gv_carve_update_kernel<1>, GV_GRID_THREADS, 0);
 }

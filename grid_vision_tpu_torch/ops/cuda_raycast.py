@@ -12,26 +12,32 @@ kernel and twin alike. Grids may carry a leading rig axis: (R, H, W) with
 (R, D, 4) box ranges and an (R, n_bins) profile, the (H, W) maps shared by
 all rigs; one launch updates every rig (the Pallas kernel was unusable
 under vmap; this one has no such limit and the fleet path takes it).
+
+The ``*_gated`` entry points add the tick's epilogue, the run gate and the
+int8 export, fused into the same pass as in ops/cuda_grid.py.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ..config import GridVisionConfig
 from ..types import LShapePoses
 from . import cuda_build, cuda_grid
+from .rasterize import gate_and_export
 from .raycast import cell_polar_maps, range_profile
 
-MAX_BOXES = cuda_grid.MAX_BOXES   # GV_CARVE_MAX_BOXES in csrc/cuda_raycast.cu
-# The profile is staged in shared memory, at most 32 KB of it: the Pallas
-# kernel's n_bins == 64 * 64 rule is gone, this bound takes its place.
+MAX_BOXES = cuda_grid.MAX_BOXES   # GV_GRID_MAX_BOXES in csrc/gv_grid.cuh
+# GV_CARVE_MAX_BINS in csrc/cuda_raycast.cu: a rig's profile is at most 32
+# KB, which the kernel reads through L1. The Pallas kernel's n_bins ==
+# 64 * 64 rule is gone; this bound takes its place.
 MAX_BINS = 8192
 
-# Kernel launches made by fused_carve_update_cuda (the main-path check
-# reads it).
+# Kernel launches made by this module's wrappers (the main-path check reads
+# it).
 launches = 0
 
 
@@ -56,61 +62,40 @@ def carve_update_plain(log_odds: torch.Tensor, box_ranges: torch.Tensor,
                                        box_ranges, cfg)
 
 
-def _launch(log_odds, box_ranges, ranges, cbin, cr, cfg, log_odds_free):
+@functools.lru_cache(maxsize=None)
+def _entry():
+    fn = cuda_build.load("cuda_raycast").gv_carve_update
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                   + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+    return fn
+
+
+def _launch(log_odds, box_ranges, ranges, cbin, cr, cfg, log_odds_free,
+            gate=None, occ_prev=None):
     global launches
-    if log_odds.dtype != torch.float32 or log_odds.dim() not in (2, 3):
-        raise ValueError("log_odds must be a (H, W) or (R, H, W) float32 "
-                         "tensor")
-    if not log_odds.is_contiguous():
-        raise ValueError("log_odds must be contiguous")
-    dev = log_odds.device
-    lead = log_odds.shape[:-2]
-    grid = log_odds.shape[-2:]
-    if (box_ranges.device != dev or box_ranges.dtype != torch.int32
-            or box_ranges.shape[:-2] != lead
-            or box_ranges.dim() != len(lead) + 2
-            or box_ranges.shape[-1] != 4 or not box_ranges.is_contiguous()):
-        raise ValueError("box_ranges must be a contiguous (D, 4) or "
-                         "(R, D, 4) int32 tensor matching the grid, on its "
-                         "device")
-    n = box_ranges.shape[-2]
-    if n > MAX_BOXES:
-        raise ValueError(f"at most {MAX_BOXES} boxes, got {n}")
-    if (ranges.device != dev or ranges.dtype != torch.float32
-            or ranges.shape[:-1] != lead or ranges.dim() != len(lead) + 1
-            or not ranges.is_contiguous()):
-        raise ValueError("ranges must be a contiguous (n_bins,) or "
-                         "(R, n_bins) float32 tensor matching the grid, on "
-                         "its device")
-    n_bins = ranges.shape[-1]
+    n = cuda_grid.check_grid_inputs(log_odds, box_ranges)
+    dev, shape = log_odds.device, log_odds.shape
+    n_bins = ranges.shape[-1] if ranges.dim() else 0
     if not 0 < n_bins <= MAX_BINS:
         raise ValueError(f"between 1 and {MAX_BINS} angle bins, got "
                          f"{n_bins}")
-    for name, m, dtype in (("cbin", cbin, torch.int32),
-                           ("cr", cr, torch.float32)):
-        if (m.device != dev or m.dtype != dtype or m.shape != grid
-                or not m.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous {tuple(grid)} "
-                             f"{dtype} tensor on the grid's device")
-    n_rigs = lead[0] if lead else 1
-    lib = cuda_build.load("cuda_raycast")
-    fn = lib.gv_carve_update
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                   + [ctypes.c_float] * 6 + [ctypes.c_void_p])
-    h, w = grid
-    lo_out = torch.empty_like(log_odds)
-    occ_out = torch.empty_like(log_odds)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    cuda_grid.check_tensor(ranges, "ranges", cuda_grid.F32,
+                           shape[:-2] + (n_bins,), dev)
+    cuda_grid.check_tensor(cbin, "cbin", cuda_grid.I32, shape[-2:], dev)
+    cuda_grid.check_tensor(cr, "cr", cuda_grid.F32, shape[-2:], dev)
+    out = cuda_grid.outputs(log_odds, gate, occ_prev)
     cuda_build.check(
-        fn(log_odds.data_ptr(), lo_out.data_ptr(), occ_out.data_ptr(),
-           box_ranges.data_ptr(), ranges.data_ptr(), cbin.data_ptr(),
-           cr.data_ptr(), n_rigs, n, n_bins, h, w, cfg.log_odds_decay,
-           cfg.log_odds_hit, log_odds_free, cfg.resolution * 1.5,
-           cfg.min_log_odds, cfg.max_log_odds, stream),
+        _entry()(*cuda_grid.pointers(log_odds, *out, gate, occ_prev,
+                                     box_ranges, ranges, cbin, cr),
+                 shape[0] if len(shape) == 3 else 1, n, n_bins, shape[-2],
+                 shape[-1], cfg.log_odds_decay, cfg.log_odds_hit,
+                 log_odds_free, cfg.resolution * 1.5, cfg.min_log_odds,
+                 cfg.max_log_odds,
+                 torch.cuda.current_stream(dev).cuda_stream),
         "gv_carve_update")
     launches += 1
-    return lo_out, occ_out
+    return out if gate is not None else out[:2]
 
 
 def fused_carve_update_cuda(log_odds: torch.Tensor, box_ranges: torch.Tensor,
@@ -120,13 +105,29 @@ def fused_carve_update_cuda(log_odds: torch.Tensor, box_ranges: torch.Tensor,
     """(log_odds', occupancy) from box index ranges, a range profile and
     the polar maps: the kernel on a CUDA tensor, the plain twin on a CPU
     tensor."""
-    if log_odds.device.type == "cpu":
+    if not cuda_grid.on_cuda(log_odds):
         return carve_update_plain(log_odds, box_ranges, ranges, cbin, cr,
                                   cfg, log_odds_free)
-    if log_odds.device.type != "cuda":
-        raise ValueError(f"unsupported device {log_odds.device}")
     return _launch(log_odds, box_ranges, ranges, cbin, cr, cfg,
                    log_odds_free)
+
+
+def fused_carve_update_gated(log_odds: torch.Tensor,
+                             box_ranges: torch.Tensor, ranges: torch.Tensor,
+                             cbin: torch.Tensor, cr: torch.Tensor,
+                             gate: torch.Tensor, occ_prev: torch.Tensor,
+                             cfg: GridVisionConfig,
+                             log_odds_free: float = -0.4):
+    """fused_carve_update_cuda with the epilogue: rigs where `gate` ((R,)
+    or () bool) is False keep log_odds and occ_prev; then the int8 export.
+    Returns (log_odds', occupancy, occupancy_i8): one kernel launch on a
+    CUDA tensor, the twin then rasterize.gate_and_export on a CPU tensor."""
+    if not cuda_grid.on_cuda(log_odds):
+        lo, occ = carve_update_plain(log_odds, box_ranges, ranges, cbin, cr,
+                                     cfg, log_odds_free)
+        return gate_and_export(lo, occ, gate, log_odds, occ_prev)
+    return _launch(log_odds, box_ranges, ranges, cbin, cr, cfg,
+                   log_odds_free, gate, occ_prev)
 
 
 def lshape_update_with_carving_cuda(log_odds: torch.Tensor,
@@ -142,3 +143,28 @@ def lshape_update_with_carving_cuda(log_odds: torch.Tensor,
     return fused_carve_update_cuda(
         log_odds, cuda_grid.box_index_ranges(poses, cfg), ranges, cbin, cr,
         cfg, log_odds_free)
+
+
+def lshape_update_with_carving_gated_cuda(
+        log_odds: torch.Tensor, poses: LShapePoses, origin_xy: torch.Tensor,
+        points_xy: torch.Tensor, points_valid: torch.Tensor,
+        gate: torch.Tensor, occ_prev: torch.Tensor, cfg: GridVisionConfig,
+        log_odds_free: float = -0.4, maps=None):
+    """raycast.lshape_update_with_carving, the run gate and the int8 export
+    in one pass: (log_odds', occupancy, occupancy_i8)."""
+    ranges = range_profile(origin_xy, points_xy, points_valid)
+    cbin, cr = maps if maps is not None else cell_polar_maps(origin_xy, cfg)
+    return fused_carve_update_gated(
+        log_odds, cuda_grid.box_index_ranges(poses, cfg), ranges, cbin, cr,
+        gate, occ_prev, cfg, log_odds_free)
+
+
+def blocks_per_sm():
+    """Blocks of the kernel one SM holds (vector path, scalar path), for
+    the build report."""
+    blocks = (ctypes.c_int * 2)()
+    fn = cuda_build.load("cuda_raycast").gv_carve_blocks_per_sm
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p]
+    cuda_build.check(fn(ctypes.addressof(blocks)), "gv_carve_blocks_per_sm")
+    return dict(vector=blocks[0], scalar=blocks[1])

@@ -180,3 +180,16 @@ def export_occupancy_i8(occupancy: torch.Tensor) -> torch.Tensor:
     """nav_msgs/OccupancyGrid export: probability [0, 1] -> int8 [0, 100]."""
     return torch.round(torch.clamp(occupancy, 0.0, 1.0) * 100.0).to(
         torch.int8)
+
+
+def gate_and_export(log_odds: torch.Tensor, occupancy: torch.Tensor,
+                    gate: torch.Tensor, log_odds_prev: torch.Tensor,
+                    occupancy_prev: torch.Tensor):
+    """The grid update's epilogue: the run gate (quirk Q1: a rig with
+    neither image nor cloud keeps its grid, not even decayed), then the int8
+    export. gate (...,) bool over the grids' leading axes. Returns
+    (log_odds, occupancy, occupancy_i8); the grid kernels fuse the same."""
+    g = gate[..., None, None]
+    occupancy = torch.where(g, occupancy, occupancy_prev)
+    return (torch.where(g, log_odds, log_odds_prev), occupancy,
+            export_occupancy_i8(occupancy))

@@ -47,7 +47,8 @@ from .geometry import (intrinsic_inverse, intrinsic_matrix, pixel_to_3d,
                        transform_points, transform_pose)
 from .models import orientation_net, weights, yolov4_tiny
 from .ops import (association, cuda_csp, cuda_grid, cuda_knn, cuda_orient,
-                  cuda_stem, multibin, preprocess, rasterize, raycast)
+                  cuda_raycast, cuda_stem, multibin, preprocess, rasterize,
+                  raycast)
 from .ops.decode import extract_boxes, top_k
 from .taxonomy import is_dynamic
 from .types import (Boxes, Extrinsics, GridState, LShapePoses, Obs,
@@ -301,24 +302,32 @@ def _fuse_rigs(state: GridState, obs: Obs, boxes: Boxes,
     # mode carves raycast free space in front of it (ops/raycast.py, with
     # the free constant the reference declares and never uses, quirk Q2),
     # or rasterizes the yaw-rotated footprints; the carve takes precedence.
+    # Then the Q1 gate (both inputs missing -> no update at all, not even
+    # decay) and the int8 export: the grid and carve kernels fuse both into
+    # their pass, the plain paths run rasterize.gate_and_export.
+    run_gate = obs.has_image | obs.has_cloud
+    kernel = cfg.grid_backend == "pallas"
     if cfg.raycast_free_space:
         cloud_base = transform_points(extrinsics.camera_to_base, cloud_cam)
-        new_lo, new_occ = raycast.lshape_update_with_carving(
-            state.log_odds, poses, extrinsics.camera_to_base[:2, 3],
-            cloud_base[..., :2], cloud_valid, cfg, maps=carve_maps)
+        carve_args = (state.log_odds, poses, extrinsics.camera_to_base[:2, 3],
+                      cloud_base[..., :2], cloud_valid)
+        if kernel:
+            grid = cuda_raycast.lshape_update_with_carving_gated_cuda(
+                *carve_args, run_gate, state.occupancy, cfg, maps=carve_maps)
+        else:
+            grid = raycast.lshape_update_with_carving(*carve_args, cfg,
+                                                      maps=carve_maps)
     elif cfg.yaw_aware_rasterization:
-        new_lo, new_occ = rasterize.lshape_update_oriented(state.log_odds,
-                                                           poses, cfg)
-    elif cfg.grid_backend == "pallas":
-        new_lo, new_occ = cuda_grid.lshape_update_cuda(state.log_odds, poses,
-                                                       cfg)
+        grid = rasterize.lshape_update_oriented(state.log_odds, poses, cfg)
+    elif kernel:
+        grid = cuda_grid.lshape_update_gated_cuda(
+            state.log_odds, poses, run_gate, state.occupancy, cfg)
     else:
-        new_lo, new_occ = rasterize.lshape_update(state.log_odds, poses, cfg)
-
-    # Q1 gate: both inputs missing -> no update at all (not even decay)
-    run_gate = (obs.has_image | obs.has_cloud)[:, None, None]
-    new_lo = torch.where(run_gate, new_lo, state.log_odds)
-    new_occ = torch.where(run_gate, new_occ, state.occupancy)
+        grid = rasterize.lshape_update(state.log_odds, poses, cfg)
+    if len(grid) == 2:
+        grid = rasterize.gate_and_export(*grid, run_gate, state.log_odds,
+                                         state.occupancy)
+    new_lo, new_occ, occupancy_i8 = grid
 
     new_state = GridState(log_odds=new_lo, occupancy=new_occ, rng=rng_next,
                           step=state.step + 1)
@@ -328,7 +337,7 @@ def _fuse_rigs(state: GridState, obs: Obs, boxes: Boxes,
         static_points=static_points,
         static_depths=depths,
         static_boxes=dataclasses.replace(boxes, valid=static_mask),
-        occupancy_i8=rasterize.export_occupancy_i8(new_occ),
+        occupancy_i8=occupancy_i8,
         saturation=saturation,
     )
     return new_state, out

@@ -17,8 +17,8 @@ from grid_vision_tpu_torch.config import GridVisionConfig
 from grid_vision_tpu_torch.models import orientation_net, weights
 from grid_vision_tpu_torch.ops import (association, cuda_csp, cuda_grid,
                                        cuda_knn, cuda_orient, cuda_raycast,
-                                       cuda_stem, preprocess, raycast,
-                                       tf32x3)
+                                       cuda_stem, preprocess, rasterize,
+                                       raycast, tf32x3)
 from grid_vision_tpu_torch.types import LShapePoses, PointCloud
 
 torch.set_num_threads(1)
@@ -577,3 +577,132 @@ def test_knn_kernel_when_threads_run_out_of_slots(cuda_device, case):
         centers[:1].expand(many, d, 2).contiguous(), k)
     assert torch.equal(got[7], cuda_knn.knn_median_depth_plain(
         uvd[0], valid[0], centers[0], k))
+
+
+# ---- the grid and carve kernels with their epilogue (run gate + int8
+# export), against the twins followed by rasterize.gate_and_export
+
+GRID_SHAPES = {(500, 200): {},
+               (150, 50): dict(grid_x=30, grid_y=10, resolution=0.2),
+               (103, 33): dict(grid_x=31, grid_y=10, resolution=0.3)}
+
+
+def _epilogue_case(rng, rigs, hw, n_boxes, device):
+    """numpy-seeded log-odds, previous occupancy (each rig's first four
+    cells on halves of the export's unit), a gate with every other rig off
+    (rig 0 on), box ranges of n_boxes footprints (the first eight on one
+    spot), the carve's profile and maps: the inputs of both gated
+    kernels."""
+    cfg = GridVisionConfig(**GRID_SHAPES[hw])
+    lo = rng.uniform(-2, 3.6, (rigs,) + hw).astype(np.float32)
+    prev = rng.random((rigs,) + hw).astype(np.float32)
+    prev[:, 0, :4] = [0.125, 0.375, 0.625, 0.875]
+    gate = np.arange(rigs) % 2 == 0
+    n = max(n_boxes, 1)
+    pos = np.zeros((rigs, n, 3), np.float32)
+    cx = cfg.grid_center[0]
+    pos[..., 0] = rng.uniform(cx - 0.6 * cfg.grid_x, cx + 0.6 * cfg.grid_x,
+                              (rigs, n))
+    pos[..., 1] = rng.uniform(-0.6 * cfg.grid_y, 0.6 * cfg.grid_y, (rigs, n))
+    pos[:, :8] = pos[:, :1]
+    poses = dataclasses.replace(
+        LShapePoses.empty(n, device=device),
+        position=torch.as_tensor(pos, device=device),
+        length=torch.as_tensor(rng.uniform(0.3, 6, (rigs, n)).astype(
+            np.float32), device=device),
+        width=torch.as_tensor(rng.uniform(0.3, 3, (rigs, n)).astype(
+            np.float32), device=device),
+        valid=torch.ones((rigs, n), dtype=torch.bool, device=device))
+    box = cuda_grid.box_index_ranges(poses, cfg)[:, :n_boxes].contiguous()
+    origin = torch.tensor([1.5, 0.0], device=device)
+    pts, valid = _scan(rng, (rigs,), 2000, device)
+    ranges = raycast.range_profile(origin, pts, valid)
+    cbin, cr = raycast.cell_polar_maps(origin, cfg)
+    t = lambda a: torch.as_tensor(a, device=device)           # noqa: E731
+    return cfg, t(lo), t(prev), t(gate), box, ranges, cbin, cr
+
+
+def _gated(kernel, cfg, lo, prev, gate, box, ranges, cbin, cr):
+    """(kernel outputs, plain outputs) of the grid or the carve kernel."""
+    if kernel == "grid":
+        got = cuda_grid.grid_update_gated(lo, box, gate, prev, cfg)
+        plain = cuda_grid.grid_update_plain(lo, box, cfg)
+    else:
+        got = cuda_raycast.fused_carve_update_gated(lo, box, ranges, cbin,
+                                                    cr, gate, prev, cfg)
+        plain = cuda_raycast.carve_update_plain(lo, box, ranges, cbin, cr,
+                                                cfg)
+    return got, rasterize.gate_and_export(*plain, gate, lo, prev)
+
+
+def _assert_epilogue_equal(got, ref):
+    assert got[2].dtype == torch.int8
+    assert torch.equal(got[0], ref[0])
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-7)
+    assert torch.equal(got[2], ref[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_boxes", [0, 64])
+@pytest.mark.parametrize("hw", list(GRID_SHAPES))
+@pytest.mark.parametrize("rigs", [1, 3, 64])
+@pytest.mark.parametrize("kernel", ["grid", "carve"])
+def test_gated_kernels_bit_equal_to_the_plain_path(cuda_device, kernel, rigs,
+                                                   hw, n_boxes):
+    """Log-odds and occupancy_i8 bit-equal, occupancy atol 1e-7, with every
+    other rig gated off; (150, 50) straddles rows with 16-byte vectors,
+    (103, 33) takes the scalar path. One launch a call; two calls on one
+    stream without a sync in between give the same outputs."""
+    rng = np.random.default_rng(rigs * 7 + hw[1] + n_boxes)
+    args = _epilogue_case(rng, rigs, hw, n_boxes, cuda_device)
+    mod = cuda_grid if kernel == "grid" else cuda_raycast
+    n0 = mod.launches
+    got, ref = _gated(kernel, *args)
+    again, _ = _gated(kernel, *args)
+    torch.cuda.synchronize()
+    assert mod.launches == n0 + 2
+    _assert_epilogue_equal(got, ref)
+    _assert_epilogue_equal(again, ref)
+    cfg, lo, prev, gate, box, ranges, cbin, cr = args
+    assert torch.equal(got[0][~gate], lo[~gate])
+    if rigs > 1:
+        assert got[2][1, 0, :4].tolist() == [12, 38, 62, 88]
+    if kernel == "carve":
+        # an all-invalid scan carves nothing: the grid kernel's three outputs
+        none, _ = _gated("carve", cfg, lo, prev, gate, box,
+                         torch.zeros_like(ranges), cbin, cr)
+        hit, _ = _gated("grid", *args)
+        assert all(torch.equal(a, b) for a, b in zip(none, hit))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["grid", "carve"])
+def test_gated_kernels_on_unaligned_grids(cuda_device, kernel):
+    """Grids that start 4 bytes past a 16-byte boundary take the scalar
+    path, with the same outputs."""
+    rng = np.random.default_rng(21)
+    cfg, lo, prev, gate, box, ranges, cbin, cr = _epilogue_case(
+        rng, 3, (500, 200), 8, cuda_device)
+    lo_u = torch.empty(lo.numel() + 1, device=cuda_device)[1:].view(lo.shape)
+    lo_u.copy_(lo)
+    got, ref = _gated(kernel, cfg, lo_u, prev, gate, box, ranges, cbin, cr)
+    torch.cuda.synchronize()
+    _assert_epilogue_equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_gated_wrappers_reject_bad_epilogue_inputs(cuda_device):
+    rng = np.random.default_rng(22)
+    cfg, lo, prev, gate, box, ranges, cbin, cr = _epilogue_case(
+        rng, 3, (500, 200), 8, cuda_device)
+    for g, p, match in ((gate.int(), prev, "gate"),
+                        (gate[:2], prev, "gate"),
+                        (gate.cpu(), prev, "gate"),
+                        (gate, prev.double(), "occ_prev"),
+                        (gate, prev[:, :-1], "occ_prev"),
+                        (gate, prev.transpose(1, 2), "occ_prev")):
+        with pytest.raises(ValueError, match=match):
+            cuda_grid.grid_update_gated(lo, box, g, p, cfg)
+        with pytest.raises(ValueError, match=match):
+            cuda_raycast.fused_carve_update_gated(lo, box, ranges, cbin, cr,
+                                                  g, p, cfg)

@@ -1,20 +1,28 @@
 #!/usr/bin/env python3
-"""Device time by kernel name of the port's stem and kNN wrappers, on one
-NVIDIA card (grid_vision_tpu_torch; imports nothing of JAX):
+"""Device time by kernel name of the port's kernel wrappers, on one NVIDIA
+card (grid_vision_tpu_torch; imports nothing of JAX):
 
     python3 tools/torch_kernel_times.py            # from the repo's root
-    python3 tools/torch_kernel_times.py stem       # or: knn
+    python3 tools/torch_kernel_times.py stem       # or: knn, grid, carve
+    python3 tools/torch_kernel_times.py carve --variant cuda_raycast:MACRO
 
 torch.profiler over a few calls at the ticks' shapes (64 frames of 480x640
-to 416; 64 rigs x 8192 points x 16 and 64 queries, one rig x 16384 x 64);
-prints one JSON line per shape with the microseconds per call of every
-kernel of csrc/ (named gv_*). The quick look at where a call's device time
-goes while a kernel is being worked on: compile a variant, run this, compare.
+to 416; 64 rigs x 8192 points x 16 and 64 queries, one rig x 16384 x 64;
+the gated grid and carve updates at 64 rigs and one rig of 500x200, every
+fourth rig gated off); prints one JSON line per shape with the microseconds
+per call of every kernel of csrc/ (named gv_*). The quick look at where a
+call's device time goes while a kernel is being worked on. `--variant
+SOURCE:MACRO[,MACRO...]` first builds csrc/SOURCE.cu with a -D for each
+MACRO (nvcc, the package's flags) into its own library, prints its ptxas
+lines, and times it in place of the source as it is: a design alternative
+kept behind a macro while it is measured.
 chip_smoke.py holds the kernels to their twins and times whole calls.
 """
 
+import ctypes
 import json
 import os
+import subprocess
 import sys
 
 import torch
@@ -24,7 +32,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from grid_vision_tpu_torch import GridVisionConfig  # noqa: E402
 from grid_vision_tpu_torch.models import weights  # noqa: E402
-from grid_vision_tpu_torch.ops import cuda_knn, cuda_stem  # noqa: E402
+from grid_vision_tpu_torch.ops import (cuda_build, cuda_grid,  # noqa: E402
+                                       cuda_knn, cuda_raycast, cuda_stem,
+                                       rasterize)
 
 
 def kernel_us(fn, iters: int = 10):
@@ -43,10 +53,68 @@ def kernel_us(fn, iters: int = 10):
     return {k: round(v, 2) for k, v in out.items()}
 
 
+def use_variant(spec: str) -> str:
+    """Build csrc/SOURCE.cu with -DMACRO for each MACRO of
+    SOURCE:MACRO[,MACRO...] (a MACRO may be NAME=VALUE) and load it in the
+    source's place; returns the spec."""
+    source, macros = spec.split(":")
+    macros = macros.split(",")
+    tag = "-".join(m.replace("=", "_") for m in macros)
+    out = cuda_build.BUILD_DIR / f"lib{source}-{tag}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    log = subprocess.run(
+        [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
+         *(f"-D{m}" for m in macros), "-o", str(out),
+         str(cuda_build.CSRC / f"{source}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        check=True)
+    print(json.dumps(dict(variant=spec, ptxas=[
+        ln.strip() for ln in log.stdout.splitlines()
+        if "registers" in ln or "spill" in ln])), flush=True)
+    cuda_build._libs[source] = ctypes.CDLL(str(out))
+    for mod in (cuda_grid, cuda_raycast, cuda_knn):
+        entry = getattr(mod, "_entry", None)
+        if entry is not None:
+            entry.cache_clear()
+    return spec
+
+
+def grid_cases(dev, g):
+    """Gated grid and carve inputs at 64 rigs and one rig: random log-odds,
+    8 footprints a rig, every fourth rig gated off, the profile of a random
+    scan around the sensor."""
+    from grid_vision_tpu_torch.ops import raycast
+    cfg = GridVisionConfig()
+    for rigs in (64, 1):
+        lo = torch.rand((rigs,) + cfg.grid_size, generator=g,
+                        device=dev) * 5.6 - 2.0
+        prev = torch.rand(lo.shape, generator=g, device=dev)
+        gate = torch.arange(rigs, device=dev) % 4 != 3
+        u = torch.rand((rigs, 8, 4), generator=g, device=dev)
+        r0 = (u[..., 0] * 480).int()
+        c0 = (u[..., 1] * 180).int()
+        box = torch.stack([r0, r0 + (u[..., 2] * 60).int(), c0,
+                           c0 + (u[..., 3] * 30).int()], -1).contiguous()
+        origin = torch.tensor([1.5, 0.0], device=dev)
+        pts = torch.rand((rigs, 4000, 2), generator=g, device=dev) * \
+            torch.tensor([65.0, 18.0], device=dev) - \
+            torch.tensor([20.0, 9.0], device=dev)
+        valid = torch.ones((rigs, 4000), dtype=torch.bool, device=dev)
+        ranges = raycast.range_profile(origin, pts, valid)
+        cbin, cr = raycast.cell_polar_maps(origin, cfg)
+        yield cfg, lo, prev, gate, box, ranges, cbin, cr
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
-    which = set(sys.argv[1:]) or {"stem", "knn"}
+    args = sys.argv[1:]
+    variant = None
+    if "--variant" in args:
+        i = args.index("--variant")
+        variant = use_variant(args[i + 1])
+        del args[i:i + 2]
+    which = set(args) or {"stem", "knn"}
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
     if "knn" in which:
@@ -75,6 +143,27 @@ def main() -> None:
                 kernel="stem", shape=list(img.shape),
                 us=kernel_us(lambda: cuda_stem.detector_stem_cuda(
                     img, consts, cfg.resize)))), flush=True)
+    for cfg, lo, prev, gate, box, ranges, cbin, cr in (
+            grid_cases(dev, g) if which & {"grid", "carve"} else ()):
+        calls = {}
+        if "grid" in which:
+            calls["grid"] = (
+                lambda: cuda_grid.grid_update_gated(lo, box, gate, prev, cfg),
+                lambda: cuda_grid.grid_update_plain(lo, box, cfg))
+        if "carve" in which:
+            calls["carve"] = (
+                lambda: cuda_raycast.fused_carve_update_gated(
+                    lo, box, ranges, cbin, cr, gate, prev, cfg),
+                lambda: cuda_raycast.carve_update_plain(
+                    lo, box, ranges, cbin, cr, cfg))
+        for name, (fn, plain) in calls.items():
+            got = fn()
+            ref = rasterize.gate_and_export(*plain(), gate, lo, prev)
+            equal = torch.equal(got[0], ref[0]) and torch.equal(got[2],
+                                                                ref[2])
+            print(json.dumps(dict(kernel=name, variant=variant,
+                                  shape=list(lo.shape), equal=equal,
+                                  us=kernel_us(fn, 50))), flush=True)
 
 
 if __name__ == "__main__":
