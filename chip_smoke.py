@@ -6,8 +6,9 @@
 
 Run from the root of a checkout. Imports nothing of JAX or of the JAX
 package. With `--kernels` and a list of names (stem, grid, knn, csp, orient,
-carve) it stops after phase 3 and checks only those: the quick look at a
-kernel under work; no device JSON follows. Phases, each printing one line:
+carve, and the bf16 forms stem_bf16, csp_bf16, orient_bf16) it stops after
+phase 3 and checks only those: the quick look at a kernel under work; no
+device JSON follows. Phases, each printing one line:
 
 1. the card (name and power limit from nvidia-smi); TF32 off;
 2. build the kernels of csrc/ (one nvcc per source, in parallel), timed,
@@ -17,7 +18,10 @@ kernel under work; no device JSON follows. Phases, each printing one line:
    path's kernels at its shapes, then the kernels at the fleet path's
    shapes (64 rigs, 320 orientation crops), then the carve kernel and the
    kNN kernel at the extension tick's shapes (a real scan's range profile;
-   the depth refine queries all 64 box slots), 1 rig and 64: max |error|,
+   the depth refine queries all 64 box slots), 1 rig and 64, then the bf16
+   forms of the stem (1 frame and 64), CSP and orientation-front kernels on
+   8-bit frames (rtol = atol = 0.06, the share of bit-equal elements, and
+   of the others the share the kernel holds nearer zero): max |error|,
    the kernel's time, the twin's time and a PyTorch library yardstick,
    with the least time the card could take; then, for the stem, CSP,
    orientation and kNN kernels, their device time per call from the
@@ -36,7 +40,15 @@ kernel under work; no device JSON follows. Phases, each printing one line:
    run through the plain-torch backends; one tick with "pallas3" must
    equal the "pallas2" tick exactly;
 6. a torch.profiler breakdown of three fleet ticks on each backend:
-   device time by kernel name, launches, the device's idle share;
+   device time by kernel name, launches, the device's idle share; then the
+   production bf16 configuration (compute_dtype="bfloat16"): the single-rig
+   Engine for BF16_ENGINE_TICKS ticks and the fleet for BF16_FLEET_TICKS
+   ticks with the frames in bf16 (FleetPool image_dtype), each against the
+   same bf16 configuration on the plain backends (equal box counts on >=
+   99 % of rig-ticks, occupancy_i8 >= 99 % on the mean, >= 97.5 % at the
+   least); the bf16 forms must launch once a tick and the f32 forms never;
+   the bf16 tick beside the f32 one, a profile of three bf16 fleet ticks and
+   the cuDNN convs' device time a tick in f32 and bf16 (`library_convs`);
 7. the extension-mode tick (compat=False: raycast free-space carving,
    depth refine, class-aware NMS) at full width, the single-rig Engine for
    EXT_ENGINE_TICKS ticks and the fleet (64 rigs, budget 320; the refine
@@ -46,15 +58,19 @@ kernel under work; no device JSON follows. Phases, each printing one line:
    tick is printed and must not be zero, and the outputs must agree with
    the same engine on the plain-torch backends; a profile of three
    extension fleet ticks; then a few ticks with yaw-aware rasterization
-   (plain torch on every backend) on the card;
-8. a `kernels` JSON line for every ported kernel (launches: the fleet
-   run's counts, the extension fleet run's for the carve kernel; for the
+   (plain torch on every backend) on the card; then the kernel path at full
+   width against the JAX package's fixture, each mode in f32 and bf16
+   (phase `jax_fixture`);
+8. a `kernels` JSON line for every ported kernel and form (launches: the
+   fleet run's counts, the extension fleet run's for the carve kernel, the
+   bf16 fleet run's for the bf16 forms; for the
    tensor-core kernels also `bound_3xtf32_ms`, the bound with three TF32
    products per f32 product at the TF32 rate; for them and the kNN kernel
    `device_ms`, their device time per profiled fleet tick, and
    `check_device_ms`, their device time per call at the kernel check's
    shapes; the kNN kernel's other shapes, 64 queries a rig and the single
-   rig, under `other_shapes`), then the card, then the device JSON.
+   rig, under `other_shapes`), then the card, then the device JSON. Before
+   it, a kernel instance that spills registers (ptxas) fails the run.
 
 Any failure exits non-zero. The last line is the device JSON.
 """
@@ -72,6 +88,8 @@ import time
 
 ENGINE_TICKS = 20
 FLEET_TICKS = 10
+BF16_ENGINE_TICKS = 10
+BF16_FLEET_TICKS = 10
 EXT_ENGINE_TICKS = 20
 EXT_FLEET_TICKS = 10
 YAW_TICKS = 2
@@ -80,6 +98,8 @@ BUDGET = 5 * N_RIGS            # bench.py:206
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12        # H100 SXM FP32 outside the tensor cores
 PEAK_TF32_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
+PEAK_BF16_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+BF16_TOL = dict(rtol=0.06, atol=0.06)   # tests/test_pallas_orient.py:59-62
 
 
 def fail(msg: str) -> None:
@@ -113,6 +133,35 @@ def bound_ms(n_bytes: float, n_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def bound_bf16_ms(n_bytes: float, n_ops: float):
+    """The bound of a bf16 form: bytes, or operations at the bf16 tensor
+    cores' rate."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_BF16_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bf16_agreement(torch, what, got, ref):
+    """A bf16 form against its twin: both bf16, allclose at the JAX
+    package's bf16 kernel bar (BF16_TOL); returns (max |error|, share of
+    bit-equal elements, and of the unequal ones the share the kernel holds
+    nearer zero: ~0.5 unless the tensor core's truncating accumulator
+    biases the sums)."""
+    if got.dtype != torch.bfloat16 or ref.dtype != torch.bfloat16:
+        fail(f"{what}: the bf16 form or its twin is not bf16")
+    g, r = got.float(), ref.float()
+    if not torch.isfinite(g).all():
+        fail(f"{what}: the bf16 form's output is not finite")
+    if not torch.allclose(g, r, **BF16_TOL):
+        fail(f"{what}: the bf16 form disagrees with its twin: max |d| "
+             f"{(g - r).abs().max().item()}")
+    differ = g != r
+    toward_zero = ((g.abs() < r.abs()) & differ).sum().item() / max(
+        int(differ.sum()), 1)
+    return ((g - r).abs().max().item(), (g == r).float().mean().item(),
+            toward_zero)
+
+
 def bound_3xtf32_ms(n_bytes: float, n_ops: float) -> float:
     """The bound of a kernel whose products run in 3xTF32 (three TF32
     tensor-core products per f32 product): bytes, or 3 x operations at the
@@ -123,14 +172,22 @@ def bound_3xtf32_ms(n_bytes: float, n_ops: float) -> float:
 
 def ptxas_summary(log: str):
     """nvcc -Xptxas=-v output -> one "registers / shared memory / spills"
-    line per kernel."""
+    line per kernel (a template instance named by its operand type, bf16 or
+    f32, and its integer arguments)."""
     out, name, spills = [], "", ""
     for ln in log.splitlines():
         ln = ln.strip()
         if "Compiling entry function" in ln:
             name = ln.split("'")[1] if "'" in ln else ln
-            short = re.search(r"gv_[a-z0-9_]+_kernel(I(Li\d+E)+E)?", name)
-            name = short.group(0) if short else name
+            short = re.search(r"gv_[a-z0-9_]+_kernel", name)
+            if short:
+                rest = name[short.end():]
+                args = re.findall(r"Li(\d+)E", rest)
+                kind = ("bf16" if "bfloat16" in rest
+                        else "f32" if rest.startswith("If") else "")
+                name = short.group(0) + (
+                    f"<{','.join([kind] + args) if kind else ','.join(args)}>"
+                    if kind or args else "")
         elif "spill" in ln:
             spills = ln
         elif "registers" in ln:
@@ -214,6 +271,207 @@ def check_stem(torch, dev, detector, cfg, batch):
         max_abs_err=(got - ref).abs().max().item(), **t,
         bound=bound_ms(n_bytes, ops),
         bound_3xtf32_ms=bound_3xtf32_ms(n_bytes, ops))
+
+
+def frames_bf16(torch, dev, cfg, batch, seed):
+    """Random 8-bit frames (integers in [0, 255], exact in bf16) as
+    (batch, H, W, 3) bf16."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, 256, (batch, cfg.camera_image_height,
+                                  cfg.camera_image_width, 3), generator=g,
+                         device=dev).to(torch.bfloat16)
+
+
+def check_stem_bf16(torch, dev, detector, cfg, batch):
+    """The stem's bf16 form on 8-bit frames against its twin; yardstick:
+    the same chain in bf16 library calls (bf16 resize einsums, cuDNN bf16
+    F.conv2d with the BN folded in, leaky)."""
+    import torch.nn.functional as F
+    from grid_vision_tpu_torch.models.layers import same_pad
+    from grid_vision_tpu_torch.ops import cuda_stem, preprocess
+    img = frames_bf16(torch, dev, cfg, batch, 11)
+    size = cfg.resize
+    consts = cuda_stem.prepare_stem_constants(detector, torch.bfloat16)
+    got = cuda_stem.detector_stem_cuda(img, consts, size)
+    torch.cuda.synchronize()
+    ref = cuda_stem.detector_stem_plain(img, consts, size)
+    err, equal, toward = bf16_agreement(torch, "stem", got, ref)
+    bf = torch.bfloat16
+    wb = [(consts[f"w{i}_oihw"].float() * consts[f"s{i}"][:, None, None,
+                                                           None]).to(bf)
+          for i in (0, 1)]
+    bb = [consts[f"b{i}"].to(bf) for i in (0, 1)]
+
+    def library():
+        x = torch.stack([preprocess.preprocess_detector_image(im, size, bf)
+                         for im in img]).permute(0, 3, 1, 2)
+        for wt, b in zip(wb, bb):
+            p = same_pad(x.shape[2], 3, 2)
+            x = F.leaky_relu(F.conv2d(F.pad(x, (p[0], p[1], p[0], p[1])),
+                                      wt, b, stride=2), 0.1)
+        return x
+
+    lib_err = (library().permute(0, 2, 3, 1).float()
+               - ref.float()).abs().max().item()
+    h, w = cfg.camera_image_height, cfg.camera_image_width
+    _, ty = cuda_stem.resize_taps(h, size)
+    _, tx = cuda_stem.resize_taps(w, size)
+    s0 = -(-size // 2)
+    s1 = -(-s0 // 2)
+    ops = batch * (2 * h * size * 3 * tx.shape[1]
+                   + 2 * size * size * 3 * ty.shape[1]
+                   + 2 * s0 * s0 * 32 * 27 + 2 * s1 * s1 * 64 * 288)
+    n_bytes = (img.numel() + got.numel()) * 2 + (27 * 32 + 192) * 4 + \
+        288 * 64 * 2
+    t = timed(lambda: cuda_stem.detector_stem_cuda(img, consts, size),
+              lambda: cuda_stem.detector_stem_plain(img, consts, size),
+              library)
+    return dict(
+        call=lambda: cuda_stem.detector_stem_cuda(img, consts, size),
+        name="detector_stem_bf16",
+        source="grid_vision_tpu_torch/csrc/cuda_stem.cu",
+        replaces="grid_vision_tpu/ops/pallas_stem.py:359",
+        shape=list(img.shape), max_abs_err=err, bit_equal_share=equal,
+        toward_zero_share=toward,
+        library_max_abs_err=lib_err, **t, bound=bound_bf16_ms(n_bytes, ops))
+
+
+def check_csp_bf16(torch, dev, detector, cfg, batch):
+    """The CSP stage's bf16 form on the bf16 stem's output of 8-bit frames
+    against its twin; yardstick: the same chain of cuDNN bf16 F.conv2d
+    calls (BN folded in), leaky, concats, max_pool2d. Also the bf16 tile
+    product against bf16mma.matmul_bf16 (the fragment layout)."""
+    import torch.nn.functional as F
+    from grid_vision_tpu_torch.ops import bf16mma, cuda_csp, cuda_stem
+    g = torch.Generator(device=dev).manual_seed(12)
+    a = torch.randn((128, 288), generator=g, device=dev)
+    b = torch.randn((288, 64), generator=g, device=dev)
+    prod = cuda_csp.mma_product_bf16_cuda(a, b)
+    torch.cuda.synchronize()
+    prod_err = (prod - bf16mma.matmul_bf16(a, b)).abs().max().item()
+    if prod_err > 1e-3:
+        fail(f"the bf16 tile product is off by {prod_err}")
+    img = frames_bf16(torch, dev, cfg, batch, 13)
+    x = cuda_stem.detector_stem_cuda(
+        img, cuda_stem.prepare_stem_constants(detector, torch.bfloat16),
+        cfg.resize)
+    del img
+    consts = cuda_csp.prepare_csp_constants(detector, torch.bfloat16)
+    got = cuda_csp.detector_csp_cuda(x, detector, consts)
+    torch.cuda.synchronize()
+    ref = cuda_csp.detector_csp_plain(x, detector, consts)
+    err, equal, toward = bf16_agreement(torch, "CSP", got, ref)
+    bf = torch.bfloat16
+    wt = {k: (consts[f"w{k}_oihw"].float()
+              * consts[f"s{k}"][:, None, None, None]).to(bf)
+          for k in ("2", "a", "b", "c")}
+    bt = {k: consts[f"b{k}"].to(bf) for k in ("2", "a", "b", "c")}
+
+    def library():
+        y = F.leaky_relu(F.conv2d(x.permute(0, 3, 1, 2), wt["2"], bt["2"],
+                                  padding=1), 0.1)
+        x1 = F.leaky_relu(F.conv2d(y[:, 32:], wt["a"], bt["a"], padding=1),
+                          0.1)
+        x2 = F.leaky_relu(F.conv2d(x1, wt["b"], bt["b"], padding=1), 0.1)
+        x3 = F.leaky_relu(F.conv2d(torch.cat([x2, x1], 1), wt["c"], bt["c"]),
+                          0.1)
+        return F.max_pool2d(torch.cat([y, x3], 1), 2, 2)
+
+    with torch.no_grad():
+        lib_err = (library().permute(0, 2, 3, 1).float()
+                   - ref.float()).abs().max().item()
+    _, h, w, _ = x.shape
+    ops = batch * 2 * h * w * (64 * 576 + 2 * 32 * 288 + 64 * 64)
+    n_bytes = (x.numel() + got.numel()) * 2 + \
+        (576 * 64 + 2 * 288 * 32 + 64 * 64) * 2 + 2 * 2 * 192 * 4
+    with torch.no_grad():
+        t = timed(lambda: cuda_csp.detector_csp_cuda(x, detector, consts),
+                  lambda: cuda_csp.detector_csp_plain(x, detector, consts),
+                  library, iters=20)
+    return dict(
+        call=lambda: cuda_csp.detector_csp_cuda(x, detector, consts),
+        name="detector_csp_bf16",
+        source="grid_vision_tpu_torch/csrc/cuda_csp.cu",
+        replaces="grid_vision_tpu/ops/pallas_csp.py:404",
+        also_replaces="grid_vision_tpu/ops/pallas_csp.py:343",
+        shape=list(x.shape), max_abs_err=err, bit_equal_share=equal,
+        toward_zero_share=toward,
+        mma_product_max_abs_err=prod_err, library_max_abs_err=lib_err, **t,
+        bound=bound_bf16_ms(n_bytes, ops))
+
+
+def check_orient_bf16(torch, dev, net, cfg, rigs, n_crops):
+    """The orientation front's bf16 form: n_crops boxes over `rigs` 8-bit
+    frames (clamped, invalid and sliver boxes among them) against its twin;
+    yardstick: bf16 crop_resize einsums + the bf16 standardize + a cuDNN
+    bf16 F.conv2d with the BN folded in."""
+    import torch.nn.functional as F
+    from grid_vision_tpu_torch.models.layers import same_pad
+    from grid_vision_tpu_torch.ops import cuda_orient, preprocess
+    g = torch.Generator(device=dev).manual_seed(14)
+    h, w, size = (cfg.camera_image_height, cfg.camera_image_width,
+                  cfg.network_height)
+    images = frames_bf16(torch, dev, cfg, rigs, 15)
+    u = torch.rand((n_crops, 4), generator=g, device=dev)
+    x0 = u[:, 0] * (w + 60) - 40
+    y0 = u[:, 1] * (h + 60) - 40
+    xyxy = torch.stack([x0, y0, x0 + 8 + u[:, 2] * 300,
+                        y0 + 8 + u[:, 3] * 250], dim=-1)
+    xyxy[0] = torch.tensor([100.0, 100.0, 100.4, 100.4])    # sliver: flat
+    valid = torch.rand((n_crops,), generator=g, device=dev) > 0.1
+    valid[0] = True
+    rig = torch.sort(torch.randint(0, rigs, (n_crops,), generator=g,
+                                   device=dev)).values
+    consts = cuda_orient.prepare_orient_constants(net, torch.bfloat16)
+    with torch.no_grad():
+        got = cuda_orient.orient_front_cuda(images, xyxy, valid, rig, net,
+                                            consts, size)
+        torch.cuda.synchronize()
+        ref = cuda_orient.orient_front_plain(images, xyxy, valid, rig, net,
+                                             size, consts)
+        # flat crops (any channel's std < 1 grey level) are ill-conditioned
+        # (ROADMAP C): held to finiteness only
+        flat = cuda_orient.crops_by_rig(images, xyxy, rig, size).std(
+            dim=(1, 2)).amin(dim=-1) < 1.0
+    keep = ~flat
+    if not torch.isfinite(got.float()).all():
+        fail("orientation-front bf16 output is not finite")
+    err, equal, toward = bf16_agreement(torch, "orientation front", got[keep],
+                                ref[keep])
+    bf = torch.bfloat16
+    wt = (consts["w_oihw"].float() * consts["s"][:, None, None, None]).to(bf)
+    bt = consts["t"].to(bf)
+    lo, hi = (4 * p for p in same_pad(size // 4, 3, 2))
+
+    def library():
+        c = cuda_orient.crops_by_rig(images, xyxy, rig, size, bf)
+        std = preprocess._standardize(c, valid).permute(0, 3, 1, 2)
+        return F.relu(F.conv2d(F.pad(std, (lo, hi, lo, hi)), wt, bt,
+                               stride=8))
+
+    with torch.no_grad():
+        lib = library().permute(0, 2, 3, 1)
+        lib_err = (lib[keep].float() - ref[keep].float()).abs().max().item()
+        t = timed(lambda: cuda_orient.orient_front_cuda(
+            images, xyxy, valid, rig, net, consts, size),
+            lambda: cuda_orient.orient_front_plain(
+                images, xyxy, valid, rig, net, size, consts), library,
+            iters=20)
+    n_valid = int(valid.sum())
+    q, f = got.shape[1], got.shape[3]
+    ops = n_valid * (2 * q * q * f * 12 * 12 * 3 + size * size * 3 * 10)
+    n_bytes = (images.numel() + got.numel() + 432 * f) * 2 + \
+        xyxy.numel() * 4 + 2 * f * 4 + 2 * n_crops
+    return dict(
+        call=lambda: cuda_orient.orient_front_cuda(
+            images, xyxy, valid, rig, net, consts, size),
+        name="orient_front_bf16",
+        source="grid_vision_tpu_torch/csrc/cuda_orient.cu",
+        replaces="grid_vision_tpu/ops/pallas_orient.py:288",
+        shape=[n_crops, size, size, 3], crops_valid=n_valid,
+        crops_flat_left_out=int(flat.sum()), max_abs_err=err,
+        bit_equal_share=equal, toward_zero_share=toward,
+        library_max_abs_err=lib_err, **t, bound=bound_bf16_ms(n_bytes, ops))
 
 
 def random_grid_case(torch, dev, cfg, rigs, seed):
@@ -666,6 +924,38 @@ def compare_outputs(torch, cfg, outs, plain_outs, per_rig: bool):
     return min(agree), n_boxes, n_poses
 
 
+def compare_bf16(torch, cfg, outs, plain_outs):
+    """The bf16 bars of the kernel backends against the plain ones, per rig
+    per tick: equal box counts on >= 99 % of rig-ticks, occupancy_i8
+    agreement >= 99 % on the mean and >= 97.5 % at the least (PARITY.json
+    per_step_min_agreement of the JAX package's bf16 against f32); finite
+    valid slots."""
+    same, agree, n_boxes, n_poses = [], [], [], []
+    for o, p in zip(outs, plain_outs):
+        if tuple(o.occupancy_i8.shape[-2:]) != tuple(cfg.grid_size):
+            fail(f"occupancy_i8 shape {tuple(o.occupancy_i8.shape)}")
+        for name, t in (("static_points", o.static_points),
+                        ("boxes", o.boxes.xyxy[o.boxes.valid]),
+                        ("poses", o.poses.position[o.poses.valid])):
+            if not torch.isfinite(t).all():
+                fail(f"non-finite {name} in a valid slot (bf16)")
+        nb, pb = o.boxes.valid.sum(-1), p.boxes.valid.sum(-1)
+        same += (nb == pb).reshape(-1).tolist()
+        eq = (o.occupancy_i8 == p.occupancy_i8).float()
+        agree += eq.mean(dim=(-2, -1)).reshape(-1).tolist()
+        n_boxes.append(int(nb.sum()))
+        n_poses.append(int(o.poses.valid.sum()))
+    out = dict(equal_box_count_share=sum(same) / len(same),
+               mean_occupancy_i8_agreement=sum(agree) / len(agree),
+               min_occupancy_i8_agreement=min(agree),
+               boxes_per_tick=n_boxes, poses_per_tick=n_poses)
+    if (out["equal_box_count_share"] < 0.99
+            or out["mean_occupancy_i8_agreement"] < 0.99
+            or out["min_occupancy_i8_agreement"] < 0.975):
+        fail(f"bf16 kernel backends against the plain ones: {out}")
+    return out
+
+
 def profile_fleet(torch, engine, obs, budget, ticks: int = 3):
     """torch.profiler over `ticks` fleet ticks: device time by kernel name
     (the top 15, and every kernel of csrc/) and the device's busy share of
@@ -690,6 +980,7 @@ def profile_fleet(torch, engine, obs, budget, ticks: int = 3):
         launches[e.name] = launches.get(e.name, 0) + 1
     busy = sum(by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    conv_words = ("conv", "fprop", "implicit", "cudnn", "dgrad", "wgrad")
 
     def rows(items):
         return [dict(name=n[:90], ms_per_tick=ms,
@@ -697,6 +988,9 @@ def profile_fleet(torch, engine, obs, budget, ticks: int = 3):
                 for n, ms in items]
 
     return dict(ticks=ticks, tick_ms=wall_ms, device_busy_ms=busy,
+                library_conv_ms=sum(
+                    ms for n, ms in by_name.items() if "gv_" not in n
+                    and any(w in n.lower() for w in conv_words)),
                 device_idle_share=(1.0 - busy / wall_ms) if busy else None,
                 device_launches_per_tick=sum(launches.values()) / ticks,
                 top_kernels=rows(ranked[:15]),
@@ -719,8 +1013,14 @@ def jax_fixture(torch, dev, root, cfg, nets, extrinsics):
     """The port's kernel path at full width against the JAX package's own
     outputs (tests/fixtures/full_width_jax.npz, written on the CPU by
     tools/jax_full_width_fixture.py): the same scene, weights and ticks, compat
-    and extension mode; occupancy_i8 agreement >= 99 % (BASELINE.md's bar)
-    and equal box counts every tick. Returns the per-tick agreement."""
+    and extension mode, each in f32 and in bf16. f32: occupancy_i8 agreement
+    >= 99 % (BASELINE.md's bar) and equal box counts every tick. bf16 (the
+    JAX package's XLA chain rounds elsewhere than the Pallas kernels the
+    port's kernels follow, and its f32 sums run in another order): the bars
+    of the JAX package's own bf16 against its f32 (PARITY.json
+    production_vs_compat_vision), equal box counts on >= 99 % of ticks,
+    agreement >= 97.5 % every tick and >= 98.5 % on the mean. Returns the
+    per-tick agreement."""
     import numpy as np
     from grid_vision_tpu_torch import pipeline
     from grid_vision_tpu_torch.io.scene import SyntheticScene
@@ -732,13 +1032,14 @@ def jax_fixture(torch, dev, root, cfg, nets, extrinsics):
     out = {}
     for mode, flags in meta["modes"].items():
         mcfg = dataclasses.replace(cfg, **flags)
+        bf16 = mcfg.compute_dtype == "bfloat16"
         eng = pipeline.Engine(mcfg, extrinsics=extrinsics, params=nets,
                               device=dev)
         scene = SyntheticScene(mcfg, **meta["scene"])
         scene.add_default_traffic()
         scene.add_default_statics()
         state = eng.init_state()
-        agree, boxes = [], []
+        agree, boxes, same = [], [], []
         for i in range(meta["ticks"]):
             obs = obs_from_scene(scene, i / 10.0, mcfg, dev)
             if i == meta["gated_off_tick"]:
@@ -746,16 +1047,22 @@ def jax_fixture(torch, dev, root, cfg, nets, extrinsics):
             state, o = eng(state, obs)
             key = f"{mode}/{i}/"
             n_box = int(o.boxes.valid.sum())
-            if n_box != int(ref[key + "boxes_valid"].sum()):
+            n_ref = int(ref[key + "boxes_valid"].sum())
+            if n_box != n_ref and not bf16:
                 fail(f"{mode} tick {i}: {n_box} boxes, the JAX package "
-                     f"{int(ref[key + 'boxes_valid'].sum())}")
+                     f"{n_ref}")
+            same.append(n_box == n_ref)
             agree.append(float((o.occupancy_i8.cpu().numpy()
                                 == ref[key + "occupancy_i8"]).mean()))
             boxes.append(n_box)
-        if min(agree) < 0.99:
-            fail(f"{mode}: occupancy_i8 agreement with the JAX package "
-                 f"{min(agree)} < 0.99")
-        out[mode] = dict(occupancy_i8_agreement=agree, boxes=boxes)
+        mean = sum(agree) / len(agree)
+        if (min(agree) < 0.99 and not bf16) or (bf16 and (
+                sum(same) / len(same) < 0.99 or mean < 0.985
+                or min(agree) < 0.975)):
+            fail(f"{mode}: against the JAX package: occupancy_i8 agreement "
+                 f"{agree}, equal box counts {same}")
+        out[mode] = dict(occupancy_i8_agreement=agree, boxes=boxes,
+                         equal_box_counts=same)
     return out
 
 
@@ -770,7 +1077,8 @@ def main() -> None:
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels":
         only = set(sys.argv[2].split(","))
     elif len(sys.argv) > 1:
-        fail("usage: chip_smoke.py [--kernels stem,grid,knn,csp,orient,carve]")
+        fail("usage: chip_smoke.py [--kernels stem,grid,knn,csp,orient,carve,"
+             "stem_bf16,csp_bf16,orient_bf16]")
     try:
         import torch
     except ImportError:
@@ -856,7 +1164,12 @@ def main() -> None:
         ("fleet", "csp", check_csp, (det, fleet_cfg, N_RIGS)),
         ("fleet", "orient", check_orient, (net, fleet_cfg, N_RIGS, BUDGET)),
         ("fleet", "grid", check_grid, (fleet_cfg, N_RIGS)),
-        ("fleet", "knn", check_knn, (fleet_cfg, fleet_obs[0].cloud))]
+        ("fleet", "knn", check_knn, (fleet_cfg, fleet_obs[0].cloud)),
+        ("engine", "stem_bf16", check_stem_bf16, (det, cfg, 1)),
+        ("fleet", "stem_bf16", check_stem_bf16, (det, fleet_cfg, N_RIGS)),
+        ("fleet", "csp_bf16", check_csp_bf16, (det, fleet_cfg, N_RIGS)),
+        ("fleet", "orient_bf16", check_orient_bf16,
+         (net, fleet_cfg, N_RIGS, BUDGET))]
     for path, rigs, c, obs in (("extension", None, cfg, obs_seq[0]),
                                ("extension_fleet", N_RIGS, fleet_cfg,
                                 fleet_obs[0])):
@@ -898,7 +1211,9 @@ def main() -> None:
         return
     results = {name: checked["fleet", name]
                for name in ("detector_stem", "detector_csp", "orient_front",
-                            "grid_update", "knn_median_depth")}
+                            "grid_update", "knn_median_depth",
+                            "detector_stem_bf16", "detector_csp_bf16",
+                            "orient_front_bf16")}
     results["carve_update"] = checked["extension_fleet", "carve_update"]
     carve_single = checked["extension", "carve_update"]
     knn_other = [dict({k: r[k] for k in (
@@ -939,6 +1254,7 @@ def main() -> None:
     for m in modules.values():
         m.launches = 0
     _, fouts, ftimes = run_fleet(torch, fleet, fleet_obs, BUDGET)
+    fleet_times = ftimes
     launches = {name: m.launches for name, m in modules.items()}
     for name, n in launches.items():
         if n != (0 if name == "carve_update" else FLEET_TICKS):
@@ -1003,11 +1319,106 @@ def main() -> None:
     del fplain, p3
     torch.cuda.empty_cache()
 
+    # 6b. the production bf16 configuration (compute_dtype="bfloat16"):
+    # the single-rig Engine, then the fleet with a bf16 pool, each on the
+    # kernel backends against the same bf16 configuration on the plain
+    # ones; counters from zero, the f32 forms must not launch
+    bf16 = torch.bfloat16
+    nets = {k: engine.params[k] for k in ("detector", "orientation")}
+    forms = {"detector_stem_bf16": cuda_stem, "detector_csp_bf16": cuda_csp,
+             "orient_front_bf16": cuda_orient}
+
+    def bf16_run(run, want):
+        for m in modules.values():
+            m.launches = 0
+        for m in forms.values():
+            m.launches_bf16 = 0
+        result = run()
+        got = {name: m.launches for name, m in modules.items()}
+        got.update({name: m.launches_bf16 for name, m in forms.items()})
+        if got != want:
+            fail(f"bf16 run launches {got}, expected {want}")
+        return result, got
+
+    def bf16_pair(base):
+        kern = pipeline.Engine(dataclasses.replace(
+            base, compute_dtype="bfloat16"), extrinsics=engine.extrinsics,
+            params=nets, device=dev)
+        plain = pipeline.Engine(dataclasses.replace(
+            base, compute_dtype="bfloat16", detector_stem_backend="xla",
+            orientation_stem_backend="xla", grid_backend="xla",
+            knn_backend="xla"), extrinsics=engine.extrinsics, params=nets,
+            device=dev)
+        return kern, plain
+
+    bf_engine, bf_plain = bf16_pair(cfg)
+    bf_obs = obs_seq[:BF16_ENGINE_TICKS]
+    zero = {name: 0 for name in list(modules) + list(forms)}
+    (_, outs, times), bf_engine_launches = bf16_run(
+        lambda: run_ticks(torch, bf_engine, bf_obs),
+        dict(zero, detector_stem_bf16=BF16_ENGINE_TICKS,
+             grid_update=BF16_ENGINE_TICKS,
+             knn_median_depth=BF16_ENGINE_TICKS))
+    _, plain_outs, plain_times = run_ticks(torch, bf_plain, bf_obs)
+    phase("engine_bf16", ticks=BF16_ENGINE_TICKS, launches=bf_engine_launches,
+          median_tick_ms=statistics.median(times),
+          plain_median_tick_ms=statistics.median(plain_times),
+          **compare_bf16(torch, cfg, outs, plain_outs))
+    del outs, plain_outs, bf_engine, bf_plain
+
+    bf_fleet, bf_fplain = bf16_pair(fleet_cfg)
+    bf_pool = FleetPool(fleet_cfg, N_RIGS, device=dev, image_dtype=bf16)
+    first = bf_pool.obs(0)
+    if first.image.dtype != bf16 or not torch.equal(
+            first.image, fleet_obs[0].image.to(bf16)):
+        fail("the bf16 pool's frames are not the f32 pool's")
+    del first
+    # the same frames as the f32 fleet phase, stored in bf16 (8-bit pixels
+    # are exact in it)
+    bf_fobs = [dataclasses.replace(o, image=o.image.to(bf16))
+               for o in fleet_obs[:BF16_FLEET_TICKS]]
+    (_, fouts, ftimes), bf_launches = bf16_run(
+        lambda: run_fleet(torch, bf_fleet, bf_fobs, BUDGET),
+        dict(zero, grid_update=BF16_FLEET_TICKS,
+             knn_median_depth=BF16_FLEET_TICKS,
+             **{name: BF16_FLEET_TICKS for name in forms}))
+    _, fplain_outs, fplain_times = run_fleet(torch, bf_fplain, bf_fobs,
+                                             BUDGET)
+    med, pmed = statistics.median(ftimes), statistics.median(fplain_times)
+    f32_med = statistics.median(fleet_times)
+    phase("fleet_bf16", rigs=N_RIGS, ticks=BF16_FLEET_TICKS, budget=BUDGET,
+          launches=bf_launches, median_tick_ms=med,
+          plain_median_tick_ms=pmed, f32_median_tick_ms=f32_med,
+          rig_frames_per_s=N_RIGS / med * 1e3,
+          f32_rig_frames_per_s=N_RIGS / f32_med * 1e3,
+          plain_rig_frames_per_s=N_RIGS / pmed * 1e3, tick_ms=ftimes,
+          **compare_bf16(torch, fleet_cfg, fouts, fplain_outs),
+          dropped_per_tick=[int(o.saturation.orientation_dropped.sum())
+                            for o in fouts])
+    del fouts, fplain_outs, bf_fplain
+    torch.cuda.empty_cache()
+    profiles["kernels_bf16"] = profile_fleet(torch, bf_fleet, bf_fobs[0],
+                                             BUDGET)
+    phase("profile", path="fleet_bf16/kernels", **profiles["kernels_bf16"])
+    phase("library_convs", card=card, **{
+        f"fleet/{name}": profiles[name]["library_conv_ms"]
+        for name in ("kernels", "kernels_bf16")})
+    for kernel, prefix in (("detector_stem_bf16", "gv_stem_"),
+                           ("detector_csp_bf16", "gv_csp_"),
+                           ("orient_front_bf16", "gv_orient_")):
+        device_ms[kernel] = sum(
+            row["ms_per_tick"]
+            for row in profiles["kernels_bf16"]["port_kernels"]
+            if prefix in row["name"])
+        if not device_ms[kernel] > 0.0:
+            fail(f"the profile shows no device time for {kernel}")
+    del bf_fleet, bf_fobs
+    torch.cuda.empty_cache()
+
     # 7. the extension-mode tick at full width, counters from zero: the
     # single-rig Engine, then the fleet
     ext = dict(compat=False, raycast_free_space=True,
                vision_depth_refine=True, class_aware_nms=True)
-    nets = {k: engine.params[k] for k in ("detector", "orientation")}
 
     def ext_pair(base):
         """The extension engine on the kernel backends and on the plain."""
@@ -1114,6 +1525,9 @@ def main() -> None:
     # 8. the kernels line, then the card, then the device JSON
     launches["carve_update"] = ext_launches["carve_update"]
     engine_launches["carve_update"] = ext_engine_launches["carve_update"]
+    for name in forms:
+        launches[name] = bf_launches[name]
+        engine_launches[name] = bf_engine_launches[name]
     kernels = []
     for name, r in results.items():
         kernels.append(dict(
@@ -1127,7 +1541,8 @@ def main() -> None:
         if name in device_ms:
             kernels[-1].update(device_ms=device_ms[name],
                                check_device_ms=r["check_device_ms"])
-        for key in ("bound_3xtf32_ms", "bound_old_bytes_ms", "gated_off"):
+        for key in ("bound_3xtf32_ms", "bound_old_bytes_ms", "gated_off",
+                    "bit_equal_share", "toward_zero_share"):
             if key in r:
                 kernels[-1][key] = r[key]
         if name == "knn_median_depth":
@@ -1137,6 +1552,11 @@ def main() -> None:
         k: carve_single[k] for k in ("ms", "plain_ms", "shape")},
         single_rig_bound_ms=carve_single["bound"][0],
         launches_extension_fleet=ext_launches)
+    spilled = [ln for lines in regs.values() for ln in lines
+               if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
+                                ln)]
+    if spilled:
+        fail(f"a kernel spills registers: {spilled}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

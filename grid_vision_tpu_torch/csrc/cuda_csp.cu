@@ -42,6 +42,18 @@
 // thread and channel pair.
 // The pool block owns 8 x 16 pixels: a warp's two rows pool in registers
 // (vertical) and with one shuffle (horizontal).
+//
+// The bf16 form (compute_dtype="bfloat16": the kernels templated on the
+// operand type, gv::Op<bf16>) rounds where pallas_csp.py's kernels round in
+// bf16: bf16 weights without the BN scale (bf16mma.pack_b_fragments), one
+// mma.sync.m16n8k16 per tile and k step with the whole K chain on the tensor
+// core, BN (x * s + b, no FMA) and leaky in f32, every conv's output (the
+// Pallas kernels' scratch: y, x1, x2, x3) rounded to bf16. Its operations
+// bound it at the bf16 rate, 989 TFLOP/s (a sixth of the 3xTF32 bound); a
+// staged pixel is C_in + 16 bf16 (8 or 24 banks apart), and every tensor it
+// moves is half the f32 form's bytes.
+
+#include <type_traits>
 
 #include "gv_mma.cuh"
 
@@ -55,36 +67,61 @@ __device__ __forceinline__ float leaky(float v) {
   return v > 0.0f ? v : 0.1f * v;
 }
 
-template <int CIN, int COUT, int MT>
+template <typename T, int CIN, int COUT, int MT>
 struct ConvCfg {
+  using O = gv::Op<T>;
   static constexpr int kTileH = 4 * MT;       // 4 warps x MT rows
-  static constexpr int kStride = CIN + 8;     // floats a staged pixel
+  static constexpr int kStride = CIN + O::kPad;   // elements a staged pixel
   static constexpr int kHaloW = kTileW + 2;
-  static constexpr int kTileFloats = (kTileH + 2) * kHaloW * kStride;
+  static constexpr int kTileElems = (kTileH + 2) * kHaloW * kStride;
   static constexpr int kNT = COUT / 8;
-  static constexpr int kChunkFloats = (kChunkK / 8) * kNT * 32 * 4;
+  static constexpr int kSteps = kChunkK / O::kK;  // mma k steps a chunk
+  static constexpr int kChunkElems = kSteps * kNT * 32 * 4;
   static constexpr int kChunksPerTap = CIN / kChunkK;
   static constexpr int kChunks = 9 * kChunksPerTap;
   static constexpr int kSmemBytes =
-      (kTileFloats + 2 * kChunkFloats + COUT) * 4;
+      (kTileElems + 2 * kChunkElems) * (int)sizeof(T) + 2 * COUT * 4;
+  // blocks an SM the compiler is to plan registers for: f32, as many as
+  // the SM's 228 KB of shared memory take anyway (2 at 64 -> 64, 3 at 32 ->
+  // 32; 3 at 64 -> 64 spills); bf16, one (left free, ptxas keeps the
+  // 32 -> 32 instance at 96 registers and spills 8 bytes)
+  static constexpr int kMinBlocks =
+      std::is_same<T, float>::value ? 233472 / (kSmemBytes + 1024) : 1;
 };
 
-// 3x3 stride-1 SAME conv + BN shift + leaky. in: (B, h, w, in_stride), CIN
-// channels from in_off; wfrag: the (9 * CIN, COUT) matrix in (ty, tx, c) row
-// order, BN scale folded in, packed by tf32x3.pack_b_fragments; out:
-// (B, h, w, out_stride), output channel co goes to out_off + co. in and out
-// may be one buffer with disjoint channel ranges.
-template <int CIN, int COUT, int MT>
-__global__ void __launch_bounds__(kThreads)
-gv_csp_conv3x3_kernel(const float* in, int in_stride, int in_off, int h,
-                      int w, const float* __restrict__ wfrag,
-                      const float* __restrict__ shift, float* out,
+// BN and leaky of four neighbouring outputs, stored. f32: the scale is
+// folded into the weights, acc + shift. bf16: acc * scale + shift in f32,
+// rounded once at the store (the Pallas kernel's order, no FMA).
+template <typename T>
+__device__ __forceinline__ float bn_leaky(float v, float s, float b) {
+  return std::is_same<T, float>::value ? leaky(v + b)
+                                       : leaky(__fadd_rn(__fmul_rn(v, s), b));
+}
+
+// 3x3 stride-1 SAME conv + BN + leaky in operand type T (f32: 3xTF32;
+// bf16: bf16 operands, f32 sums on the tensor core). in: (B, h, w,
+// in_stride), CIN channels from in_off; wfrag: the (9 * CIN, COUT) matrix
+// in (ty, tx, c) row order (f32: BN scale folded in, packed by
+// tf32x3.pack_b_fragments; bf16: packed by bf16mma.pack_b_fragments);
+// scale (bf16 only) and shift: the BN's; out: (B, h, w, out_stride), output
+// channel co goes to out_off + co. in and out may be one buffer with
+// disjoint channel ranges.
+template <typename T, int CIN, int COUT, int MT>
+__global__ void __launch_bounds__(kThreads,
+                                  (ConvCfg<T, CIN, COUT, MT>::kMinBlocks))
+gv_csp_conv3x3_kernel(const T* in, int in_stride, int in_off, int h, int w,
+                      const T* __restrict__ wfrag,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ shift, T* out,
                       int out_stride, int out_off) {
-  using C = ConvCfg<CIN, COUT, MT>;
-  extern __shared__ __align__(16) float smem[];
-  float* tile = smem;
-  float* wbuf = smem + C::kTileFloats;
-  float* sshift = wbuf + 2 * C::kChunkFloats;
+  using C = ConvCfg<T, CIN, COUT, MT>;
+  using O = gv::Op<T>;
+  using Frag = typename O::Frag;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tile = reinterpret_cast<T*>(smem_raw);
+  T* wbuf = tile + C::kTileElems;
+  float* sscale = reinterpret_cast<float*>(wbuf + 2 * C::kChunkElems);
+  float* sshift = sscale + COUT;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -92,9 +129,10 @@ gv_csp_conv3x3_kernel(const float* in, int in_stride, int in_off, int h,
   const int t = lane & 3;
   const int x0 = blockIdx.x * kTileW;
   const int y0 = blockIdx.y * C::kTileH;
-  const float* src = in + (int64_t)blockIdx.z * h * w * in_stride + in_off;
+  const T* src = in + (int64_t)blockIdx.z * h * w * in_stride + in_off;
 
-  constexpr int kVecs = CIN / 4;              // 16-byte pieces a pixel
+  constexpr int kPer = 16 / (int)sizeof(T);   // elements a 16-byte piece
+  constexpr int kVecs = CIN / kPer;           // pieces a pixel
   for (int i = tid; i < (C::kTileH + 2) * C::kHaloW * kVecs; i += kThreads) {
     const int pix = i / kVecs;
     const int v = i - pix * kVecs;
@@ -103,20 +141,22 @@ gv_csp_conv3x3_kernel(const float* in, int in_stride, int in_off, int h,
     const int y = y0 + ry - 1;
     const int x = x0 + rx - 1;
     const bool ok = y >= 0 && y < h && x >= 0 && x < w;
-    const float* p =
-        ok ? src + ((int64_t)y * w + x) * in_stride + 4 * v : src;
-    gv::cp_async16(tile + pix * C::kStride + 4 * v, p, ok);
+    const T* p = ok ? src + ((int64_t)y * w + x) * in_stride + kPer * v : src;
+    gv::cp_async16(tile + pix * C::kStride + kPer * v, p, ok);
   }
   auto load_chunk = [&](int chunk) {
-    const float* s = wfrag + (int64_t)chunk * C::kChunkFloats;
-    float* d = wbuf + (chunk & 1) * C::kChunkFloats;
-    for (int i = tid; i < C::kChunkFloats / 4; i += kThreads) {
-      gv::cp_async16(d + 4 * i, s + 4 * i, true);
+    const T* s = wfrag + (int64_t)chunk * C::kChunkElems;
+    T* d = wbuf + (chunk & 1) * C::kChunkElems;
+    for (int i = tid; i < C::kChunkElems / kPer; i += kThreads) {
+      gv::cp_async16(d + kPer * i, s + kPer * i, true);
     }
     gv::cp_async_commit();
   };
   load_chunk(0);                              // one group with the tile
-  if (tid < COUT) sshift[tid] = shift[tid];
+  if (tid < COUT) {
+    sshift[tid] = shift[tid];
+    sscale[tid] = std::is_same<T, float>::value ? 1.0f : scale[tid];
+  }
 
   float acc[MT][C::kNT][4];
 #pragma unroll
@@ -140,32 +180,32 @@ gv_csp_conv3x3_kernel(const float* in, int in_stride, int in_off, int h,
     const int c0 = (chunk - tap * C::kChunksPerTap) * kChunkK;
     const int ty = tap / 3;
     const int tx = tap - 3 * ty;
-    const float4* wb = reinterpret_cast<const float4*>(
-        wbuf + (chunk & 1) * C::kChunkFloats);
-    const float* a0 =
-        tile + ((warp * MT + ty) * C::kHaloW + tx + g) * C::kStride + c0 +
-        2 * t;
-    float d[MT][C::kNT][4];                   // the chunk's sums: one chain
+    const Frag* wb =
+        reinterpret_cast<const Frag*>(wbuf + (chunk & 1) * C::kChunkElems);
+    const T* a0 = tile + ((warp * MT + ty) * C::kHaloW + tx + g) * C::kStride +
+                  c0 + O::kThreadK * t;
+    float d[MT][C::kNT][4];                   // 3xTF32: the chunk's chain
 #pragma unroll
-    for (int ks = 0; ks < kChunkK / 8; ++ks) {
-      uint32_t ah[MT][4], al[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const float* a = a0 + mt * C::kHaloW * C::kStride + ks * 8;
-        gv::load_a(a, a + 8 * C::kStride, ah[mt], al[mt]);
-      }
-      float4 b[C::kNT];
+    for (int ks = 0; ks < C::kSteps; ++ks) {
+      Frag b[C::kNT];
 #pragma unroll
       for (int nt = 0; nt < C::kNT; ++nt) {
         b[nt] = wb[(ks * C::kNT + nt) * 32 + lane];
       }
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        gv::mma_3xtf32_chain(d[mt], ks == 0, ah[mt], al[mt], b);
+        const T* a = a0 + mt * C::kHaloW * C::kStride + ks * O::kK;
+        if constexpr (O::kSplitChains) {
+          O::step(d[mt], ks == 0, a, a + 8 * C::kStride, b);
+        } else {
+          O::step(acc[mt], false, a, a + 8 * C::kStride, b);
+        }
       }
     }
+    if constexpr (O::kSplitChains) {
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) gv::add_chain(acc[mt], d[mt]);
+      for (int mt = 0; mt < MT; ++mt) gv::add_chain(acc[mt], d[mt]);
+    }
     __syncthreads();                          // the buffer is refilled next
   }
 
@@ -176,17 +216,18 @@ gv_csp_conv3x3_kernel(const float* in, int in_stride, int in_off, int h,
     for (int half = 0; half < 2; ++half) {
       const int x = x0 + g + 8 * half;
       if (y < h && x < w) {
-        float* dst = out +
-                     (((int64_t)blockIdx.z * h + y) * w + x) * out_stride +
-                     out_off + 4 * t;
+        T* dst = out + (((int64_t)blockIdx.z * h + y) * w + x) * out_stride +
+                 out_off + 4 * t;
 #pragma unroll
         for (int p = 0; p < C::kNT / 2; ++p) {
+          const float* ss = sscale + 16 * p + 4 * t;
           const float* sh = sshift + 16 * p + 4 * t;
-          *reinterpret_cast<float4*>(dst + 16 * p) = make_float4(
-              leaky(acc[mt][2 * p][2 * half] + sh[0]),
-              leaky(acc[mt][2 * p][2 * half + 1] + sh[1]),
-              leaky(acc[mt][2 * p + 1][2 * half] + sh[2]),
-              leaky(acc[mt][2 * p + 1][2 * half + 1] + sh[3]));
+          gv::store4(dst + 16 * p,
+                     bn_leaky<T>(acc[mt][2 * p][2 * half], ss[0], sh[0]),
+                     bn_leaky<T>(acc[mt][2 * p][2 * half + 1], ss[1], sh[1]),
+                     bn_leaky<T>(acc[mt][2 * p + 1][2 * half], ss[2], sh[2]),
+                     bn_leaky<T>(acc[mt][2 * p + 1][2 * half + 1], ss[3],
+                                 sh[3]));
         }
       }
     }
@@ -194,23 +235,64 @@ gv_csp_conv3x3_kernel(const float* in, int in_stride, int in_off, int h,
 }
 
 constexpr int kPoolTileH = 8;
-constexpr int kPoolStride = 64 + 8;
-constexpr int kPoolTileFloats = kPoolTileH * kTileW * kPoolStride;
-constexpr int kPoolWFloats = 8 * 8 * 32 * 4;  // 64 x 64, hi and lo
-constexpr int kPoolSmemBytes = (kPoolTileFloats + kPoolWFloats + 64) * 4;
 
-// 1x1 conv (64 -> 64) on xcat = concat[x2, x1] + BN shift + leaky = x3,
-// then the 2x2/s2 max pool of concat[y, x3]. A block owns 8 x 16 pixels,
-// a warp two rows of them: one row of 8 pooled pixels.
+template <typename T>
+struct PoolCfg {
+  using O = gv::Op<T>;
+  static constexpr int kStride = 64 + O::kPad;    // elements a staged pixel
+  static constexpr int kTileElems = kPoolTileH * kTileW * kStride;
+  static constexpr int kSteps = 64 / O::kK;
+  static constexpr int kWElems = kSteps * 8 * 32 * 4;   // 64 x 64 packed
+  static constexpr int kSmemBytes =
+      (kTileElems + kWElems) * (int)sizeof(T) + 2 * 64 * 4;
+};
+
+// The elementwise max of four 16-byte pieces (4 floats or 8 bf16).
+__device__ __forceinline__ float4 max4(float4 a, float4 b, float4 c,
+                                       float4 d) {
+  return make_float4(fmaxf(fmaxf(a.x, b.x), fmaxf(c.x, d.x)),
+                     fmaxf(fmaxf(a.y, b.y), fmaxf(c.y, d.y)),
+                     fmaxf(fmaxf(a.z, b.z), fmaxf(c.z, d.z)),
+                     fmaxf(fmaxf(a.w, b.w), fmaxf(c.w, d.w)));
+}
+
+__device__ __forceinline__ uint4 max8_bf16(uint4 a, uint4 b, uint4 c,
+                                           uint4 d) {
+  uint4 r;
+  const uint32_t* pa = reinterpret_cast<const uint32_t*>(&a);
+  const uint32_t* pb = reinterpret_cast<const uint32_t*>(&b);
+  const uint32_t* pc = reinterpret_cast<const uint32_t*>(&c);
+  const uint32_t* pd = reinterpret_cast<const uint32_t*>(&d);
+  uint32_t* pr = reinterpret_cast<uint32_t*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 m = __hmax2(
+        __hmax2(*reinterpret_cast<const __nv_bfloat162*>(pa + i),
+                *reinterpret_cast<const __nv_bfloat162*>(pb + i)),
+        __hmax2(*reinterpret_cast<const __nv_bfloat162*>(pc + i),
+                *reinterpret_cast<const __nv_bfloat162*>(pd + i)));
+    pr[i] = *reinterpret_cast<const uint32_t*>(&m);
+  }
+  return r;
+}
+
+// 1x1 conv (64 -> 64) on xcat = concat[x2, x1] + BN + leaky = x3, then the
+// 2x2/s2 max pool of concat[y, x3], in operand type T. A block owns 8 x 16
+// pixels, a warp two rows of them: one row of 8 pooled pixels.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gv_csp_pool_kernel(const float* __restrict__ y,
-                   const float* __restrict__ xcat, int h, int w,
-                   const float* __restrict__ wfrag,
-                   const float* __restrict__ shift, float* __restrict__ out) {
-  extern __shared__ __align__(16) float smem[];
-  float* tile = smem;
-  float* wbuf = smem + kPoolTileFloats;
-  float* sshift = wbuf + kPoolWFloats;
+gv_csp_pool_kernel(const T* __restrict__ y, const T* __restrict__ xcat,
+                   int h, int w, const T* __restrict__ wfrag,
+                   const float* __restrict__ scale,
+                   const float* __restrict__ shift, T* __restrict__ out) {
+  using C = PoolCfg<T>;
+  using O = gv::Op<T>;
+  using Frag = typename O::Frag;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tile = reinterpret_cast<T*>(smem_raw);
+  T* wbuf = tile + C::kTileElems;
+  float* sscale = reinterpret_cast<float*>(wbuf + C::kWElems);
+  float* sshift = sscale + 64;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -219,47 +301,55 @@ gv_csp_pool_kernel(const float* __restrict__ y,
   const int x0 = blockIdx.x * kTileW;
   const int y0 = blockIdx.y * kPoolTileH;
   const int64_t frame = (int64_t)blockIdx.z * h * w;
+  constexpr int kPer = 16 / (int)sizeof(T);   // elements a 16-byte piece
+  constexpr int kVecs = 64 / kPer;            // pieces a pixel
 
-  for (int i = tid; i < kPoolTileH * kTileW * 16; i += kThreads) {
-    const int pix = i >> 4;
-    const int v = i & 15;
+  for (int i = tid; i < kPoolTileH * kTileW * kVecs; i += kThreads) {
+    const int pix = i / kVecs;
+    const int v = i - pix * kVecs;
     const int yy = y0 + pix / kTileW;
     const int xx = x0 + pix % kTileW;
     const bool ok = yy < h && xx < w;
-    const float* p =
-        ok ? xcat + (frame + (int64_t)yy * w + xx) * 64 + 4 * v : xcat;
-    gv::cp_async16(tile + pix * kPoolStride + 4 * v, p, ok);
+    const T* p =
+        ok ? xcat + (frame + (int64_t)yy * w + xx) * 64 + kPer * v : xcat;
+    gv::cp_async16(tile + pix * C::kStride + kPer * v, p, ok);
   }
-  for (int i = tid; i < kPoolWFloats / 4; i += kThreads) {
-    gv::cp_async16(wbuf + 4 * i, wfrag + 4 * i, true);
+  for (int i = tid; i < C::kWElems / kPer; i += kThreads) {
+    gv::cp_async16(wbuf + kPer * i, wfrag + kPer * i, true);
   }
   gv::cp_async_commit();
-  if (tid < 64) sshift[tid] = shift[tid];
+  if (tid < 64) {
+    sshift[tid] = shift[tid];
+    sscale[tid] = std::is_same<T, float>::value ? 1.0f : scale[tid];
+  }
 
   // while the copies fly: max pool of y into channels [0:64)
   const int ho = h / 2;
   const int wo = w / 2;
-  for (int i = tid; i < (kPoolTileH / 2) * (kTileW / 2) * 16;
+  for (int i = tid; i < (kPoolTileH / 2) * (kTileW / 2) * kVecs;
        i += kThreads) {
-    const int pp = i >> 4;
-    const int v = i & 15;
+    const int pp = i / kVecs;
+    const int v = i - pp * kVecs;
     const int py = y0 / 2 + pp / (kTileW / 2);
     const int px = x0 / 2 + pp % (kTileW / 2);
     if (py < ho && px < wo) {
-      const float* s = y + (frame + (int64_t)(2 * py) * w + 2 * px) * 64 +
-                       4 * v;
-      const float4 a = __ldg(reinterpret_cast<const float4*>(s));
-      const float4 b = __ldg(reinterpret_cast<const float4*>(s + 64));
-      const float4 c =
-          __ldg(reinterpret_cast<const float4*>(s + (int64_t)w * 64));
-      const float4 d =
-          __ldg(reinterpret_cast<const float4*>(s + (int64_t)w * 64 + 64));
-      *reinterpret_cast<float4*>(
-          out + (((int64_t)blockIdx.z * ho + py) * wo + px) * 128 + 4 * v) =
-          make_float4(fmaxf(fmaxf(a.x, b.x), fmaxf(c.x, d.x)),
-                      fmaxf(fmaxf(a.y, b.y), fmaxf(c.y, d.y)),
-                      fmaxf(fmaxf(a.z, b.z), fmaxf(c.z, d.z)),
-                      fmaxf(fmaxf(a.w, b.w), fmaxf(c.w, d.w)));
+      const T* s = y + (frame + (int64_t)(2 * py) * w + 2 * px) * 64 +
+                   kPer * v;
+      T* d = out + (((int64_t)blockIdx.z * ho + py) * wo + px) * 128 +
+             kPer * v;
+      if constexpr (std::is_same<T, float>::value) {
+        *reinterpret_cast<float4*>(d) = max4(
+            __ldg(reinterpret_cast<const float4*>(s)),
+            __ldg(reinterpret_cast<const float4*>(s + 64)),
+            __ldg(reinterpret_cast<const float4*>(s + (int64_t)w * 64)),
+            __ldg(reinterpret_cast<const float4*>(s + (int64_t)w * 64 + 64)));
+      } else {
+        *reinterpret_cast<uint4*>(d) = max8_bf16(
+            __ldg(reinterpret_cast<const uint4*>(s)),
+            __ldg(reinterpret_cast<const uint4*>(s + 64)),
+            __ldg(reinterpret_cast<const uint4*>(s + (int64_t)w * 64)),
+            __ldg(reinterpret_cast<const uint4*>(s + (int64_t)w * 64 + 64)));
+      }
     }
   }
   gv::cp_async_wait<0>();
@@ -274,35 +364,38 @@ gv_csp_pool_kernel(const float* __restrict__ y,
       for (int e = 0; e < 4; ++e) acc[mt][nt >> 2][nt & 3][e] = 0.0f;
     }
   }
-  const float4* wb = reinterpret_cast<const float4*>(wbuf);
-  const float* a0 = tile + (warp * 2 * kTileW + g) * kPoolStride + 2 * t;
+  const Frag* wb = reinterpret_cast<const Frag*>(wbuf);
+  const T* a0 = tile + (warp * 2 * kTileW + g) * C::kStride + O::kThreadK * t;
 #pragma unroll
-  for (int ks = 0; ks < 8; ++ks) {
-    uint32_t ah[2][4], al[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const float* a = a0 + mt * kTileW * kPoolStride + ks * 8;
-      gv::load_a(a, a + 8 * kPoolStride, ah[mt], al[mt]);
-    }
+  for (int ks = 0; ks < C::kSteps; ++ks) {
 #pragma unroll
     for (int nh = 0; nh < 2; ++nh) {          // 4 n-tiles at a time: registers
-      float4 b[4];
+      Frag b[4];
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         b[nt] = wb[(ks * 8 + 4 * nh + nt) * 32 + lane];
       }
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
-        gv::mma_3xtf32(acc[mt][nh], ah[mt], al[mt], b);
+        const T* a = a0 + mt * kTileW * C::kStride + ks * O::kK;
+        if constexpr (O::kSplitChains) {
+          float d[4][4];                      // a chain of one k step
+          O::step(d, true, a, a + 8 * C::kStride, b);
+          gv::add_chain(acc[mt][nh], d);
+        } else {
+          O::step(acc[mt][nh], false, a, a + 8 * C::kStride, b);
+        }
       }
     }
   }
 
-  // x3 = leaky(acc + shift); pool the warp's two rows (registers), then
-  // neighbouring pixels g, g ^ 1 (lanes 4 apart); even g stores
+  // x3 = leaky(BN(acc)) (rounded to T); pool the warp's two rows
+  // (registers), then neighbouring pixels g, g ^ 1 (lanes 4 apart); even g
+  // stores
   const int py = y0 / 2 + warp;
 #pragma unroll
   for (int p = 0; p < 4; ++p) {
+    const float* ss = sscale + 16 * p + 4 * t;
     const float* sh = sshift + 16 * p + 4 * t;
     float m[2][4];                            // [pixel half][channel]
 #pragma unroll
@@ -311,8 +404,15 @@ gv_csp_pool_kernel(const float* __restrict__ y,
       for (int e = 0; e < 4; ++e) {
         const int nt = 2 * p + (e >> 1);
         const int c = 2 * half + (e & 1);
-        const float v = fmaxf(leaky(acc[0][nt >> 2][nt & 3][c] + sh[e]),
-                              leaky(acc[1][nt >> 2][nt & 3][c] + sh[e]));
+        float r[2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const float a = acc[mt][nt >> 2][nt & 3][c];
+          r[mt] = std::is_same<T, float>::value
+                      ? bn_leaky<T>(a, ss[e], sh[e])
+                      : gv::round_bf16(bn_leaky<T>(a, ss[e], sh[e]));
+        }
+        const float v = fmaxf(r[0], r[1]);
         m[half][e] = fmaxf(v, __shfl_xor_sync(0xFFFFFFFFu, v, 4));
       }
     }
@@ -321,10 +421,9 @@ gv_csp_pool_kernel(const float* __restrict__ y,
       for (int half = 0; half < 2; ++half) {
         const int px = x0 / 2 + g / 2 + 4 * half;
         if (px < wo) {
-          *reinterpret_cast<float4*>(
-              out + (((int64_t)blockIdx.z * ho + py) * wo + px) * 128 + 64 +
-              16 * p + 4 * t) =
-              make_float4(m[half][0], m[half][1], m[half][2], m[half][3]);
+          gv::store4(out + (((int64_t)blockIdx.z * ho + py) * wo + px) * 128 +
+                         64 + 16 * p + 4 * t,
+                     m[half][0], m[half][1], m[half][2], m[half][3]);
         }
       }
     }
@@ -359,21 +458,82 @@ __global__ void gv_mma_product_kernel(const float* __restrict__ a,
   dst[(int64_t)8 * n + 1] = acc[0][3];
 }
 
-template <int CIN, int COUT, int MT>
-cudaError_t launch_conv(const float* in, int in_off, int batch, int h, int w,
-                        const float* wfrag, const float* shift, float* out,
-                        int out_off, cudaStream_t stream) {
-  using C = ConvCfg<CIN, COUT, MT>;
+template <typename T, int CIN, int COUT, int MT>
+cudaError_t launch_conv(const T* in, int in_off, int batch, int h, int w,
+                        const T* wfrag, const float* scale,
+                        const float* shift, T* out, int out_off,
+                        cudaStream_t stream) {
+  using C = ConvCfg<T, CIN, COUT, MT>;
   cudaError_t err = cudaFuncSetAttribute(
-      gv_csp_conv3x3_kernel<CIN, COUT, MT>,
+      gv_csp_conv3x3_kernel<T, CIN, COUT, MT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((w + kTileW - 1) / kTileW,
                   (h + C::kTileH - 1) / C::kTileH, batch);
-  gv_csp_conv3x3_kernel<CIN, COUT, MT>
-      <<<grid, kThreads, C::kSmemBytes, stream>>>(in, 64, in_off, h, w, wfrag,
-                                                  shift, out, 64, out_off);
+  gv_csp_conv3x3_kernel<T, CIN, COUT, MT>
+      <<<grid, kThreads, C::kSmemBytes, stream>>>(
+          in, 64, in_off, h, w, wfrag, scale, shift, out, 64, out_off);
   return cudaGetLastError();
+}
+
+// The four launches of one call in operand type T (scale: the BN scales,
+// bf16 only; s* may be null in f32).
+template <typename T>
+int detector_csp(const T* x, int batch, int h, int w, const T* w2,
+                 const float* s2, const float* b2, const T* wa,
+                 const float* sa, const float* ba, const T* wb,
+                 const float* sb, const float* bb, const T* wc,
+                 const float* sc, const float* bc, T* y, T* xcat, T* out,
+                 cudaStream_t stream) {
+  if (batch > 65535 || h > 65535 * 8) return (int)cudaErrorInvalidValue;
+  if (batch <= 0 || h <= 0 || w <= 0) return 0;
+  cudaError_t err = launch_conv<T, 64, 64, 2>(x, 0, batch, h, w, w2, s2, b2,
+                                              y, 0, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_conv<T, 32, 32, 4>(y, 32, batch, h, w, wa, sa, ba, xcat, 32,
+                                  stream);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_conv<T, 32, 32, 4>(xcat, 32, batch, h, w, wb, sb, bb, xcat, 0,
+                                  stream);
+  if (err != cudaSuccess) return (int)err;
+  if (h / 2 == 0 || w / 2 == 0) return 0;
+  err = cudaFuncSetAttribute(gv_csp_pool_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             PoolCfg<T>::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((w + kTileW - 1) / kTileW,
+                  (h + kPoolTileH - 1) / kPoolTileH, batch);
+  gv_csp_pool_kernel<T><<<grid, kThreads, PoolCfg<T>::kSmemBytes, stream>>>(
+      y, xcat, h, w, wc, sc, bc, out);
+  return (int)cudaGetLastError();
+}
+
+// One warp per 16 x 8 tile of c = a @ b with bf16 operands and f32 sums
+// (the check of the bf16 fragment layout against a library product). a:
+// (m, k) row-major bf16; bfrag: (k, n) packed by bf16mma.pack_b_fragments;
+// c: (m, n) row-major f32.
+__global__ void gv_mma_product_bf16_kernel(const gv::bf16* __restrict__ a,
+                                           const gv::bf16* __restrict__ bfrag,
+                                           float* __restrict__ c, int n,
+                                           int k) {
+  const int lane = threadIdx.x;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int nt = blockIdx.x;
+  const int m0 = blockIdx.y * 16;
+  const uint2* wb = reinterpret_cast<const uint2*>(bfrag);
+  float acc[1][4] = {{0.0f, 0.0f, 0.0f, 0.0f}};
+  for (int ks = 0; ks < k / 16; ++ks) {
+    const gv::bf16* row = a + (int64_t)(m0 + g) * k + ks * 16 + 4 * t;
+    const uint2 b[1] = {wb[((int64_t)ks * (n / 8) + nt) * 32 + lane]};
+    gv::Op<gv::bf16>::step(acc, false, row, row + (int64_t)8 * k, b);
+  }
+  const int ch = 16 * (nt / 2) + 4 * t + 2 * (nt % 2);
+  float* dst = c + (int64_t)(m0 + g) * n + ch;
+  dst[0] = acc[0][0];
+  dst[1] = acc[0][1];
+  dst[(int64_t)8 * n] = acc[0][2];
+  dst[(int64_t)8 * n + 1] = acc[0][3];
 }
 
 }  // namespace
@@ -388,26 +548,26 @@ extern "C" int gv_detector_csp(const float* x, int batch, int h, int w,
                                const float* wb, const float* bb,
                                const float* wc, const float* bc, float* y,
                                float* xcat, float* out, cudaStream_t stream) {
-  if (batch > 65535 || h > 65535 * 8) return (int)cudaErrorInvalidValue;
-  if (batch <= 0 || h <= 0 || w <= 0) return 0;
-  cudaError_t err =
-      launch_conv<64, 64, 2>(x, 0, batch, h, w, w2, b2, y, 0, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_conv<32, 32, 4>(y, 32, batch, h, w, wa, ba, xcat, 32, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_conv<32, 32, 4>(xcat, 32, batch, h, w, wb, bb, xcat, 0,
-                               stream);
-  if (err != cudaSuccess) return (int)err;
-  if (h / 2 == 0 || w / 2 == 0) return 0;
-  err = cudaFuncSetAttribute(gv_csp_pool_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kPoolSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((w + kTileW - 1) / kTileW,
-                  (h + kPoolTileH - 1) / kPoolTileH, batch);
-  gv_csp_pool_kernel<<<grid, kThreads, kPoolSmemBytes, stream>>>(
-      y, xcat, h, w, wc, bc, out);
-  return (int)cudaGetLastError();
+  return detector_csp<float>(x, batch, h, w, w2, nullptr, b2, wa, nullptr,
+                             ba, wb, nullptr, bb, wc, nullptr, bc, y, xcat,
+                             out, stream);
+}
+
+// The bf16 form: every tensor bf16 but the BN scales s* and shifts b* (f32);
+// w*: the same matrices without the BN scale, packed by
+// bf16mma.pack_b_fragments.
+extern "C" int gv_detector_csp_bf16(
+    const void* x, int batch, int h, int w, const void* w2, const float* s2,
+    const float* b2, const void* wa, const float* sa, const float* ba,
+    const void* wb, const float* sb, const float* bb, const void* wc,
+    const float* sc, const float* bc, void* y, void* xcat, void* out,
+    cudaStream_t stream) {
+  using B = gv::bf16;
+  return detector_csp<B>(
+      static_cast<const B*>(x), batch, h, w, static_cast<const B*>(w2), s2,
+      b2, static_cast<const B*>(wa), sa, ba, static_cast<const B*>(wb), sb,
+      bb, static_cast<const B*>(wc), sc, bc, static_cast<B*>(y),
+      static_cast<B*>(xcat), static_cast<B*>(out), stream);
 }
 
 // c (m, n) = a (m, k) @ b in 3xTF32, b packed; m % 16 == n % 16 == k % 8 == 0.
@@ -419,5 +579,20 @@ extern "C" int gv_mma_product(const float* a, const float* bfrag, float* c,
   }
   gv_mma_product_kernel<<<dim3(n / 8, m / 16), 32, 0, stream>>>(a, bfrag, c,
                                                                  n, k);
+  return (int)cudaGetLastError();
+}
+
+// c (m, n) = a (m, k) @ b in bf16 with f32 sums, b packed; m % 16 == n % 16
+// == k % 16 == 0.
+extern "C" int gv_mma_product_bf16(const void* a, const void* bfrag,
+                                   float* c, int m, int n, int k,
+                                   cudaStream_t stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || m % 16 || n % 16 || k % 16 ||
+      m / 16 > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  gv_mma_product_bf16_kernel<<<dim3(n / 8, m / 16), 32, 0, stream>>>(
+      static_cast<const gv::bf16*>(a), static_cast<const gv::bf16*>(bfrag), c,
+      n, k);
   return (int)cudaGetLastError();
 }

@@ -46,6 +46,19 @@
 //      half-warp fall in 32 different banks.
 // An invalid crop is an all-zero standardized input: it gets exactly
 // relu(t) and costs no product, and launch 1 skips it.
+//
+// The bf16 form (compute_dtype="bfloat16", both kernels templated on the
+// type T of frames, crops and output) rounds where pallas_orient.py's
+// kernel rounds in bf16: the interpolation weights and each resampling
+// pass's sum are rounded to bf16 (the crop is stored bf16), the statistics
+// are single-pass f32 moments of that crop (var = max(E[x^2] - E[x]^2, 0)),
+// the standardized values (x - mean) * inv are rounded to bf16 as they are
+// staged (4 at a time: a bf16 row run starts at any multiple of 4 values),
+// a run of 36 is padded to 48 (three k steps of 16) with zero weights, the
+// product is bf16 mma.sync.m16n8k16 with the whole K on the tensor core, and
+// relu(acc * s + t) (no FMA) is rounded once at the store.
+
+#include <type_traits>
 
 #include "gv_mma.cuh"
 
@@ -53,13 +66,11 @@ namespace {
 
 constexpr int kStridePx = 8;                  // conv stride in pixels
 constexpr int kTapRows = 12;                  // 12 x 12 kernel
-constexpr int kRun = 40;                      // 12 px x 3 ch, padded to 8s
+constexpr int kRunF32 = 40;                   // 12 px x 3 ch, padded to 8s
 constexpr int kBandRows = 4;                  // output rows a block
 constexpr int kBandCols = 28;                 // output columns a block
 constexpr int kMTiles = kBandRows * kBandCols / 16;
 constexpr int kInRows = (kBandRows - 1) * kStridePx + kTapRows;
-constexpr int kRowFloats = (kBandCols - 1) * kStridePx * 3 + kRun;
-constexpr int kBandFloats = kInRows * kRowFloats;
 constexpr int kConvThreads = 896;             // 28 warps: 7 x 4
 constexpr int kWarpMTiles = 1;                // m-tiles a warp
 constexpr int kCropThreads = 672;              // one block a crop, 3 an SM
@@ -67,7 +78,6 @@ constexpr int kMaxF = 128;
 static_assert(kBandRows * kBandCols % 16 == 0, "whole m16 tiles");
 static_assert((kConvThreads / 32 / 4) * kWarpMTiles >= kMTiles,
               "every m-tile has a warp");
-static_assert(kRowFloats % 4 == 0, "16-byte staging");
 
 // Block-wide sum of three values (blockDim.x a multiple of 32, <= 1024);
 // every thread gets the totals.
@@ -164,11 +174,17 @@ __device__ __forceinline__ void fill_tables(const float* __restrict__ box,
   }
 }
 
+// f32: the twin's crop and two-pass statistics. bf16 (the Pallas kernel's
+// bf16 arithmetic): the frame and the four interpolation weights rounded to
+// bf16, each resampling pass's sum rounded to bf16 (the bf16 crop), and
+// single-pass f32 moments of the bf16 crop: var = max(E[x^2] - E[x]^2, 0).
+template <typename T>
 __global__ void __launch_bounds__(kCropThreads) gv_orient_crop_kernel(
-    const float* __restrict__ images, int h, int w,
+    const T* __restrict__ images, int h, int w,
     const void* __restrict__ rig, int rig_is_i64,
     const uint8_t* __restrict__ valid, const float* __restrict__ xyxy,
-    int size, float* __restrict__ crops, float* __restrict__ stats) {
+    int size, T* __restrict__ crops, float* __restrict__ stats) {
+  constexpr bool kBf16 = !std::is_same<T, float>::value;
   extern __shared__ __align__(16) float smem[];
   const int n = blockIdx.x;
   if (!valid[n]) return;                      // uniform over the block
@@ -182,46 +198,76 @@ __global__ void __launch_bounds__(kCropThreads) gv_orient_crop_kernel(
   __syncthreads();
   const int64_t r = rig_is_i64 ? static_cast<const int64_t*>(rig)[n]
                                : static_cast<const int32_t*>(rig)[n];
-  const float* frame = images + r * h * w * 3;
-  float* crop = crops + (int64_t)n * size * size * 3;
+  const T* frame = images + r * h * w * 3;
+  T* crop = crops + (int64_t)n * size * size * 3;
   const int npix = size * size;
+  auto rnd = [](float v) { return kBf16 ? gv::round_bf16(v) : v; };
+  auto px = [](const T* p) {
+    if constexpr (kBf16) {
+      return __bfloat162float(*p);
+    } else {
+      return *p;
+    }
+  };
 
   float sum[3] = {0.0f, 0.0f, 0.0f};
+  float sum2[3] = {0.0f, 0.0f, 0.0f};
   for (int p = threadIdx.x; p < npix; p += blockDim.x) {
     const int i = p / size;
     const int j = p - i * size;
     const int y0 = ylo[i], y1 = yhi[i];
     const int x0 = xlo[j], x1 = xhi[j];
     float wy1, wx1;
-    const float wy0 = lerp_weight_pair(yfr[i], y0 == y1, &wy1);
-    const float wx0 = lerp_weight_pair(xfr[j], x0 == x1, &wx1);
-    const float* r0 = frame + (int64_t)y0 * w * 3;
-    const float* r1 = frame + (int64_t)y1 * w * 3;
+    const float wy0 = rnd(lerp_weight_pair(yfr[i], y0 == y1, &wy1));
+    const float wx0 = rnd(lerp_weight_pair(xfr[j], x0 == x1, &wx1));
+    wy1 = rnd(wy1);
+    wx1 = rnd(wx1);
+    const T* r0 = frame + (int64_t)y0 * w * 3;
+    const T* r1 = frame + (int64_t)y1 * w * 3;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       // along x first, then y: the order of the twin's einsums
-      const float t0 = wx0 * r0[x0 * 3 + c] + wx1 * r0[x1 * 3 + c];
-      const float t1 = wx0 * r1[x0 * 3 + c] + wx1 * r1[x1 * 3 + c];
-      const float v = wy0 * t0 + wy1 * t1;
-      crop[p * 3 + c] = v;
+      const float t0 =
+          rnd(wx0 * px(r0 + x0 * 3 + c) + wx1 * px(r0 + x1 * 3 + c));
+      const float t1 =
+          rnd(wx0 * px(r1 + x0 * 3 + c) + wx1 * px(r1 + x1 * 3 + c));
+      const float v = rnd(wy0 * t0 + wy1 * t1);
+      if constexpr (kBf16) {
+        crop[p * 3 + c] = __float2bfloat16_rn(v);
+        sum2[c] += v * v;
+      } else {
+        crop[p * 3 + c] = v;
+      }
       sum[c] += v;
     }
   }
   block_sum3(sum);
   const float mean[3] = {sum[0] / npix, sum[1] / npix, sum[2] / npix};
-  float sq[3] = {0.0f, 0.0f, 0.0f};
-  for (int p = threadIdx.x; p < npix; p += blockDim.x) {
+  float var[3];
+  if constexpr (kBf16) {
+    block_sum3(sum2);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const float d = crop[p * 3 + c] - mean[c];  // this thread's writes
-      sq[c] += d * d;
+      var[c] = fmaxf(__fsub_rn(sum2[c] / npix, __fmul_rn(mean[c], mean[c])),
+                     0.0f);
     }
+  } else {
+    float sq[3] = {0.0f, 0.0f, 0.0f};
+    for (int p = threadIdx.x; p < npix; p += blockDim.x) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float d = crop[p * 3 + c] - mean[c];  // this thread's writes
+        sq[c] += d * d;
+      }
+    }
+    block_sum3(sq);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) var[c] = sq[c] / npix;
   }
-  block_sum3(sq);
   if (threadIdx.x < 3) {
     const int c = threadIdx.x;
     stats[n * 6 + c] = mean[c];
-    stats[n * 6 + 3 + c] = 1.0f / fmaxf(sqrtf(sq[c] / npix), 1e-6f);
+    stats[n * 6 + 3 + c] = 1.0f / fmaxf(sqrtf(var[c]), 1e-6f);
   }
 }
 
@@ -235,26 +281,58 @@ __global__ void gv_orient_samples_kernel(const float* __restrict__ xyxy,
               xlo + o, xhi + o, xfr + o);
 }
 
+// The conv's layout in operand type T. f32: an input row run of 12 px x 3
+// ch padded to 40 (5 mma k steps of 8); bf16: padded to 48 (3 k steps of
+// 16); the band's rows are staged standardized, 4 values a piece.
+template <typename T>
+struct OrientCfg {
+  static constexpr int kRun = std::is_same<T, float>::value ? kRunF32 : 48;
+  static constexpr int kSteps = kRun / gv::Op<T>::kK;
+  static constexpr int kRowElems = (kBandCols - 1) * kStridePx * 3 + kRun;
+  static constexpr int kBandElems = kInRows * kRowElems;
+  static_assert(kRowElems % 4 == 0, "4-value staging pieces");
+};
+
+template <typename T>
+int conv_smem_bytes(int f) {
+  using C = OrientCfg<T>;
+  const int chunk = C::kSteps * (f / 8) * 32 * 4;
+  return (C::kBandElems + 2 * chunk) * (int)sizeof(T) + (2 * kMaxF + 8) * 4;
+}
+
 // crops: (n, size, size, 3) raw; stats: (n, 6) mean | 1 / std; wfrag: the
-// (12 * 40, f) matrix (rows uy * 40 + ux * 3 + c, rows 36-39 of a run zero,
-// BN scale folded in) packed by tf32x3.pack_b_fragments; out: (n, q, q, f).
+// (12 * kRun, f) matrix (rows uy * kRun + ux * 3 + c, rows 36.. of a run
+// zero; f32: BN scale folded in, packed by tf32x3.pack_b_fragments; bf16:
+// packed by bf16mma.pack_b_fragments, scale the BN scale); out: (n, q, q,
+// f). bf16: the standardized values are rounded to bf16 on the way in, and
+// relu(acc * scale + shift) is computed in f32 (no FMA) and rounded once.
+template <typename T>
 __global__ void __launch_bounds__(kConvThreads)
-gv_orient_conv_kernel(const float* __restrict__ crops,
+gv_orient_conv_kernel(const T* __restrict__ crops,
                       const float* __restrict__ stats,
                       const uint8_t* __restrict__ valid, int size, int q,
-                      int pad, const float* __restrict__ wfrag, int f,
-                      const float* __restrict__ shift,
-                      float* __restrict__ out) {
-  extern __shared__ __align__(16) float smem[];
-  const int chunk_floats = (kRun / 8) * (f / 8) * 32 * 4;
-  float* band = smem;
-  float* wbuf = smem + kBandFloats;
-  float* sshift = wbuf + 2 * chunk_floats;
+                      int pad, const T* __restrict__ wfrag, int f,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ shift, T* __restrict__ out) {
+  using C = OrientCfg<T>;
+  using O = gv::Op<T>;
+  using Frag = typename O::Frag;
+  constexpr bool kBf16 = !std::is_same<T, float>::value;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int chunk_elems = C::kSteps * (f / 8) * 32 * 4;
+  T* band = reinterpret_cast<T*>(smem_raw);
+  T* wbuf = band + C::kBandElems;
+  float* sscale = reinterpret_cast<float*>(wbuf + 2 * chunk_elems);
+  float* sshift = sscale + kMaxF;
   float* sstat = sshift + kMaxF;
   const int tid = threadIdx.x;
   const int n = blockIdx.x;
   const int oy0 = blockIdx.y * kBandRows;
   const int ox0 = blockIdx.z * kBandCols;
+  auto bn_relu = [](float a, float s, float t) {
+    return kBf16 ? fmaxf(__fadd_rn(__fmul_rn(a, s), t), 0.0f)
+                 : fmaxf(a + t, 0.0f);
+  };
 
   if (!valid[n]) {                            // uniform over the block
     const int vecs = f / 4;
@@ -265,53 +343,71 @@ gv_orient_conv_kernel(const float* __restrict__ crops,
       const int ox = ox0 + p % kBandCols;
       if (oy < q && ox < q) {
         const float* t = shift + 4 * v;
-        *reinterpret_cast<float4*>(
-            out + (((int64_t)n * q + oy) * q + ox) * f + 4 * v) =
-            make_float4(fmaxf(t[0], 0.0f), fmaxf(t[1], 0.0f),
-                        fmaxf(t[2], 0.0f), fmaxf(t[3], 0.0f));
+        gv::store4(out + (((int64_t)n * q + oy) * q + ox) * f + 4 * v,
+                   fmaxf(t[0], 0.0f), fmaxf(t[1], 0.0f), fmaxf(t[2], 0.0f),
+                   fmaxf(t[3], 0.0f));
       }
     }
     return;
   }
 
+  constexpr int kPer = 16 / (int)sizeof(T);   // elements a 16-byte piece
   auto load_chunk = [&](int chunk) {
-    const float* s = wfrag + (int64_t)chunk * chunk_floats;
-    float* d = wbuf + (chunk & 1) * chunk_floats;
-    for (int i = tid; i < chunk_floats / 4; i += kConvThreads) {
-      gv::cp_async16(d + 4 * i, s + 4 * i, true);
+    const T* s = wfrag + (int64_t)chunk * chunk_elems;
+    T* d = wbuf + (chunk & 1) * chunk_elems;
+    for (int i = tid; i < chunk_elems / kPer; i += kConvThreads) {
+      gv::cp_async16(d + kPer * i, s + kPer * i, true);
     }
     gv::cp_async_commit();
   };
   load_chunk(0);
-  if (tid < f) sshift[tid] = shift[tid];
+  if (tid < f) {
+    sshift[tid] = shift[tid];
+    sscale[tid] = kBf16 ? scale[tid] : 1.0f;
+  }
   if (tid < 6) sstat[tid] = stats[n * 6 + tid];
   __syncthreads();
 
   // stage the band's input rows, standardized; zero outside the crop
   {
-    const float* crop = crops + (int64_t)n * size * size * 3;
+    const T* crop = crops + (int64_t)n * size * size * 3;
     const int row_len = size * 3;
     const int r0 = oy0 * kStridePx - pad;
     const int col0 = (ox0 * kStridePx - pad) * 3;  // a multiple of 12
-    constexpr int kVecs = kRowFloats / 4;
+    constexpr int kVecs = C::kRowElems / 4;
     for (int i = tid; i < kInRows * kVecs; i += kConvThreads) {
       const int rr = i / kVecs;
       const int v = i - rr * kVecs;
       const int r = r0 + rr;
       const int cs = col0 + 4 * v;
-      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       if (r >= 0 && r < size && cs >= 0 && cs < row_len) {
-        x = __ldg(reinterpret_cast<const float4*>(
-            crop + (int64_t)r * row_len + cs));
-        const int c = v % 3;                  // channel of x.x: cs % 3
-        const int c1 = c == 2 ? 0 : c + 1;
-        const int c2 = c1 == 2 ? 0 : c1 + 1;
-        x.x = (x.x - sstat[c]) * sstat[3 + c];
-        x.y = (x.y - sstat[c1]) * sstat[3 + c1];
-        x.z = (x.z - sstat[c2]) * sstat[3 + c2];
-        x.w = (x.w - sstat[c]) * sstat[3 + c];
+        const T* src = crop + (int64_t)r * row_len + cs;
+        if constexpr (kBf16) {
+          const uint2 raw = __ldg(reinterpret_cast<const uint2*>(src));
+          const __nv_bfloat162 lo =
+              *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+          const __nv_bfloat162 hi =
+              *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+          x[0] = __low2float(lo);
+          x[1] = __high2float(lo);
+          x[2] = __low2float(hi);
+          x[3] = __high2float(hi);
+        } else {
+          const float4 raw = __ldg(reinterpret_cast<const float4*>(src));
+          x[0] = raw.x;
+          x[1] = raw.y;
+          x[2] = raw.z;
+          x[3] = raw.w;
+        }
+        int c = v % 3;                        // channel of x[0]: cs % 3
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          x[e] = (x[e] - sstat[c]) * sstat[3 + c];
+          c = c == 2 ? 0 : c + 1;
+        }
       }
-      *reinterpret_cast<float4*>(band + rr * kRowFloats + 4 * v) = x;
+      gv::store4(band + rr * C::kRowElems + 4 * v, x[0], x[1], x[2], x[3]);
     }
   }
 
@@ -330,8 +426,8 @@ gv_orient_conv_kernel(const float* __restrict__ crops,
     for (int half = 0; half < 2; ++half) {
       const int p = min((mt0 + mt) * 16 + g + 8 * half,
                         kBandRows * kBandCols - 1);
-      a_off[mt][half] = (p / kBandCols) * kStridePx * kRowFloats +
-                        (p % kBandCols) * kStridePx * 3 + 2 * t;
+      a_off[mt][half] = (p / kBandCols) * kStridePx * C::kRowElems +
+                        (p % kBandCols) * kStridePx * 3 + O::kThreadK * t;
     }
   }
   float acc[kWarpMTiles][4][4];
@@ -352,12 +448,12 @@ gv_orient_conv_kernel(const float* __restrict__ crops,
       gv::cp_async_wait<0>();
     }
     __syncthreads();                          // chunk uy (and the band) landed
-    const float4* wb =
-        reinterpret_cast<const float4*>(wbuf + (uy & 1) * chunk_floats);
-    const float* arow = band + uy * kRowFloats;
+    const Frag* wb =
+        reinterpret_cast<const Frag*>(wbuf + (uy & 1) * chunk_elems);
+    const T* arow = band + uy * C::kRowElems;
 #pragma unroll
-    for (int ks = 0; ks < kRun / 8; ++ks) {
-      float4 b[4];
+    for (int ks = 0; ks < C::kSteps; ++ks) {
+      Frag b[4];
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         const int tile = min(4 * wq + nt, n_tiles - 1);
@@ -366,10 +462,14 @@ gv_orient_conv_kernel(const float* __restrict__ crops,
 #pragma unroll
       for (int mt = 0; mt < kWarpMTiles; ++mt) {
         if (mt0 + mt < kMTiles) {             // uniform over the warp
-          uint32_t ah[4], al[4];
-          gv::load_a(arow + a_off[mt][0] + ks * 8,
-                     arow + a_off[mt][1] + ks * 8, ah, al);
-          gv::mma_3xtf32(acc[mt], ah, al, b);
+          const T* a = arow + ks * O::kK;
+          if constexpr (O::kSplitChains) {
+            float d[4][4];                    // a chain of one k step
+            O::step(d, true, a + a_off[mt][0], a + a_off[mt][1], b);
+            gv::add_chain(acc[mt], d);
+          } else {
+            O::step(acc[mt], false, a + a_off[mt][0], a + a_off[mt][1], b);
+          }
         }
       }
     }
@@ -384,22 +484,60 @@ gv_orient_conv_kernel(const float* __restrict__ crops,
       const int oy = oy0 + p / kBandCols;
       const int ox = ox0 + p % kBandCols;
       if (mt0 + mt < kMTiles && oy < q && ox < q) {
-        float* dst = out + (((int64_t)n * q + oy) * q + ox) * f;
+        T* dst = out + (((int64_t)n * q + oy) * q + ox) * f;
 #pragma unroll
         for (int pp = 0; pp < 2; ++pp) {
           const int ch = 32 * wq + 16 * pp + 4 * t;
           if (ch < f) {
+            const float* ss = sscale + ch;
             const float* sh = sshift + ch;
-            *reinterpret_cast<float4*>(dst + ch) = make_float4(
-                fmaxf(acc[mt][2 * pp][2 * half] + sh[0], 0.0f),
-                fmaxf(acc[mt][2 * pp][2 * half + 1] + sh[1], 0.0f),
-                fmaxf(acc[mt][2 * pp + 1][2 * half] + sh[2], 0.0f),
-                fmaxf(acc[mt][2 * pp + 1][2 * half + 1] + sh[3], 0.0f));
+            gv::store4(dst + ch,
+                       bn_relu(acc[mt][2 * pp][2 * half], ss[0], sh[0]),
+                       bn_relu(acc[mt][2 * pp][2 * half + 1], ss[1], sh[1]),
+                       bn_relu(acc[mt][2 * pp + 1][2 * half], ss[2], sh[2]),
+                       bn_relu(acc[mt][2 * pp + 1][2 * half + 1], ss[3],
+                               sh[3]));
           }
         }
       }
     }
   }
+}
+
+template <typename T>
+int orient_front(const T* images, int h, int w, const void* rig,
+                 int rig_is_i64, const uint8_t* valid, const float* xyxy,
+                 int n, int size, int q, int pad, const T* wfrag, int f,
+                 const float* scale, const float* shift, T* crops,
+                 float* stats, T* out, cudaStream_t stream) {
+  if (f <= 0 || f % 16 != 0 || f > kMaxF || size <= 0 || size % 8 != 0 ||
+      pad % 4 != 0 || q <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n <= 0) return 0;
+  const int band_rows = (q + kBandRows - 1) / kBandRows;
+  const int band_cols = (q + kBandCols - 1) / kBandCols;
+  if (band_rows > 65535 || band_cols > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int crop_smem = 6 * size * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      gv_orient_crop_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      crop_smem);
+  if (err != cudaSuccess) return (int)err;
+  gv_orient_crop_kernel<T><<<n, kCropThreads, crop_smem, stream>>>(
+      images, h, w, rig, rig_is_i64, valid, xyxy, size, crops, stats);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int conv_smem = conv_smem_bytes<T>(f);
+  err = cudaFuncSetAttribute(gv_orient_conv_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             conv_smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(n, band_rows, band_cols);
+  gv_orient_conv_kernel<T><<<grid, kConvThreads, conv_smem, stream>>>(
+      crops, stats, valid, size, q, pad, wfrag, f, scale, shift, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -415,35 +553,28 @@ extern "C" int gv_orient_front(const float* images, int h, int w,
                                int f, const float* shift, float* crops,
                                float* stats, float* out,
                                cudaStream_t stream) {
-  if (f <= 0 || f % 16 != 0 || f > kMaxF || size <= 0 || size % 8 != 0 ||
-      pad % 4 != 0 || q <= 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (n <= 0) return 0;
-  const int band_rows = (q + kBandRows - 1) / kBandRows;
-  const int band_cols = (q + kBandCols - 1) / kBandCols;
-  if (band_rows > 65535 || band_cols > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int crop_smem = 6 * size * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      gv_orient_crop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      crop_smem);
-  if (err != cudaSuccess) return (int)err;
-  gv_orient_crop_kernel<<<n, kCropThreads, crop_smem, stream>>>(
-      images, h, w, rig, rig_is_i64, valid, xyxy, size, crops, stats);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int conv_smem =
-      (kBandFloats + 2 * (kRun / 8) * (f / 8) * 32 * 4 + kMaxF + 8) * 4;
-  err = cudaFuncSetAttribute(gv_orient_conv_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             conv_smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n, band_rows, band_cols);
-  gv_orient_conv_kernel<<<grid, kConvThreads, conv_smem, stream>>>(
-      crops, stats, valid, size, q, pad, wfrag, f, shift, out);
-  return (int)cudaGetLastError();
+  return orient_front<float>(images, h, w, rig, rig_is_i64, valid, xyxy, n,
+                             size, q, pad, wfrag, f, nullptr, shift, crops,
+                             stats, out, stream);
+}
+
+// The bf16 form: images, crops, wfrag and out bf16; wfrag: the packed
+// (576, f) weights without the BN scale (runs padded to 48); scale / shift:
+// the BN's (f32).
+extern "C" int gv_orient_front_bf16(const void* images, int h, int w,
+                                    const void* rig, int rig_is_i64,
+                                    const uint8_t* valid, const float* xyxy,
+                                    int n, int size, int q, int pad,
+                                    const void* wfrag, int f,
+                                    const float* scale, const float* shift,
+                                    void* crops, float* stats, void* out,
+                                    cudaStream_t stream) {
+  using B = gv::bf16;
+  return orient_front<B>(static_cast<const B*>(images), h, w, rig,
+                         rig_is_i64, valid, xyxy, n, size, q, pad,
+                         static_cast<const B*>(wfrag), f, scale, shift,
+                         static_cast<B*>(crops), stats, static_cast<B*>(out),
+                         stream);
 }
 
 // The (n, size) sample tables the crop kernel computes from the boxes

@@ -55,6 +55,8 @@
 // thread leave room for no more. The two launches give each phase the
 // occupancy it wants.
 
+#include <type_traits>
+
 #include "gv_mma.cuh"
 
 namespace {
@@ -136,11 +138,16 @@ __device__ __forceinline__ void load_taps(const float* __restrict__ wt,
 // allow it, else 4 bytes each), and resampled along x as they come into
 // xres[row][(s - s_lo) * 3 + c] (rxw carries the 1/255), then along y. rt
 // may lie over patch. Ends with the block in step.
+template <typename T>
 __device__ __forceinline__ void resized_tile(
-    const float* __restrict__ frame, int w, const int32_t* __restrict__ ry0,
+    const T* __restrict__ frame, int w, const int32_t* __restrict__ ry0,
     const float* __restrict__ ryw, int ty_n, const int32_t* __restrict__ rx0,
     const float* __restrict__ rxw, int tx_n, int size, int r_lo, int s_lo,
     int band, int wide, float* patch, float* xres, float* rt) {
+  // bf16: the frame comes in as bf16 (staged as f32, exact), and each
+  // resampling pass's sums are rounded to bf16 (the Pallas kernel's bf16
+  // products with f32 sums, cast between the two)
+  constexpr bool kBf16 = !std::is_same<T, float>::value;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   // the rows and columns inside the image: [ra, rb] x [sa, sb]
@@ -156,9 +163,13 @@ __device__ __forceinline__ void resized_tile(
   for (int band0 = 0; band0 < fh; band0 += band) {
     const int rows = min(band, fh - band0);
     for (int row = warp; row < rows; row += kC0Warps) {
-      const float* src = frame + (int64_t)(fy0 + band0 + row) * w * 3 + p0;
+      const T* src = frame + (int64_t)(fy0 + band0 + row) * w * 3 + p0;
       float* dst = patch + row * pn;
-      if (wide) {
+      if constexpr (kBf16) {
+        for (int col = lane; col < fwf; col += 32) {
+          dst[col] = __bfloat162float(src[col]);
+        }
+      } else if (wide) {
         for (int col = 4 * lane; col < pn; col += 128) {
           gv::cp_async16(dst + col, src + col, true);
         }
@@ -179,6 +190,7 @@ __device__ __forceinline__ void resized_tile(
         float w4[4];
         int o4[4];
         load_taps(rxw + s * tx_n, b0, tx_n, 3, w4, o4);
+        const bool last = b0 + 4 >= tx_n;
 #pragma unroll 5
         for (int row = warp; row < rows; row += kC0Warps) {
           const float* px = patch + row * pn + off;
@@ -187,7 +199,8 @@ __device__ __forceinline__ void resized_tile(
           acc += w4[2] * px[o4[2]];
           acc += w4[3] * px[o4[3]];
           float* dst = xres + (band0 + row) * kXresRow + (sa - s_lo) * 3 + j;
-          *dst = b0 == 0 ? acc : *dst + acc;
+          const float v = b0 == 0 ? acc : *dst + acc;
+          *dst = kBf16 && last ? gv::round_bf16(v) : v;
         }
       }
     }
@@ -198,10 +211,12 @@ __device__ __forceinline__ void resized_tile(
     const bool row_ok = r >= ra && r <= rb;
     const float* src = xres + (row_ok ? ry0[r] - fy0 : 0) * kXresRow;
     float* dst = rt + rr * kR0Row;
-    for (int a0 = 0; a0 < (row_ok ? ty_n : 1); a0 += 4) {
+    const int n_a = row_ok ? ty_n : 1;
+    for (int a0 = 0; a0 < n_a; a0 += 4) {
       float w4[4];
       int o4[4];
       load_taps(ryw + (row_ok ? r : 0) * ty_n, a0, ty_n, kXresRow, w4, o4);
+      const bool last = a0 + 4 >= n_a;
 #pragma unroll
       for (int j = lane; j < kXresRow; j += 32) {
         const int cc = j / 3;
@@ -214,15 +229,17 @@ __device__ __forceinline__ void resized_tile(
           acc += w4[3] * src[o4[3] + j];
         }
         float* d = dst + (cc & 1) * kR0Plane + (cc >> 1) * 3 + (j - 3 * cc);
-        *d = a0 == 0 ? acc : *d + acc;
+        const float v = a0 == 0 ? acc : *d + acc;
+        *d = kBf16 && last ? gv::round_bf16(v) : v;
       }
     }
   }
   __syncthreads();
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kC0Threads)
-gv_stem_conv0_kernel(const float* __restrict__ img, int h, int w,
+gv_stem_conv0_kernel(const T* __restrict__ img, int h, int w,
                      const int32_t* __restrict__ ry0,
                      const float* __restrict__ ryw, int ty_n,
                      const int32_t* __restrict__ rx0,
@@ -231,7 +248,8 @@ gv_stem_conv0_kernel(const float* __restrict__ img, int h, int w,
                      const float* __restrict__ w0,
                      const float* __restrict__ s0,
                      const float* __restrict__ b0, int pad0, int s0_size,
-                     float* __restrict__ mid) {
+                     T* __restrict__ mid) {
+  constexpr bool kBf16 = !std::is_same<T, float>::value;
   extern __shared__ __align__(16) float smem[];
   float* sw = smem;                           // (27, 32) + scale + shift
   float* patch = smem + kC0ConstFloats;       // frame rows, then the tile
@@ -286,9 +304,11 @@ gv_stem_conv0_kernel(const float* __restrict__ img, int h, int w,
   }
   // BN, leaky, and out through the warp's 32 x 32 float corner of the xres
   // rows (free since the y pass): a row of the tile is 32 pixels x 32
-  // channels = 4 KB in a row of `mid`, which the warp then writes 512 bytes
-  // an instruction. 16-byte slot q of pixel x sits at q ^ (x & 7): neither
-  // the writes (a pixel a lane) nor the reads (a slot a lane) conflict.
+  // channels = 4 KB in a row of `mid` (2 KB in bf16), which the warp then
+  // writes 512 (256) bytes an instruction. 16-byte slot q of pixel x sits at
+  // q ^ (x & 7): neither the writes (a pixel a lane) nor the reads (a slot a
+  // lane) conflict. bf16: BN as a multiply, then an add (no FMA), as the
+  // Pallas kernel and the twin compute it.
   const float* ss = sw + 27 * 32;
   const float* sh = ss + 32;
   float4* stage = reinterpret_cast<float4*>(xres) + warp * (32 * 8);
@@ -297,21 +317,25 @@ gv_stem_conv0_kernel(const float* __restrict__ img, int h, int w,
     const int oy = cy0 + row0 + p * (kT0H / 2);
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
-      stage[lane * 8 + (q ^ (lane & 7))] = make_float4(
-          leaky(acc[p][4 * q] * ss[4 * q] + sh[4 * q]),
-          leaky(acc[p][4 * q + 1] * ss[4 * q + 1] + sh[4 * q + 1]),
-          leaky(acc[p][4 * q + 2] * ss[4 * q + 2] + sh[4 * q + 2]),
-          leaky(acc[p][4 * q + 3] * ss[4 * q + 3] + sh[4 * q + 3]));
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 4 * q + e;
+        v[e] = kBf16 ? leaky(__fadd_rn(__fmul_rn(acc[p][c], ss[c]), sh[c]))
+                     : leaky(acc[p][c] * ss[c] + sh[c]);
+      }
+      stage[lane * 8 + (q ^ (lane & 7))] = make_float4(v[0], v[1], v[2], v[3]);
     }
     __syncwarp();
     if (oy < s0_size) {
-      float4* dst = reinterpret_cast<float4*>(
-          mid + (((int64_t)blockIdx.z * s0_size + oy) * s0_size + cx0) * 32);
+      T* dst =
+          mid + (((int64_t)blockIdx.z * s0_size + oy) * s0_size + cx0) * 32;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int x = 4 * i + (lane >> 3);    // slot (lane & 7) of pixel x
         if (cx0 + x < s0_size) {
-          dst[32 * i + lane] = stage[x * 8 + ((lane & 7) ^ (x & 7))];
+          const float4 v = stage[x * 8 + ((lane & 7) ^ (x & 7))];
+          gv::store4(dst + 4 * (32 * i + lane), v.x, v.y, v.z, v.w);
         }
       }
     }
@@ -319,32 +343,50 @@ gv_stem_conv0_kernel(const float* __restrict__ img, int h, int w,
   }
 }
 
-// ---- launch 2: ConvBN_1 in 3xTF32 ----------------------------------------
+// ---- launch 2: ConvBN_1 on the tensor cores ------------------------------
 
 constexpr int kC1Threads = 128;               // 4 warps
 constexpr int kMT = 2;                        // m16 tiles (rows) a warp
 constexpr int kT1H = 4 * kMT;                 // output rows a tile
 constexpr int kT1W = 16;                      // one m16 tile per tile row
-constexpr int kMidStride = 36;                // floats a staged pixel
 constexpr int kMidH = 2 * kT1H + 1;
 constexpr int kMidW = 2 * kT1W + 1;
-constexpr int kMidFloats = kMidH * kMidW * kMidStride;
 constexpr int kNT = 8;                        // n-tiles: 64 channels
-constexpr int kTapFloats = 4 * kNT * 32 * 4;  // 32 x 64 weights, hi and lo
-constexpr int kC1SmemBytes = (kMidFloats + 2 * kTapFloats + 64) * 4;
+
+// f32: a staged pixel is 36 floats (rows two pixels apart: 72 floats = 8
+// banks); bf16: 40 bf16 (80 bytes, 16-byte pieces; two pixels = 40 words,
+// 8 banks).
+template <typename T>
+struct Conv1Cfg {
+  using O = gv::Op<T>;
+  static constexpr int kStride = std::is_same<T, float>::value ? 36 : 40;
+  static constexpr int kMidElems = kMidH * kMidW * kStride;
+  static constexpr int kSteps = 32 / O::kK;   // mma k steps a tap
+  static constexpr int kTapElems = kSteps * kNT * 32 * 4;
+  static constexpr int kSmemBytes =
+      (kMidElems + 2 * kTapElems) * (int)sizeof(T) + 2 * 64 * 4;
+};
 
 // mid: (B, s0, s0, 32); wfrag: the (288, 64) matrix in (ty, tx, c) row
-// order, BN scale folded in, packed by tf32x3.pack_b_fragments; out:
-// (B, s1, s1, 64).
+// order (f32: BN scale folded in, packed by tf32x3.pack_b_fragments; bf16:
+// packed by bf16mma.pack_b_fragments, scale the BN scale); out: (B, s1, s1,
+// 64).
+template <typename T>
 __global__ void __launch_bounds__(kC1Threads)
-gv_stem_conv1_kernel(const float* __restrict__ mid, int s0_size,
-                     const float* __restrict__ wfrag,
+gv_stem_conv1_kernel(const T* __restrict__ mid, int s0_size,
+                     const T* __restrict__ wfrag,
+                     const float* __restrict__ scale,
                      const float* __restrict__ shift, int pad1, int s1_size,
-                     float* __restrict__ out) {
-  extern __shared__ __align__(16) float smem[];
-  float* tile = smem;
-  float* wbuf = smem + kMidFloats;
-  float* sshift = wbuf + 2 * kTapFloats;
+                     T* __restrict__ out) {
+  using C = Conv1Cfg<T>;
+  using O = gv::Op<T>;
+  using Frag = typename O::Frag;
+  constexpr int kPer = 16 / (int)sizeof(T);   // elements a 16-byte piece
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tile = reinterpret_cast<T*>(smem_raw);
+  T* wbuf = tile + C::kMidElems;
+  float* sscale = reinterpret_cast<float*>(wbuf + 2 * C::kTapElems);
+  float* sshift = sscale + 64;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -352,31 +394,34 @@ gv_stem_conv1_kernel(const float* __restrict__ mid, int s0_size,
   const int t = lane & 3;
   const int x0 = blockIdx.x * kT1W;
   const int y0 = blockIdx.y * kT1H;
-  const float* src = mid + (int64_t)blockIdx.z * s0_size * s0_size * 32;
+  const T* src = mid + (int64_t)blockIdx.z * s0_size * s0_size * 32;
 
   // the 17 x 33 input tile: output (y, x) taps (2y - pad1 + ty, 2x - pad1 +
   // tx); zero outside the conv0 image
-  for (int i = tid; i < kMidH * kMidW * 8; i += kC1Threads) {
-    const int pix = i >> 3;
-    const int v = i & 7;
+  for (int i = tid; i < kMidH * kMidW * (32 / kPer); i += kC1Threads) {
+    const int pix = i / (32 / kPer);
+    const int v = i - pix * (32 / kPer);
     const int ry = pix / kMidW;
     const int rx = pix - ry * kMidW;
     const int y = 2 * y0 - pad1 + ry;
     const int x = 2 * x0 - pad1 + rx;
     const bool ok = y >= 0 && y < s0_size && x >= 0 && x < s0_size;
-    const float* p = ok ? src + ((int64_t)y * s0_size + x) * 32 + 4 * v : src;
-    gv::cp_async16(tile + pix * kMidStride + 4 * v, p, ok);
+    const T* p = ok ? src + ((int64_t)y * s0_size + x) * 32 + kPer * v : src;
+    gv::cp_async16(tile + pix * C::kStride + kPer * v, p, ok);
   }
   auto load_tap = [&](int tap) {
-    const float* s = wfrag + (int64_t)tap * kTapFloats;
-    float* d = wbuf + (tap & 1) * kTapFloats;
-    for (int i = tid; i < kTapFloats / 4; i += kC1Threads) {
-      gv::cp_async16(d + 4 * i, s + 4 * i, true);
+    const T* s = wfrag + (int64_t)tap * C::kTapElems;
+    T* d = wbuf + (tap & 1) * C::kTapElems;
+    for (int i = tid; i < C::kTapElems / kPer; i += kC1Threads) {
+      gv::cp_async16(d + kPer * i, s + kPer * i, true);
     }
     gv::cp_async_commit();
   };
   load_tap(0);                                // one group with the tile
-  if (tid < 64) sshift[tid] = shift[tid];
+  if (tid < 64) {
+    sshift[tid] = shift[tid];
+    sscale[tid] = std::is_same<T, float>::value ? 1.0f : scale[tid];
+  }
 
   float acc[kMT][kNT][4];
 #pragma unroll
@@ -398,33 +443,33 @@ gv_stem_conv1_kernel(const float* __restrict__ mid, int s0_size,
     __syncthreads();
     const int ty = tap / 3;
     const int tx = tap - 3 * ty;
-    const float4* wb =
-        reinterpret_cast<const float4*>(wbuf + (tap & 1) * kTapFloats);
+    const Frag* wb =
+        reinterpret_cast<const Frag*>(wbuf + (tap & 1) * C::kTapElems);
     // row g of the A fragment: output pixel (warp * kMT + mt, g), whose tap
     // is the staged pixel (2 * row + ty, 2 * g + tx); row g + 8: 16 further
-    const float* a0 = tile +
-                      ((2 * warp * kMT + ty) * kMidW + 2 * g + tx) *
-                          kMidStride +
-                      2 * t;
-    float d[kMT][kNT][4];                     // the tap's sums: one chain
+    const T* a0 = tile +
+                  ((2 * warp * kMT + ty) * kMidW + 2 * g + tx) * C::kStride +
+                  O::kThreadK * t;
+    float d[kMT][kNT][4];                     // 3xTF32: the tap's chain
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      uint32_t ah[kMT][4], al[kMT][4];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        const float* a = a0 + mt * 2 * kMidW * kMidStride + ks * 8;
-        gv::load_a(a, a + 16 * kMidStride, ah[mt], al[mt]);
-      }
-      float4 b[kNT];
+    for (int ks = 0; ks < C::kSteps; ++ks) {
+      Frag b[kNT];
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt) b[nt] = wb[(ks * kNT + nt) * 32 + lane];
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt) {
-        gv::mma_3xtf32_chain(d[mt], ks == 0, ah[mt], al[mt], b);
+        const T* a = a0 + mt * 2 * kMidW * C::kStride + ks * O::kK;
+        if constexpr (O::kSplitChains) {
+          O::step(d[mt], ks == 0, a, a + 16 * C::kStride, b);
+        } else {
+          O::step(acc[mt], false, a, a + 16 * C::kStride, b);
+        }
       }
     }
+    if constexpr (O::kSplitChains) {
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) gv::add_chain(acc[mt], d[mt]);
+      for (int mt = 0; mt < kMT; ++mt) gv::add_chain(acc[mt], d[mt]);
+    }
     __syncthreads();                          // the buffer is refilled next
   }
 
@@ -435,21 +480,63 @@ gv_stem_conv1_kernel(const float* __restrict__ mid, int s0_size,
     for (int half = 0; half < 2; ++half) {
       const int x = x0 + g + 8 * half;
       if (y < s1_size && x < s1_size) {
-        float* dst = out +
-                     (((int64_t)blockIdx.z * s1_size + y) * s1_size + x) * 64 +
-                     4 * t;
+        T* dst = out +
+                 (((int64_t)blockIdx.z * s1_size + y) * s1_size + x) * 64 +
+                 4 * t;
 #pragma unroll
         for (int p = 0; p < kNT / 2; ++p) {
+          const float* ss = sscale + 16 * p + 4 * t;
           const float* sh = sshift + 16 * p + 4 * t;
-          *reinterpret_cast<float4*>(dst + 16 * p) = make_float4(
-              leaky(acc[mt][2 * p][2 * half] + sh[0]),
-              leaky(acc[mt][2 * p][2 * half + 1] + sh[1]),
-              leaky(acc[mt][2 * p + 1][2 * half] + sh[2]),
-              leaky(acc[mt][2 * p + 1][2 * half + 1] + sh[3]));
+          const float a[4] = {acc[mt][2 * p][2 * half],
+                              acc[mt][2 * p][2 * half + 1],
+                              acc[mt][2 * p + 1][2 * half],
+                              acc[mt][2 * p + 1][2 * half + 1]};
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            v[e] = std::is_same<T, float>::value
+                       ? leaky(a[e] + sh[e])
+                       : leaky(__fadd_rn(__fmul_rn(a[e], ss[e]), sh[e]));
+          }
+          gv::store4(dst + 16 * p, v[0], v[1], v[2], v[3]);
         }
       }
     }
   }
+}
+
+template <typename T>
+int detector_stem(const T* img, int batch, int h, int w, const int32_t* ry0,
+                  const float* ryw, int ty_n, const int32_t* rx0,
+                  const float* rxw, int tx_n, int size, int fh_max,
+                  int fw_max, int band, int wide, const float* w0,
+                  const float* s0, const float* b0, int pad0, int s0_size,
+                  T* mid, const T* w1frag, const float* s1, const float* b1,
+                  int pad1, int s1_size, T* out, cudaStream_t stream) {
+  if (batch > 65535 || band <= 0) return (int)cudaErrorInvalidValue;
+  if (batch <= 0) return 0;
+  const int smem0 = c0_smem_bytes(fh_max, fw_max, band);
+  cudaError_t err = cudaFuncSetAttribute(
+      gv_stem_conv0_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem0);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid0((s0_size + kT0W - 1) / kT0W, (s0_size + kT0H - 1) / kT0H,
+                   batch);
+  gv_stem_conv0_kernel<T><<<grid0, kC0Threads, smem0, stream>>>(
+      img, h, w, ry0, ryw, ty_n, rx0, rxw, tx_n, size, fw_max, band, wide, w0,
+      s0, b0, pad0, s0_size, mid);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(gv_stem_conv1_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Conv1Cfg<T>::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid1((s1_size + kT1W - 1) / kT1W, (s1_size + kT1H - 1) / kT1H,
+                   batch);
+  gv_stem_conv1_kernel<T><<<grid1, kC1Threads, Conv1Cfg<T>::kSmemBytes,
+                            stream>>>(mid, s0_size, w1frag, s1, b1, pad1,
+                                      s1_size, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -470,29 +557,29 @@ extern "C" int gv_detector_stem(
     const float* w0, const float* s0, const float* b0, int pad0, int s0_size,
     float* mid, const float* w1frag, const float* b1, int pad1, int s1_size, float* out,
     cudaStream_t stream) {
-  if (batch > 65535 || band <= 0) return (int)cudaErrorInvalidValue;
-  if (batch <= 0) return 0;
-  const int smem0 = c0_smem_bytes(fh_max, fw_max, band);
-  cudaError_t err = cudaFuncSetAttribute(
-      gv_stem_conv0_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem0);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid0((s0_size + kT0W - 1) / kT0W, (s0_size + kT0H - 1) / kT0H,
-                   batch);
-  gv_stem_conv0_kernel<<<grid0, kC0Threads, smem0, stream>>>(
-      img, h, w, ry0, ryw, ty_n, rx0, rxw, tx_n, size, fw_max, band, wide, w0,
-      s0, b0, pad0, s0_size, mid);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(gv_stem_conv1_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kC1SmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid1((s1_size + kT1W - 1) / kT1W, (s1_size + kT1H - 1) / kT1H,
-                   batch);
-  gv_stem_conv1_kernel<<<grid1, kC1Threads, kC1SmemBytes, stream>>>(
-      mid, s0_size, w1frag, b1, pad1, s1_size, out);
-  return (int)cudaGetLastError();
+  return detector_stem<float>(img, batch, h, w, ry0, ryw, ty_n, rx0, rxw,
+                              tx_n, size, fh_max, fw_max, band, wide, w0, s0,
+                              b0, pad0, s0_size, mid, w1frag, nullptr, b1,
+                              pad1, s1_size, out, stream);
+}
+
+// The bf16 form: img, mid, w1frag and out bf16; ryw / rxw and w0 rounded to
+// bf16 (held as f32); w1frag: ConvBN_1's (288, 64) matrix without the BN
+// scale, packed by bf16mma.pack_b_fragments; s1 / b1 its BN scale and
+// shift. wide is ignored (the frame rows are staged with plain loads).
+extern "C" int gv_detector_stem_bf16(
+    const void* img, int batch, int h, int w, const int32_t* ry0,
+    const float* ryw, int ty_n, const int32_t* rx0, const float* rxw,
+    int tx_n, int size, int fh_max, int fw_max, int band, const float* w0,
+    const float* s0, const float* b0, int pad0, int s0_size, void* mid,
+    const void* w1frag, const float* s1, const float* b1, int pad1,
+    int s1_size, void* out, cudaStream_t stream) {
+  using B = gv::bf16;
+  return detector_stem<B>(static_cast<const B*>(img), batch, h, w, ry0, ryw,
+                          ty_n, rx0, rxw, tx_n, size, fh_max, fw_max, band, 0,
+                          w0, s0, b0, pad0, s0_size, static_cast<B*>(mid),
+                          static_cast<const B*>(w1frag), s1, b1, pad1,
+                          s1_size, static_cast<B*>(out), stream);
 }
 
 // What the launch above gets (the build report prints it): {conv0's blocks
@@ -501,18 +588,19 @@ extern "C" int gv_stem_blocks_per_sm(int fh_max, int fw_max, int band,
                                      int* blocks) {
   const int smem0 = c0_smem_bytes(fh_max, fw_max, band);
   blocks[2] = smem0;
-  blocks[3] = kC1SmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      gv_stem_conv0_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gv_stem_conv0_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem0);
   if (err != cudaSuccess) return (int)err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks[0], gv_stem_conv0_kernel, kC0Threads, smem0);
+      &blocks[0], gv_stem_conv0_kernel<float>, kC0Threads, smem0);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(gv_stem_conv1_kernel,
+  const int smem1 = Conv1Cfg<float>::kSmemBytes;
+  blocks[3] = smem1;
+  err = cudaFuncSetAttribute(gv_stem_conv1_kernel<float>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kC1SmemBytes);
+                             smem1);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks[1], gv_stem_conv1_kernel, kC1Threads, kC1SmemBytes);
+      &blocks[1], gv_stem_conv1_kernel<float>, kC1Threads, smem1);
 }

@@ -41,9 +41,26 @@
 // A packed B is (K / 8, N / 8, 32 lanes, 4) floats, the four being
 // {b0_hi, b1_hi, b0_lo, b1_lo}: one 16-byte shared-memory load per lane
 // and n-tile.
+//
+// bf16 (the kernels' bf16 forms). One mma.sync.m16n8k16.bf16 per tile and
+// k step of 16: a bf16 product is exact and the tensor core sums in f32, so
+// the whole K chain stays on the tensor core (gv::Op<bf16>). Its fragments,
+// each register two bf16 (the lower k in the low half):
+//   A (16 x 16): a0 (g, 2t..2t+1)  a1 (g+8, 2t..2t+1)  a2 (g, 2t+8..2t+9)
+//                a3 (g+8, 2t+8..2t+9)
+//   B (16 x 8):  b0 (k = 2t..2t+1, n = g)   b1 (k = 2t+8..2t+9, n = g)
+//   C (16 x 8):  as m16n8k8.
+// The k permutation: mma k columns (2t, 2t + 1) hold logical k 4t, 4t + 1
+// and columns (2t + 8, 2t + 9) logical k 4t + 2, 4t + 3, so a thread's a0
+// and a2 are four neighbouring bf16 of row g (one 8-byte load, and a1, a3
+// of row g + 8), and its b0, b1 four neighbouring k of one channel. The n
+// permutation is the one above. A packed bf16 B is (K / 16, N / 8, 32
+// lanes, 4) bf16: one 8-byte load per lane and n-tile
+// (ops/bf16mma.pack_b_fragments).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -150,6 +167,111 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[N][4],
   add_chain(c, d);
 }
 
+// ---- bf16 ------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// f32 -> the nearest bf16 value (ties to even), kept in f32.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// A thread's bf16 A fragment of one k step from row-major shared memory:
+// row_g points at logical k = 4t of row g, row_g8 at the same k of row
+// g + 8 (both 8-byte aligned).
+__device__ __forceinline__ void load_a_bf16(const bf16* row_g,
+                                            const bf16* row_g8,
+                                            uint32_t (&a)[4]) {
+  const uint2 r0 = *reinterpret_cast<const uint2*>(row_g);
+  const uint2 r1 = *reinterpret_cast<const uint2*>(row_g8);
+  a[0] = r0.x;
+  a[1] = r1.x;
+  a[2] = r0.y;
+  a[3] = r1.y;
+}
+
+// d += a * b, one m16n8k16 bf16 mma, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint2 b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// The tensor-core product of one operand type, for kernels templated on
+// it: Op<float> is 3xTF32, Op<bf16> bf16. kK: k of one mma step; kPad:
+// the padding (elements) of a staged pixel of C channels, C a multiple of
+// 32, so that the 8-byte A loads of a half-warp from four consecutive
+// pixels fall in 32 different banks (the pixels lie 8 or 24 words apart);
+// kThreadK: the logical k of a thread's first A value in a step (times t);
+// Frag: a lane's B fragment of one k step and n-tile; kSplitChains: the
+// chains are summed outside the tensor core (3xTF32) rather than kept on
+// it (bf16). step(): d[n] (+)= a * b[n] for the N n-tiles that share the A
+// rows row_g, row_g8.
+template <typename T>
+struct Op;
+
+template <>
+struct Op<float> {
+  static constexpr int kK = 8;
+  static constexpr int kPad = 8;
+  static constexpr int kThreadK = 2;
+  static constexpr bool kSplitChains = true;
+  using Frag = float4;
+  template <int N>
+  __device__ __forceinline__ static void step(float (&d)[N][4], bool first,
+                                              const float* row_g,
+                                              const float* row_g8,
+                                              const Frag (&b)[N]) {
+    uint32_t ah[4], al[4];
+    load_a(row_g, row_g8, ah, al);
+    mma_3xtf32_chain(d, first, ah, al, b);
+  }
+};
+
+template <>
+struct Op<bf16> {
+  static constexpr int kK = 16;
+  static constexpr int kPad = 16;
+  static constexpr int kThreadK = 4;
+  static constexpr bool kSplitChains = false;
+  using Frag = uint2;
+  template <int N>
+  __device__ __forceinline__ static void step(float (&d)[N][4], bool first,
+                                              const bf16* row_g,
+                                              const bf16* row_g8,
+                                              const Frag (&b)[N]) {
+    uint32_t a[4];
+    load_a_bf16(row_g, row_g8, a);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      if (first) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[n][e] = 0.0f;
+      }
+      mma_bf16(d[n], a, b[n]);
+    }
+  }
+};
+
+// Four neighbouring outputs to global memory: one 16-byte store in f32,
+// one 8-byte store in bf16 (each rounded to nearest).
+__device__ __forceinline__ void store4(float* dst, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
+}
+
+__device__ __forceinline__ void store4(bf16* dst, float a, float b, float c,
+                                       float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
+  uint2 v;
+  v.x = *reinterpret_cast<const uint32_t*>(&lo);
+  v.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(dst) = v;
+}
+
 // 16 bytes global -> shared without passing through registers; with
 // ok == false nothing is read and the 16 bytes are zero-filled (src must
 // still be a valid address). dst and src 16-byte aligned.
@@ -160,6 +282,13 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
                "l"(src), "r"(n)
                : "memory");
+}
+
+// The same for bf16 data (16 bytes = 8 values).
+__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
+                                           bool ok) {
+  cp_async16(reinterpret_cast<float*>(dst),
+             reinterpret_cast<const float*>(src), ok);
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -1,6 +1,15 @@
 """Shared layers of the two nets: flax-compatible SAME padding, inference
 BatchNorm and the conv + BN + activation block.
 
+The compute dtype is the activation's: an f32 input runs in f32, a bf16
+input in the JAX package's bf16 mode (flax modules with dtype=bf16, as XLA
+compiles them): conv operands rounded to bf16 with f32 sums, BatchNorm on
+those sums in f32 as flax's _normalize does ((x - mean) * (rsqrt(var +
+eps) * scale) + bias, not the folded x * s + b) and rounded to bf16 once,
+the activation on the bf16 value (flax's leaky slope rounded to bf16). On
+the card the convs are cuDNN's bf16 convs, whose output is rounded to bf16
+before the BatchNorm.
+
 Module attribute names follow the flax parameter tree (``Conv_0``,
 ``BatchNorm_0``) so a flax path maps onto a state-dict key one to one
 (models/weights.params_from_jax).
@@ -15,6 +24,27 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5                       # flax nn.BatchNorm's default epsilon
+_SLOPE = 0.1                        # leaky (flax rounds it to bf16 there)
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor,
+           bias: torch.Tensor | None = None, stride: int = 1,
+           round_out: bool = True) -> torch.Tensor:
+    """F.conv2d in the input's dtype. bf16 (flax's bf16 Conv as XLA
+    compiles it): operands rounded to bf16, f32 sums, the bias rounded to
+    bf16 and added, the result rounded to bf16 once; round_out=False keeps
+    the sums for a consumer that rounds (the BatchNorm of ConvBN). On the
+    card the sums are cuDNN's bf16 conv, whose output is already rounded."""
+    if x.dtype == torch.float32:
+        return F.conv2d(x, weight, bias, stride=stride)
+    w = weight.to(x.dtype)
+    if x.is_cuda:
+        y = F.conv2d(x, w, stride=stride)
+    else:
+        y = F.conv2d(x.float(), w.float(), stride=stride)
+    if bias is not None:
+        y = y + bias.to(x.dtype).to(y.dtype)[:, None, None]
+    return y.to(x.dtype) if round_out else y
 
 
 def same_pad(n: int, k: int, s: int) -> Tuple[int, int]:
@@ -25,8 +55,8 @@ def same_pad(n: int, k: int, s: int) -> Tuple[int, int]:
 
 
 def conv2d_same(x: torch.Tensor, weight: torch.Tensor, stride: int,
-                bias: torch.Tensor | None = None,
-                block: int = 1) -> torch.Tensor:
+                bias: torch.Tensor | None = None, block: int = 1,
+                round_out: bool = True) -> torch.Tensor:
     """NCHW conv with SAME padding. block > 1: the padding is computed on a
     grid of block x block pixel blocks and scaled to pixels (the folded s2d
     stem of the orientation net); weight is then (F, C, k*block, k*block)
@@ -36,7 +66,7 @@ def conv2d_same(x: torch.Tensor, weight: torch.Tensor, stride: int,
     py = same_pad(x.shape[2] // block, kh, sh)
     px = same_pad(x.shape[3] // block, kh, sh)
     x = F.pad(x, (px[0] * block, px[1] * block, py[0] * block, py[1] * block))
-    return F.conv2d(x, weight, bias, stride=stride)
+    return conv2d(x, weight, bias, stride, round_out)
 
 
 class BatchNorm(nn.Module):
@@ -50,7 +80,16 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
+        """BN of x in `dtype` (default x's): f32 as F.batch_norm, bf16 as
+        flax's _normalize in f32, rounded to bf16 once."""
+        dtype = dtype or x.dtype
+        if dtype != torch.float32:
+            shape = (1, -1, 1, 1)
+            mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
+            y = ((x.float() - self.running_mean.view(shape))
+                 * mul.view(shape) + self.bias.view(shape))
+            return y.to(dtype)
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight, self.bias, training=False,
                             eps=BN_EPS)
@@ -63,8 +102,9 @@ def fold_bn(bn: BatchNorm) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 class ConvBN(nn.Module):
-    """Conv (no bias, SAME) + BatchNorm + activation, NCHW.
-    act: "leaky" (slope 0.1, the detector) or "relu" (the orientation net).
+    """Conv (no bias, SAME) + BatchNorm + activation, NCHW, in the input's
+    dtype. act: "leaky" (slope 0.1, the detector) or "relu" (the
+    orientation net).
 
     block > 1 (the orientation net's s2d_fold stem): the input is the RAW
     (N, C, H, W) image, Conv_0 holds the canonical post-space-to-depth
@@ -94,9 +134,14 @@ class ConvBN(nn.Module):
         return big.permute(3, 2, 0, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = x.dtype
         x = conv2d_same(x, self.conv_weight(), self.stride * self.block,
-                        block=self.block)
-        x = self.BatchNorm_0(x)
-        if self.act == "leaky":
-            return F.leaky_relu(x, 0.1)
-        return F.relu(x)
+                        block=self.block, round_out=False)
+        x = self.BatchNorm_0(x, dtype)
+        if self.act != "leaky":
+            return F.relu(x)
+        if x.dtype == torch.float32:
+            return F.leaky_relu(x, _SLOPE)
+        return torch.where(x >= 0, x,
+                           x * torch.full((), _SLOPE, dtype=x.dtype,
+                                          device=x.device))

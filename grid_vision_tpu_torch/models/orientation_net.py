@@ -81,15 +81,20 @@ class OrientationNetS2D(nn.Module):
     def forward(self, x: torch.Tensor, stem_external: bool = False):
         """x: (N, S, S, 3) standardized crops (NHWC), or with stem_external
         ConvBN_0's (N, S/8, S/8, 4w) output (the orientation-front kernel,
-        ops/cuda_orient.py); the parameter tree is the same either way."""
-        x = x.float().permute(0, 3, 1, 2)
+        ops/cuda_orient.py); the parameter tree is the same either way. The
+        convs compute in x's dtype; the pooled features go to the heads in
+        f32 (in bf16 the pool is rounded to bf16 first, as jnp.mean of a
+        bf16 array is)."""
+        x = x.permute(0, 3, 1, 2)
         for i in range(1 if stem_external else 0, self.n_conv):
             x = getattr(self, f"ConvBN_{i}")(x)
-        return self.MultiBinHeads_0(x.mean(dim=(2, 3)))
+        pooled = x.float().mean(dim=(2, 3)).to(x.dtype).float()
+        return self.MultiBinHeads_0(pooled)
 
 
 def forward(model: OrientationNetS2D, crops: torch.Tensor,
-            stem_external: bool = False):
+            stem_external: bool = False, dtype=torch.float32):
     """crops (N, S, S, 3) (or ConvBN_0's output with stem_external) ->
-    (orient (N, 2, 2), conf (N, 2), dims (N, 3))."""
-    return model(crops, stem_external)
+    (orient (N, 2, 2), conf (N, 2), dims (N, 3)) in f32; the convs compute
+    in `dtype`."""
+    return model(crops.to(dtype), stem_external)

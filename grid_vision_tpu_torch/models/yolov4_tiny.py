@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import ConvBN
+from .layers import ConvBN, conv2d
 
 # darknet yolov4-tiny anchors (pixels at 416); head masks (3,4,5)/(1,2,3).
 ANCHORS = np.array([[10, 14], [23, 27], [37, 58],
@@ -65,7 +65,9 @@ class YoloV4Tiny(nn.Module):
     (ops/cuda_stem.py), which reads ConvBN_0/1's weights itself.
     front_external=True: the input is the post-first-max-pool
     (B, S/8, S/8, 128) activation of the CSP-stage kernel
-    (ops/cuda_csp.py), which also ran ConvBN_2, CSPBlock_0 and the pool."""
+    (ops/cuda_csp.py), which also ran ConvBN_2, CSPBlock_0 and the pool.
+    The net computes in its input's dtype (f32, or bf16 as the JAX
+    package's compute_dtype="bfloat16"); the heads come back in f32."""
 
     def __init__(self, cfg: YoloConfig = YoloConfig()):
         super().__init__()
@@ -95,7 +97,7 @@ class YoloV4Tiny(nn.Module):
 
     def forward(self, x: torch.Tensor, stem_external: bool = False,
                 front_external: bool = False):
-        x = x.float().permute(0, 3, 1, 2)
+        x = x.permute(0, 3, 1, 2)
         if not front_external:
             if not stem_external:
                 x = self.ConvBN_1(self.ConvBN_0(x))         # 104
@@ -108,12 +110,17 @@ class YoloV4Tiny(nn.Module):
         x = F.max_pool2d(x, 2, 2)                           # 13, 512ch
         x = self.ConvBN_5(x)
         neck = self.ConvBN_6(x)
-        head1 = self.head_13(self.ConvBN_7(neck))
+        head1 = self._head(self.head_13, self.ConvBN_7(neck))
         up = F.interpolate(self.ConvBN_8(neck), scale_factor=2,
                            mode="nearest")
         h2 = self.ConvBN_9(torch.cat([up, fpn_tap], dim=1))
-        head2 = self.head_26(h2)
+        head2 = self._head(self.head_26, h2)
         return head1.permute(0, 2, 3, 1), head2.permute(0, 2, 3, 1)
+
+    @staticmethod
+    def _head(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        """A 1x1 head conv with its bias in the compute dtype, as f32."""
+        return conv2d(x, conv.weight, conv.bias).float()
 
 
 def decode_head(raw: torch.Tensor, anchors: np.ndarray, input_size: int,
@@ -152,8 +159,10 @@ def decode(head1: torch.Tensor, head2: torch.Tensor, cfg: YoloConfig):
 
 
 def forward(model: YoloV4Tiny, images: torch.Tensor,
-            stem_external: bool = False, front_external: bool = False):
+            stem_external: bool = False, front_external: bool = False,
+            dtype=torch.float32):
     """images (B, S, S, 3) in [0, 1] (or the stem / CSP-stage activation)
-    -> (boxes (B, N, 4), confs (B, N, C))."""
-    h1, h2 = model(images, stem_external, front_external)
+    -> (boxes (B, N, 4), confs (B, N, C)) in f32; the net computes in
+    `dtype`."""
+    h1, h2 = model(images.to(dtype), stem_external, front_external)
     return decode(h1, h2, model.cfg)

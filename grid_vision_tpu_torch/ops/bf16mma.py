@@ -1,0 +1,76 @@
+"""bf16 tensor-core products, the arithmetic of the kernels' bf16 forms
+(``csrc/gv_mma.cuh``: ``mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32``), in
+plain torch.
+
+A product of two bf16 values (8 significant bits each) is exact in f32, and
+the kernels accumulate in f32. So the plain form of a bf16 product is an
+f32 matrix product of operands rounded to bf16: ``matmul_bf16`` here, and
+``F.conv2d`` in f32 on bf16-rounded operands in the kernels' plain twins.
+What differs from the card is only the order of the f32 sums (and the
+tensor core's truncating accumulator), not the products.
+
+What the kernels need on the host lives here too: ``pack_b_fragments`` lays
+a weight matrix out in the order the warps read their m16n8k16 B fragments
+(``prepare_stem_constants``, ``prepare_csp_constants`` and
+``prepare_orient_constants`` call it once per model for the bf16 forms).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .tf32x3 import fragment_channel
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest bf16 value (ties to even), kept in f32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _fragment_index(k: int, n: int, dev):
+    """(rows, cols), each (K / 16, N / 8, 32, 4): the weight w[rows, cols]
+    that lane 4g + t of k step ks and n-tile nt holds in slot j. The mma's
+    k columns (2t, 2t + 1) carry logical k 4t, 4t + 1 and its columns
+    (2t + 8, 2t + 9) logical k 4t + 2, 4t + 3, so a thread's four A values
+    of a row are neighbours (one 8-byte load, gv::load_a_bf16), and so are
+    its four B values: w[16 ks + 4t + j, ch], ch = fragment_channel(nt, g),
+    the output channel order of the 3xTF32 form (one store of four
+    neighbouring channels)."""
+    lane = torch.arange(32, device=dev)
+    g, t = lane // 4, lane % 4
+    j = torch.arange(4, device=dev)
+    rows = (16 * torch.arange(k // 16, device=dev)[:, None, None, None]
+            + 4 * t[None, None, :, None] + j[None, None, None, :])
+    cols = fragment_channel(torch.arange(n // 8, device=dev)[None, :, None,
+                                                             None],
+                            g[None, None, :, None])
+    return rows.expand(k // 16, n // 8, 32, 4), \
+        cols.expand(k // 16, n // 8, 32, 4)
+
+
+def pack_b_fragments(w: torch.Tensor) -> torch.Tensor:
+    """(K, N) weights, K % 16 == 0 and N % 16 == 0 -> the (K / 16, N / 8,
+    32, 4) bf16 layout a warp reads its m16n8k16 B fragments from, one
+    8-byte load a lane and n-tile: {b0, b1} of the mma, each two bf16."""
+    k, n = w.shape
+    if k % 16 or n % 16:
+        raise ValueError(f"cannot pack a ({k}, {n}) matrix: K % 16 and "
+                         "N % 16 must be 0")
+    rows, cols = _fragment_index(k, n, w.device)
+    return w.to(torch.bfloat16)[rows, cols].contiguous()
+
+
+def unpack_b_fragments(frag: torch.Tensor) -> torch.Tensor:
+    """The inverse of pack_b_fragments: the (K, N) bf16 matrix."""
+    ks, nts = frag.shape[:2]
+    rows, cols = _fragment_index(16 * ks, 8 * nts, frag.device)
+    w = torch.zeros((16 * ks, 8 * nts), dtype=torch.bfloat16,
+                    device=frag.device)
+    w[rows, cols] = frag
+    return w
+
+
+def matmul_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M, K) @ b (K, N) as the bf16 tensor cores compute it: both
+    rounded to bf16, each product exact, the sums in f32."""
+    return round_bf16(a.float()) @ round_bf16(b.float())

@@ -12,6 +12,9 @@ library.
 
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits for
 them together — the way ``chip_smoke.py`` builds every kernel.
+``consts_dtype`` and ``check_constants`` are the wrappers' shared checks of
+the folded constants a kernel form reads (f32, or bf16 since the bf16
+forms).
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -111,3 +116,23 @@ def check(err: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def consts_dtype(consts) -> torch.dtype:
+    """The form a kernel's folded constants are for: f32 unless marked
+    (prepare_*_constants(..., torch.bfloat16) marks the bf16 form's)."""
+    return consts.get("dtype", torch.float32)
+
+
+def check_constants(consts, shapes, dev, what: str) -> None:
+    """Raise unless every constant a kernel reads is a contiguous tensor of
+    its shape (and dtype: f32 where `shapes` gives a shape alone) on
+    `dev`."""
+    for name, spec in shapes.items():
+        shape, dtype = (spec if isinstance(spec[-1], torch.dtype)
+                        else (spec, torch.float32))
+        t = consts[name]
+        if (t.device != dev or t.dtype != dtype
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"{what} constant {name} must be a contiguous "
+                             f"{shape} {dtype} tensor on {dev}")

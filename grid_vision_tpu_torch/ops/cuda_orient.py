@@ -14,6 +14,16 @@ the tensor cores in 3xTF32 from weights split and packed here once per
 model); on a CPU tensor it runs ``orient_front_plain``: per crop,
 crop_resize against its rig's frame, _standardize, then the module's
 ConvBN_0.
+
+The bf16 form (constants from ``prepare_orient_constants(model,
+torch.bfloat16)``, bf16 frames, a bf16 activation out) rounds where the
+Pallas kernel rounds at compute_dtype=bf16: the interpolation weights and
+each resize product's result are bf16 (the bf16 crop), the statistics are
+single-pass f32 moments of that crop, the standardized crop
+((x - mean) * inv in f32) is rounded to bf16, the conv weights are bf16
+without the BN scale, the sums f32, BN and relu f32 rounded once. Its twin
+computes the same with the bf16 crop_resize, single_pass_stats and F.conv2d
+on the bf16-rounded operands.
 """
 
 from __future__ import annotations
@@ -23,26 +33,50 @@ from typing import Dict
 
 import torch
 
-from ..models.layers import same_pad
+import torch.nn.functional as F
+
+from ..models.layers import fold_bn, same_pad
 from ..types import Boxes
-from . import cuda_build, tf32x3
-from .preprocess import _standardize, crop_resize
+from . import bf16mma, cuda_build, tf32x3
+from .preprocess import _standardize, crop_resize, single_pass_stats
 
 S2D_BLOCK = 4           # the net's s2d_fold block (ConvBN_0, block=4)
 RUN = 40                # one kernel row on a crop row: 12 px x 3 ch, padded
+RUN_BF16 = 48           # ... padded to the bf16 mma's k = 16
 MAX_F = 128             # the channels a conv block of the kernel holds
 # Kernel calls made by orient_front_cuda (one per call; a call is two
-# launches of csrc/cuda_orient.cu).
+# launches of csrc/cuda_orient.cu), of the f32 form and of the bf16 form.
 launches = 0
+launches_bf16 = 0
 
 
-def prepare_orient_constants(model) -> Dict[str, torch.Tensor]:
+def prepare_orient_constants(model, dtype=torch.float32
+                             ) -> Dict[str, torch.Tensor]:
     """Fold ConvBN_0 of an OrientationNetS2D once (Engine init), on the
     net's device: wfrag (60, F / 8, 32, 4), the 12x12x3 folded kernel as a
     (12 * 40, F) matrix (row uy * 40 + ux * 3 + c; each run of 36 padded to
     40 with zero rows, a multiple of the mma's k = 8), BN scale folded in,
     split into TF32 hi and lo and packed in mma fragment order
-    (tf32x3.pack_b_fragments); and the BN shift t (F,)."""
+    (tf32x3.pack_b_fragments); and the BN shift t (F,).
+
+    dtype=torch.bfloat16, the bf16 form: wfrag (36, F / 8, 32, 4) bf16, the
+    kernel as a (12 * 48, F) matrix (each run of 36 padded to 48) without
+    the BN scale, packed by bf16mma.pack_b_fragments; the BN scale s and
+    shift t; w_oihw, the folded 12x12 kernel in bf16 for the twin; dtype."""
+    if dtype == torch.bfloat16:
+        with torch.no_grad():
+            conv = model.ConvBN_0
+            w = conv.conv_weight().detach()                  # (F, 3, 12, 12)
+            f = w.shape[0]
+            scale, shift = fold_bn(conv.BatchNorm_0)
+            rows = w.permute(2, 3, 1, 0).reshape(12, 36, f)
+            padded = torch.cat([rows, rows.new_zeros((12, RUN_BF16 - 36, f))],
+                               dim=1)
+            return dict(wfrag=bf16mma.pack_b_fragments(
+                padded.reshape(12 * RUN_BF16, f)), s=scale.contiguous(),
+                t=shift.contiguous(),
+                w_oihw=w.to(torch.bfloat16).contiguous(),
+                dtype=torch.bfloat16)
     with torch.no_grad():
         wmat, t = tf32x3.folded_matrix(model.ConvBN_0)       # (432, F)
         f = wmat.shape[1]
@@ -60,11 +94,12 @@ def _pad_lo(size: int) -> int:
 
 
 def crops_by_rig(images: torch.Tensor, xyxy: torch.Tensor,
-                 rig: torch.Tensor, size: int) -> torch.Tensor:
-    """(N, S, S, 3) bilinear crops (crop_resize), each cut from its rig's
-    frame of the (R, H, W, 3) images."""
+                 rig: torch.Tensor, size: int,
+                 dtype=torch.float32) -> torch.Tensor:
+    """(N, S, S, 3) bilinear crops (crop_resize in `dtype`, the crops in
+    it too), each cut from its rig's frame of the (R, H, W, 3) images."""
     n = xyxy.shape[0]
-    crops = torch.zeros((n, size, size, 3), dtype=torch.float32,
+    crops = torch.zeros((n, size, size, 3), dtype=dtype,
                         device=images.device)
     boxes = Boxes(xyxy=xyxy, confidence=torch.zeros_like(xyxy[:, 0]),
                   label=torch.zeros_like(rig, dtype=torch.int32),
@@ -72,16 +107,36 @@ def crops_by_rig(images: torch.Tensor, xyxy: torch.Tensor,
     for r in range(images.shape[0]):
         idx = torch.nonzero(rig == r)[:, 0]
         if idx.numel():
-            crops[idx] = crop_resize(images[r], boxes.take(idx), size)
+            crops[idx] = crop_resize(images[r], boxes.take(idx), size,
+                                     dtype, out_dtype=dtype)
     return crops
+
+
+def _orient_plain_bf16(images, xyxy, valid, rig, consts, size):
+    crops = crops_by_rig(images, xyxy, rig, size, torch.bfloat16)
+    mean, inv = single_pass_stats(crops)
+    std = ((crops.float() - mean) * inv).to(torch.bfloat16)
+    std = torch.where(valid[:, None, None, None], std.float(),
+                      torch.zeros((), device=std.device))
+    lo, hi = (S2D_BLOCK * p for p in same_pad(size // S2D_BLOCK, 3, 2))
+    y = F.conv2d(F.pad(std.permute(0, 3, 1, 2), (lo, hi, lo, hi)),
+                 consts["w_oihw"].float(), stride=2 * S2D_BLOCK)
+    s, t = consts["s"], consts["t"]
+    y = torch.relu(y * s[None, :, None, None] + t[None, :, None, None])
+    return y.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
 
 
 def orient_front_plain(images: torch.Tensor, xyxy: torch.Tensor,
                        valid: torch.Tensor, rig: torch.Tensor, model,
-                       size: int) -> torch.Tensor:
-    """The kernel's plain twin: each crop cut from its rig's frame
-    (crop_resize), standardized (_standardize), then the module's
-    ConvBN_0; (N, S/8, S/8, F) NHWC."""
+                       size: int, consts=None) -> torch.Tensor:
+    """The kernel's plain twin, (N, S/8, S/8, F) NHWC. f32: each crop cut
+    from its rig's frame (crop_resize), standardized (_standardize), then
+    the module's ConvBN_0. bf16 (bf16 consts): the bf16 crops, single-pass
+    statistics, the standardized crop rounded to bf16, the conv from the
+    bf16 weights in consts, rounded where the kernel rounds."""
+    if consts is not None and \
+            cuda_build.consts_dtype(consts) == torch.bfloat16:
+        return _orient_plain_bf16(images, xyxy, valid, rig, consts, size)
     std = _standardize(crops_by_rig(images, xyxy, rig, size), valid)
     return model.ConvBN_0(std.permute(0, 3, 1, 2)).permute(
         0, 2, 3, 1).contiguous()
@@ -89,12 +144,13 @@ def orient_front_plain(images: torch.Tensor, xyxy: torch.Tensor,
 
 def _launch(images: torch.Tensor, xyxy: torch.Tensor, valid: torch.Tensor,
             rig: torch.Tensor, consts, size: int) -> torch.Tensor:
-    global launches
+    global launches, launches_bf16
     dev = images.device
-    if (images.dtype != torch.float32 or images.dim() != 4
+    dt = cuda_build.consts_dtype(consts)
+    if (images.dtype != dt or images.dim() != 4
             or images.shape[-1] != 3 or not images.is_contiguous()):
-        raise ValueError("images must be a contiguous (R, H, W, 3) float32 "
-                         "tensor")
+        raise ValueError(f"images must be a contiguous (R, H, W, 3) {dt} "
+                         "tensor (the form of the constants)")
     n = xyxy.shape[0]
     if (xyxy.dtype != torch.float32 or xyxy.shape != (n, 4)
             or valid.shape != (n,) or valid.dtype != torch.bool
@@ -111,31 +167,48 @@ def _launch(images: torch.Tensor, xyxy: torch.Tensor, valid: torch.Tensor,
                          f"{2 * S2D_BLOCK}")
     wfrag, t = consts["wfrag"], consts["t"]
     f = t.shape[0]
-    if (f % 16 or f > MAX_F or wfrag.shape != (12 * RUN // 8, f // 8, 32, 4)
-            or any(a.device != dev or a.dtype != torch.float32
-                   or not a.is_contiguous() for a in (wfrag, t))):
-        raise ValueError("orientation constants must be contiguous float32 "
-                         f"wfrag ({12 * RUN // 8}, F / 8, 32, 4) and t (F,) "
-                         f"with F % 16 == 0 and F <= {MAX_F}, on the frames' "
-                         "device")
+    if dt == torch.float32:
+        if (f % 16 or f > MAX_F
+                or wfrag.shape != (12 * RUN // 8, f // 8, 32, 4)
+                or any(a.device != dev or a.dtype != torch.float32
+                       or not a.is_contiguous() for a in (wfrag, t))):
+            raise ValueError(
+                "orientation constants must be contiguous float32 wfrag "
+                f"({12 * RUN // 8}, F / 8, 32, 4) and t (F,) with F % 16 == 0"
+                f" and F <= {MAX_F}, on the frames' device")
+    else:
+        if f % 16 or f > MAX_F:
+            raise ValueError(f"F = {f} must be a multiple of 16, <= {MAX_F}")
+        cuda_build.check_constants(consts, dict(
+            wfrag=((12 * RUN_BF16 // 16, f // 8, 32, 4), torch.bfloat16),
+            s=((f,), torch.float32), t=((f,), torch.float32)), dev,
+            "orientation")
     _, h, w, _ = images.shape
     q = -(-(size // S2D_BLOCK) // 2)
-    crops = torch.empty((n, size, size, 3), dtype=torch.float32, device=dev)
+    crops = torch.empty((n, size, size, 3), dtype=dt, device=dev)
     stats = torch.empty((n, 6), dtype=torch.float32, device=dev)
-    out = torch.empty((n, q, q, f), dtype=torch.float32, device=dev)
+    out = torch.empty((n, q, q, f), dtype=dt, device=dev)
     lib = cuda_build.load("cuda_orient")
-    fn = lib.gv_orient_front
-    fn.restype = ctypes.c_int
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, I, I, P, I, P, P, I, I, I, I, P, I, P, P, P, P, P]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    cuda_build.check(
-        fn(images.data_ptr(), h, w, rig.data_ptr(),
-           int(rig.dtype == torch.int64), valid.data_ptr(), xyxy.data_ptr(),
-           n, size, q, _pad_lo(size), wfrag.data_ptr(), f, t.data_ptr(),
-           crops.data_ptr(), stats.data_ptr(), out.data_ptr(), stream),
-        "gv_orient_front")
-    launches += 1
+    head = (images.data_ptr(), h, w, rig.data_ptr(),
+            int(rig.dtype == torch.int64), valid.data_ptr(), xyxy.data_ptr(),
+            n, size, q, _pad_lo(size), wfrag.data_ptr(), f)
+    tail = (crops.data_ptr(), stats.data_ptr(), out.data_ptr(), stream)
+    if dt == torch.float32:
+        fn = lib.gv_orient_front
+        fn.restype = ctypes.c_int
+        fn.argtypes = [P, I, I, P, I, P, P, I, I, I, I, P, I, P, P, P, P, P]
+        cuda_build.check(fn(*head, t.data_ptr(), *tail), "gv_orient_front")
+        launches += 1
+    else:
+        fn = lib.gv_orient_front_bf16
+        fn.restype = ctypes.c_int
+        fn.argtypes = [P, I, I, P, I, P, P, I, I, I, I, P, I, P, P, P, P, P,
+                       P]
+        cuda_build.check(fn(*head, consts["s"].data_ptr(), t.data_ptr(),
+                            *tail), "gv_orient_front_bf16")
+        launches_bf16 += 1
     return out
 
 
@@ -172,9 +245,16 @@ def orient_front_cuda(images: torch.Tensor, xyxy: torch.Tensor,
     """(R, H, W, 3) [0, 255] frames + (N, 4) boxes, (N,) validity and (N,)
     rig indices in [0, R) -> (N, S/8, S/8, F) post-ConvBN_0 activations:
     the kernels on a CUDA tensor (consts: prepare_orient_constants on its
-    device), the plain twin on the net's modules for a CPU tensor."""
+    device), the plain twin for a CPU tensor. The form of consts (f32 or
+    bf16) is the frames' and the activation's dtype; frames of another
+    dtype raise."""
     if images.device.type == "cpu":
-        return orient_front_plain(images, xyxy, valid, rig, model, size)
+        dt = cuda_build.consts_dtype(consts)
+        if images.dtype != dt:
+            raise ValueError(f"images must be {dt}, the form of the "
+                             "constants")
+        return orient_front_plain(images, xyxy, valid, rig, model, size,
+                                  consts)
     if images.device.type != "cuda":
         raise ValueError(f"unsupported device {images.device}")
     return _launch(images, xyxy, valid, rig, consts, size)

@@ -10,6 +10,15 @@ them and how: the resize and ConvBN_0 from staged frame tiles, ConvBN_1 on
 the tensor cores in 3xTF32 from weights split and packed here once per
 model); on a CPU tensor it runs ``detector_stem_plain``: the resize
 matmuls, then F.conv2d with the BN folded to a scale and shift.
+
+The bf16 form (constants from ``prepare_stem_constants(detector,
+torch.bfloat16)``, bf16 frames, a bf16 activation out) rounds where the
+Pallas kernel rounds at compute_dtype=bf16: the frame, the resize weights
+(1/255 folded into the x weights) and each resize product's result are
+bf16, the conv weights bf16 without the BN scale, the sums f32, BN (x * s +
+b) and leaky in f32 rounded once to bf16, for ConvBN_0 (whose output is
+bf16) and ConvBN_1. Its twin ``detector_stem_plain`` computes the same from
+f32 einsums and F.conv2d on the bf16-rounded operands.
 """
 
 from __future__ import annotations
@@ -23,21 +32,29 @@ import torch
 import torch.nn.functional as F
 
 from ..models.layers import fold_bn, same_pad
-from . import cuda_build, tf32x3
-from .preprocess import preprocess_detector_image, _axis_resize_weights
+from . import bf16mma, cuda_build, tf32x3
+from .preprocess import (_axis_resize_weights, einsum_in,
+                         preprocess_detector_image)
 
-# Kernel launches made by detector_stem_cuda (one per call).
+# Kernel launches made by detector_stem_cuda (one per call), of the f32
+# form and of the bf16 form.
 launches = 0
+launches_bf16 = 0
 
 
-def prepare_stem_constants(detector) -> Dict[str, torch.Tensor]:
+def prepare_stem_constants(detector, dtype=torch.float32
+                           ) -> Dict[str, torch.Tensor]:
     """Fold the stem weights of a YoloV4Tiny once (Engine init), on the
-    detector's device. For the kernels: w0[(ty*3 + tx)*3 + c, co] with its
+    detector's device, for the kernels' f32 form or (dtype=torch.bfloat16)
+    their bf16 form (_bf16_constants). f32, for the kernels:
+    w0[(ty*3 + tx)*3 + c, co] with its
     BN scale s0 and shift b0; w1frag, the (288, 64) matrix
     w1[(ty*3 + tx)*32 + c, co] with the BN scale folded in, split into TF32
     hi and lo and packed in mma fragment order (tf32x3.pack_b_fragments:
     (36, 8, 32, 4)), and its BN shift b1. For the plain twin: OIHW copies
     and s1."""
+    if dtype == torch.bfloat16:
+        return _bf16_constants(detector)
     with torch.no_grad():
         c0, c1 = detector.ConvBN_0, detector.ConvBN_1
         w0 = c0.Conv_0.weight.detach()                 # (32, 3, 3, 3)
@@ -51,6 +68,28 @@ def prepare_stem_constants(detector) -> Dict[str, torch.Tensor]:
             w0_oihw=w0.contiguous(), w1_oihw=w1.contiguous(),
             s0=s0.contiguous(), b0=b0.contiguous(),
             s1=s1.contiguous(), b1=b1.contiguous())
+
+
+def _bf16_constants(detector) -> Dict[str, torch.Tensor]:
+    """The bf16 form's constants: w0 (27, 32) rounded to bf16 (held in f32:
+    ConvBN_0 runs in FFMA), s0, b0; w1frag, ConvBN_1's (288, 64) matrix
+    without the BN scale packed by bf16mma.pack_b_fragments (18, 8, 32, 4),
+    s1, b1; bf16 OIHW copies for the twin; dtype."""
+    with torch.no_grad():
+        c0, c1 = detector.ConvBN_0, detector.ConvBN_1
+        w0 = c0.Conv_0.weight.detach()
+        w1 = c1.Conv_0.weight.detach()
+        s0, b0 = fold_bn(c0.BatchNorm_0)
+        s1, b1 = fold_bn(c1.BatchNorm_0)
+        return dict(
+            w0=bf16mma.round_bf16(w0.permute(2, 3, 1, 0).reshape(27, 32))
+            .contiguous(),
+            w1frag=bf16mma.pack_b_fragments(
+                w1.permute(2, 3, 1, 0).reshape(288, 64)),
+            w0_oihw=w0.to(torch.bfloat16).contiguous(),
+            w1_oihw=w1.to(torch.bfloat16).contiguous(),
+            s0=s0.contiguous(), b0=b0.contiguous(),
+            s1=s1.contiguous(), b1=b1.contiguous(), dtype=torch.bfloat16)
 
 
 @functools.lru_cache(maxsize=None)
@@ -79,8 +118,36 @@ def _conv_bn_leaky(x, w, s, b):
                         0.1)
 
 
+def _conv_bn_leaky_bf16(x, w, s, b):
+    """The bf16 form's conv: NCHW 3x3/s2 SAME conv of bf16 operands with
+    f32 sums, BN (x * s + b) and leaky in f32, rounded to bf16 once."""
+    py = same_pad(x.shape[2], 3, 2)
+    px = same_pad(x.shape[3], 3, 2)
+    y = F.conv2d(F.pad(x.float(), (px[0], px[1], py[0], py[1])), w.float(),
+                 stride=2)
+    return F.leaky_relu(y * s[None, :, None, None] + b[None, :, None, None],
+                        0.1).to(torch.bfloat16)
+
+
+def _stem_plain_bf16(images: torch.Tensor, consts, size: int):
+    bf = torch.bfloat16
+    _, h, w, _ = images.shape
+    dev = images.device
+    wy = torch.as_tensor(_axis_resize_weights(h, size), device=dev)
+    wx = torch.as_tensor(_axis_resize_weights(w, size)
+                         * np.float32(1.0 / 255.0), device=dev)
+    tmp = einsum_in(bf, "jx,byxc->byjc", wx, images, bf)
+    x = einsum_in(bf, "iy,byjc->bcij", wy, tmp, bf)
+    x = _conv_bn_leaky_bf16(x, consts["w0_oihw"], consts["s0"], consts["b0"])
+    x = _conv_bn_leaky_bf16(x, consts["w1_oihw"], consts["s1"], consts["b1"])
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
 def detector_stem_plain(images: torch.Tensor, consts, size: int):
-    """The kernel's plain twin: resize matmuls + F.conv2d."""
+    """The kernel's plain twin: resize matmuls + F.conv2d (the form of
+    `consts`)."""
+    if cuda_build.consts_dtype(consts) == torch.bfloat16:
+        return _stem_plain_bf16(images, consts, size)
     x = torch.stack([preprocess_detector_image(im, size) for im in images])
     x = x.permute(0, 3, 1, 2)
     x = _conv_bn_leaky(x, consts["w0_oihw"], consts["s0"], consts["b0"])
@@ -167,50 +234,74 @@ def blocks_per_sm(h: int, w: int, size: int) -> Dict[str, int]:
 _device_taps: Dict[tuple, tuple] = {}
 
 
-def _taps_on(device, h: int, w: int, size: int):
-    key = (str(device), h, w, size)
+def _taps_on(device, h: int, w: int, size: int, dtype=torch.float32):
+    """The tap tables on `device`; the bf16 form's weights rounded to
+    bf16 (held in f32)."""
+    key = (str(device), h, w, size, dtype)
     if key not in _device_taps:
         ry0, ryw = resize_taps(h, size)
         rx0, rxw = resize_taps(w, size, 1.0 / 255.0)
-        _device_taps[key] = tuple(
-            torch.as_tensor(a, device=device) for a in (ry0, ryw, rx0, rxw))
+        taps = [torch.as_tensor(a, device=device)
+                for a in (ry0, ryw, rx0, rxw)]
+        if dtype == torch.bfloat16:
+            taps[1], taps[3] = (bf16mma.round_bf16(taps[1]),
+                                bf16mma.round_bf16(taps[3]))
+        _device_taps[key] = tuple(taps)
     return _device_taps[key]
 
 
-# the constants the kernels read
+# the constants the kernels read: the f32 form's (all f32) and the bf16
+# form's (name -> (shape, dtype))
 _SHAPES = dict(w0=(27, 32), s0=(32,), b0=(32,), w1frag=(36, 8, 32, 4),
                b1=(64,))
+_SHAPES_BF16 = dict(w0=((27, 32), torch.float32),
+                    s0=((32,), torch.float32), b0=((32,), torch.float32),
+                    w1frag=((18, 8, 32, 4), torch.bfloat16),
+                    s1=((64,), torch.float32), b1=((64,), torch.float32))
 
 
 def _launch(images: torch.Tensor, consts, size: int) -> torch.Tensor:
-    global launches
+    global launches, launches_bf16
     dev = images.device
-    if (images.dtype != torch.float32 or images.dim() != 4
+    dt = cuda_build.consts_dtype(consts)
+    if (images.dtype != dt or images.dim() != 4
             or images.shape[-1] != 3 or not images.is_contiguous()):
-        raise ValueError("images must be a contiguous (B, H, W, 3) float32 "
-                         "tensor")
-    for name, shape in _SHAPES.items():
-        t = consts[name]
-        if (t.device != dev or t.dtype != torch.float32
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(f"stem constant {name} must be a contiguous "
-                             f"{shape} float32 tensor on {dev}")
+        raise ValueError(f"images must be a contiguous (B, H, W, 3) {dt} "
+                         "tensor (the form of the constants)")
+    cuda_build.check_constants(
+        consts, _SHAPES if dt == torch.float32 else _SHAPES_BF16, dev, "stem")
     b, h, w, _ = images.shape
     s0 = -(-size // 2)
     s1 = -(-s0 // 2)
     pad0 = same_pad(size, 3, 2)[0]
     pad1 = same_pad(s0, 3, 2)[0]
-    ry0, ryw, rx0, rxw = _taps_on(dev, h, w, size)
+    ry0, ryw, rx0, rxw = _taps_on(dev, h, w, size, dt)
     fh_max, fw_max, band = conv0_patch(h, w, size)
-    mid = torch.empty((b, s0, s0, 32), dtype=torch.float32, device=dev)
-    out = torch.empty((b, s1, s1, 64), dtype=torch.float32, device=dev)
+    mid = torch.empty((b, s0, s0, 32), dtype=dt, device=dev)
+    out = torch.empty((b, s1, s1, 64), dtype=dt, device=dev)
     lib = cuda_build.load("cuda_stem")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dt == torch.bfloat16:
+        fn = lib.gv_detector_stem_bf16
+        fn.restype = ctypes.c_int
+        fn.argtypes = [P, I, I, I, P, P, I, P, P, I, I, I, I, I, P, P, P, I,
+                       I, P, P, P, P, I, I, P, P]
+        cuda_build.check(
+            fn(images.data_ptr(), b, h, w, ry0.data_ptr(), ryw.data_ptr(),
+               ryw.shape[1], rx0.data_ptr(), rxw.data_ptr(), rxw.shape[1],
+               size, fh_max, fw_max, band, consts["w0"].data_ptr(),
+               consts["s0"].data_ptr(), consts["b0"].data_ptr(), pad0, s0,
+               mid.data_ptr(), consts["w1frag"].data_ptr(),
+               consts["s1"].data_ptr(), consts["b1"].data_ptr(), pad1, s1,
+               out.data_ptr(), stream),
+            "gv_detector_stem_bf16")
+        launches_bf16 += 1
+        return out
     fn = lib.gv_detector_stem
     fn.restype = ctypes.c_int
-    P, I = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [P, I, I, I, P, P, I, P, P, I, I, I, I, I, I, P, P, P, I,
                    I, P, P, P, I, I, P, P]
-    stream = torch.cuda.current_stream(dev).cuda_stream
     cuda_build.check(
         fn(images.data_ptr(), b, h, w, ry0.data_ptr(), ryw.data_ptr(),
            ryw.shape[1], rx0.data_ptr(), rxw.data_ptr(), rxw.shape[1], size,
@@ -229,8 +320,14 @@ def detector_stem_cuda(images: torch.Tensor, consts,
                        size: int) -> torch.Tensor:
     """(B, H, W, 3) [0, 255] frames -> (B, S/4, S/4, 64) post-ConvBN_1
     activation: the kernels on a CUDA tensor, the plain twin on a CPU
-    tensor. consts: prepare_stem_constants on the frames' device."""
+    tensor. consts: prepare_stem_constants on the frames' device; their
+    form (f32 or bf16) is the frames' and the activation's dtype, and
+    frames of another dtype raise."""
     if images.device.type == "cpu":
+        dt = cuda_build.consts_dtype(consts)
+        if images.dtype != dt:
+            raise ValueError(f"frames must be {dt}, the form of the "
+                             "constants")
         return detector_stem_plain(images, consts, size)
     if images.device.type != "cuda":
         raise ValueError(f"unsupported device {images.device}")

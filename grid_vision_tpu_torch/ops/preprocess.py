@@ -38,13 +38,44 @@ def _axis_resize_weights(n_in: int, n_out: int) -> np.ndarray:
     return (w * ok[:, None]).astype(np.float32)
 
 
-def preprocess_detector_image(image: torch.Tensor, size: int) -> torch.Tensor:
+def einsum_in(dtype, equation: str, a: torch.Tensor, b: torch.Tensor,
+              out_dtype=None) -> torch.Tensor:
+    """einsum of a and b rounded to `dtype`, summed in f32, returned in
+    out_dtype (default f32): the JAX package's einsums with operands in the
+    compute dtype and preferred_element_type f32. bf16 products are exact in
+    f32, so off the card this is an f32 einsum of the rounded operands; on
+    the card, where the result is rounded to bf16 anyway, a bf16 einsum
+    (f32 accumulation: the reduced-precision reduction is switched off)."""
+    out_dtype = out_dtype or torch.float32
+    if dtype == torch.float32:
+        return torch.einsum(equation, a.float(), b.float()).to(out_dtype)
+    a, b = a.to(dtype), b.to(dtype)
+    if a.is_cuda and out_dtype == dtype:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
+        return torch.einsum(equation, a, b)
+    return torch.einsum(equation, a.float(), b.float()).to(out_dtype)
+
+
+def preprocess_detector_image(image: torch.Tensor, size: int,
+                              compute_dtype=torch.float32) -> torch.Tensor:
     """(H, W, 3) float RGB in [0, 255] -> (size, size, 3) in [0, 1]: two
     interpolation matmuls against the constant weight matrices (the longer
-    x axis contracted first), then /255."""
+    x axis contracted first), then /255. In bf16 the frame and the weights
+    are rounded to bf16 and each product's result (f32 sums) too, as the
+    JAX package's bf16 einsums do."""
     h, w, _ = image.shape
     wy = torch.as_tensor(_axis_resize_weights(h, size), device=image.device)
     wx = torch.as_tensor(_axis_resize_weights(w, size), device=image.device)
+    if compute_dtype != torch.float32:
+        tmp = einsum_in(compute_dtype, "jx,yxc->yjc", wx, image,
+                        compute_dtype)
+        resized = einsum_in(compute_dtype, "iy,yjc->ijc", wy, tmp,
+                            compute_dtype)
+        # by a tensor: a CUDA tensor divided by a Python scalar is
+        # multiplied by its reciprocal
+        return resized / torch.full((), 255.0, dtype=compute_dtype,
+                                    device=image.device)
     tmp = torch.einsum("jx,yxc->yjc", wx, image.float())
     resized = torch.einsum("iy,yjc->ijc", wy, tmp)
     return resized / 255.0
@@ -101,28 +132,65 @@ def _box_weights(xyxy: torch.Tensor, h: int, w: int, out_size: int):
             _interp_weights(w, xlo, xhi, fx))
 
 
-def crop_resize(image: torch.Tensor, boxes: Boxes,
-                out_size: int) -> torch.Tensor:
+def crop_resize(image: torch.Tensor, boxes: Boxes, out_size: int,
+                compute_dtype=torch.float32, out_dtype=None) -> torch.Tensor:
     """(H, W, 3) image + padded Boxes -> (D, out, out, 3) bilinear crops,
-    as two interpolation-weight matmuls (x contracted first)."""
+    as two interpolation-weight matmuls (x contracted first). The frame
+    and the weights go in as compute_dtype with f32 sums; in bf16 the first
+    product is rounded to bf16 before the second. The crops come out f32,
+    or in out_dtype."""
     h, w, _ = image.shape
     wy, wx = _box_weights(boxes.xyxy, h, w, out_size)
+    if compute_dtype != torch.float32:
+        tmp = einsum_in(compute_dtype, "djx,yxc->dyjc", wx, image,
+                        compute_dtype)
+        return einsum_in(compute_dtype, "diy,dyjc->dijc", wy, tmp,
+                         out_dtype)
     tmp = torch.einsum("djx,yxc->dyjc", wx, image.float())
-    return torch.einsum("diy,dyjc->dijc", wy, tmp)
+    crops = torch.einsum("diy,dyjc->dijc", wy, tmp)
+    return crops if out_dtype is None else crops.to(out_dtype)
 
 
-def _standardize(crops: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def _standardize(crops: torch.Tensor, valid: torch.Tensor,
+                 out_dtype=None) -> torch.Tensor:
     """Per-crop per-channel (x - mean) / std with the crop's own population
-    statistics (quirk Q10), two-pass in f32; invalid crops -> 0."""
-    mean = crops.mean(dim=(1, 2), keepdim=True)
-    var = ((crops - mean) ** 2).mean(dim=(1, 2), keepdim=True)
-    out = (crops - mean) / torch.clamp(torch.sqrt(var), min=1e-6)
-    return torch.where(valid[:, None, None, None], out,
-                       torch.zeros((), device=crops.device))
+    statistics (quirk Q10); invalid crops -> 0. f32 crops: two-pass in f32.
+    bf16 crops (the JAX package's reduced-precision branch): single-pass
+    moments E[x^2] - E[x]^2 accumulated in f32, then the normalize in bf16
+    with the mean and 1 / std rounded to bf16. The result in out_dtype
+    (default: the crops' dtype)."""
+    if crops.dtype == torch.float32:
+        mean = crops.mean(dim=(1, 2), keepdim=True)
+        var = ((crops - mean) ** 2).mean(dim=(1, 2), keepdim=True)
+        out = (crops - mean) / torch.clamp(torch.sqrt(var), min=1e-6)
+        out = torch.where(valid[:, None, None, None], out,
+                          torch.zeros((), device=crops.device))
+        return out if out_dtype is None else out.to(out_dtype)
+    mean, inv = single_pass_stats(crops)
+    dt = crops.dtype
+    out = (crops - mean.to(dt)) * inv.to(dt)
+    out = torch.where(valid[:, None, None, None], out,
+                      torch.zeros((), dtype=dt, device=crops.device))
+    return out if out_dtype is None else out.to(out_dtype)
+
+
+def single_pass_stats(crops: torch.Tensor):
+    """Per-crop per-channel mean and 1 / std of (N, S, S, 3) crops from
+    single-pass f32 moments, each (N, 1, 1, 3) f32: var = max(E[x^2] -
+    E[x]^2, 0), 1 / max(sqrt(var), 1e-6)."""
+    x = crops.float()
+    mean = x.mean(dim=(1, 2), keepdim=True)
+    ex2 = (x * x).mean(dim=(1, 2), keepdim=True)
+    var = torch.clamp(ex2 - mean * mean, min=0.0)
+    return mean, 1.0 / torch.clamp(torch.sqrt(var), min=1e-6)
 
 
 def crop_resize_standardize(image: torch.Tensor, boxes: Boxes,
-                            out_size: int) -> torch.Tensor:
+                            out_size: int, compute_dtype=torch.float32,
+                            out_dtype=None) -> torch.Tensor:
     """crop_resize then _standardize: (D, out, out, 3) standardized crops;
-    invalid boxes yield zero crops."""
-    return _standardize(crop_resize(image, boxes, out_size), boxes.valid)
+    invalid boxes yield zero crops. In bf16 the crops are rounded to bf16
+    before the statistics, as in the JAX package."""
+    crops = crop_resize(image, boxes, out_size, compute_dtype,
+                        out_dtype=compute_dtype)
+    return _standardize(crops, boxes.valid, out_dtype)

@@ -26,12 +26,16 @@ detector ``"pallas2"`` / ``"pallas3"``, which add the CSP-stage kernel)
 runs this package's CUDA kernels (ops/cuda_*.py), ``"xla"`` the
 plain-torch port of the JAX package's XLA function.
 
-This port covers the vision-orientation path in f32: the shipped default
-config, the fleet configuration of bench.py minus bf16, the extension
-flags (raycast_free_space, yaw_aware_rasterization, vision_depth_refine,
-class_aware_nms) and every kernel backend. Options it does not port yet
-(int8, bf16, the PCA branch, knn_backend="approx", the resnet orientation
-arch) raise NotImplementedError rather than run something else.
+This port covers the vision-orientation path in f32 and in bf16
+(compute_dtype="bfloat16", with every orientation_compute): the shipped
+default config, the fleet configuration of bench.py, the extension flags
+(raycast_free_space, yaw_aware_rasterization, vision_depth_refine,
+class_aware_nms) and every kernel backend. In bf16 the detector and the
+orientation branch (crops, net) compute in bf16 as the JAX package does;
+MultiBin, decode, NMS, the kNN, the grid and the carve stay f32. Options
+it does not port yet (int8, the s2d detector stem, the PCA branch,
+knn_backend="approx", the resnet orientation arch) raise
+NotImplementedError rather than run something else.
 """
 
 from __future__ import annotations
@@ -56,11 +60,33 @@ from .types import (Boxes, Extrinsics, GridState, LShapePoses, Obs,
 from .utils import prng
 
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg: GridVisionConfig) -> torch.dtype:
+    """The detector's compute dtype."""
+    return _DTYPES[cfg.compute_dtype]
+
+
+def _orientation_dtype(cfg: GridVisionConfig) -> torch.dtype:
+    """The orientation branch's compute dtype (crops and net):
+    orientation_compute="follow" inherits compute_dtype, "float32" and
+    "bfloat16" pin it (JAX pipeline._orientation_dtype)."""
+    mode = cfg.orientation_compute
+    if mode == "follow":
+        mode = cfg.compute_dtype
+    return torch.bfloat16 if mode == "bfloat16" else torch.float32
+
+
+def _consts_key(name: str, dtype: torch.dtype) -> str:
+    """The params key of a kernel's folded constants in one dtype."""
+    return name if dtype == torch.float32 else name + "_bf16"
+
+
 def check_slice(cfg: GridVisionConfig) -> None:
     """Raise NotImplementedError for options this port does not run yet."""
     unported = {
-        "compute_dtype": cfg.compute_dtype != "float32",
-        "orientation_compute": cfg.orientation_compute == "bfloat16",
+        "compute_dtype": cfg.compute_dtype not in _DTYPES,
         "detector_precision": cfg.detector_precision != "float",
         "detector_s2d_stem": cfg.detector_s2d_stem,
         "detector_stem_backend": cfg.detector_stem_backend not in (
@@ -85,24 +111,27 @@ def _detector_forward(params, images: torch.Tensor, cfg: GridVisionConfig):
     "pallas" feeds the net the stem kernel's stage-2 activation
     (stem_external); "pallas2" and "pallas3", two TPU layouts of one CSP
     stage, both add the CSP-stage kernel (front_external). The folded
-    constants ride in params when the Engine prepared them."""
+    constants ride in params when the Engine prepared them. The net
+    computes in compute_dtype; the frames go to the stem kernel in it (as
+    pallas_stem casts them)."""
     backend = cfg.detector_stem_backend
     detector = params["detector"]
+    dt = compute_dtype(cfg)
     if backend == "xla":
         net_in = torch.stack([preprocess.preprocess_detector_image(
-            im, cfg.resize) for im in images])
-        return yolov4_tiny.forward(detector, net_in)
-    consts = params.get("detector_stem")
+            im, cfg.resize, dt) for im in images])
+        return yolov4_tiny.forward(detector, net_in, dtype=dt)
+    consts = params.get(_consts_key("detector_stem", dt))
     if consts is None:
-        consts = cuda_stem.prepare_stem_constants(detector)
-    x = cuda_stem.detector_stem_cuda(images, consts, cfg.resize)
+        consts = cuda_stem.prepare_stem_constants(detector, dt)
+    x = cuda_stem.detector_stem_cuda(images.to(dt), consts, cfg.resize)
     if backend == "pallas":
-        return yolov4_tiny.forward(detector, x, stem_external=True)
-    csp = params.get("detector_csp")
+        return yolov4_tiny.forward(detector, x, stem_external=True, dtype=dt)
+    csp = params.get(_consts_key("detector_csp", dt))
     if csp is None:
-        csp = cuda_csp.prepare_csp_constants(detector)
+        csp = cuda_csp.prepare_csp_constants(detector, dt)
     x = cuda_csp.detector_csp_cuda(x, detector, csp)
-    return yolov4_tiny.forward(detector, x, front_external=True)
+    return yolov4_tiny.forward(detector, x, front_external=True, dtype=dt)
 
 
 def detect(params: Dict[str, Any], image: torch.Tensor,
@@ -141,11 +170,13 @@ def _vision_orientation_poses(params, image: torch.Tensor, boxes: Boxes,
                               K: torch.Tensor, cfg: GridVisionConfig):
     """The use_vision_orientation branch (:190-209) of one rig, camera
     frame: its first max_orientation_batch dynamic boxes through the crop
-    chain and the full net."""
+    chain and the full net, in the orientation dtype."""
     dyn_boxes, _ = _compact_dynamic(boxes, cfg.max_orientation_batch)
-    crops = preprocess.crop_resize_standardize(image, dyn_boxes,
-                                               cfg.network_height)
-    orient, conf, dims = orientation_net.forward(params["orientation"], crops)
+    gdtype = _orientation_dtype(cfg)
+    crops = preprocess.crop_resize_standardize(
+        image, dyn_boxes, cfg.network_height, compute_dtype=gdtype)
+    orient, conf, dims = orientation_net.forward(params["orientation"], crops,
+                                                 dtype=gdtype)
     return multibin.multibin_poses(orient, conf, dims, dyn_boxes, K, cfg)
 
 
@@ -161,7 +192,8 @@ def _fleet_vision_poses(params, images: torch.Tensor, boxes_b: Boxes,
     standardizes and runs ConvBN_0 for the kept crops only (sorted, so each
     rig's crops are adjacent), then the net with stem_external; "xla": each
     rig's slots are cropped against its own frame, the kept crops
-    standardized after compaction, then the full net.
+    standardized after compaction, then the full net. Crops and net run in
+    the orientation dtype.
 
     Returns (poses_b (R, cap) LShapePoses, dropped_b (R,) int32 valid
     candidates lost to the budget)."""
@@ -179,23 +211,27 @@ def _fleet_vision_poses(params, images: torch.Tensor, boxes_b: Boxes,
                         torch.full((), -1.0, device=images.device))
     _, top_idx = top_k(score, budget)
     model = params["orientation"]
+    gdtype = _orientation_dtype(cfg)
     if cfg.orientation_stem_backend == "pallas":
         top_idx = torch.sort(top_idx).values
         g_boxes = flat.take(top_idx)
-        consts = params.get("orientation_stem")
+        consts = params.get(_consts_key("orientation_stem", gdtype))
         if consts is None:
-            consts = cuda_orient.prepare_orient_constants(model)
+            consts = cuda_orient.prepare_orient_constants(model, gdtype)
         acts = cuda_orient.orient_front_cuda(
-            images, g_boxes.xyxy, g_boxes.valid, top_idx // cap, model,
-            consts, size)
-        orient, conf, dims = orientation_net.forward(model, acts,
-                                                     stem_external=True)
+            images.to(gdtype), g_boxes.xyxy, g_boxes.valid, top_idx // cap,
+            model, consts, size)
+        orient, conf, dims = orientation_net.forward(
+            model, acts, stem_external=True, dtype=gdtype)
     else:
         g_boxes = flat.take(top_idx)
         crops_raw = torch.cat([preprocess.crop_resize(
-            images[r], dyn_b.select(r), size) for r in range(n_rigs)])
-        crops = preprocess._standardize(crops_raw[top_idx], g_boxes.valid)
-        orient, conf, dims = orientation_net.forward(model, crops)
+            images[r], dyn_b.select(r), size, gdtype, out_dtype=gdtype)
+            for r in range(n_rigs)])
+        crops = preprocess._standardize(crops_raw[top_idx], g_boxes.valid,
+                                        out_dtype=gdtype)
+        orient, conf, dims = orientation_net.forward(model, crops,
+                                                     dtype=gdtype)
     poses_g = multibin.multibin_poses(orient, conf, dims, g_boxes, K, cfg)
 
     def scatter(x, fill):
@@ -470,19 +506,22 @@ class Engine:
             params = weights.load_all(cfg, base_dir=base_dir, seed=seed,
                                       device=self.device)
         params = dict(params)
-        # fold the kernels' weights once, not per tick
-        if (cfg.detector_stem_backend != "xla"
-                and "detector_stem" not in params):
-            params["detector_stem"] = cuda_stem.prepare_stem_constants(
-                params["detector"])
-        if (cfg.detector_stem_backend in ("pallas2", "pallas3")
-                and "detector_csp" not in params):
-            params["detector_csp"] = cuda_csp.prepare_csp_constants(
-                params["detector"])
-        if (cfg.orientation_stem_backend == "pallas"
-                and "orientation_stem" not in params):
-            params["orientation_stem"] = \
-                cuda_orient.prepare_orient_constants(params["orientation"])
+        # fold the kernels' weights once, not per tick, in the dtype each
+        # kernel runs in
+        dt, gdt = compute_dtype(cfg), _orientation_dtype(cfg)
+        for used, key, prepare, net in (
+                (cfg.detector_stem_backend != "xla",
+                 _consts_key("detector_stem", dt),
+                 cuda_stem.prepare_stem_constants, "detector"),
+                (cfg.detector_stem_backend in ("pallas2", "pallas3"),
+                 _consts_key("detector_csp", dt),
+                 cuda_csp.prepare_csp_constants, "detector"),
+                (cfg.orientation_stem_backend == "pallas",
+                 _consts_key("orientation_stem", gdt),
+                 cuda_orient.prepare_orient_constants, "orientation")):
+            if used and key not in params:
+                params[key] = prepare(params[net],
+                                      dt if net == "detector" else gdt)
         # the carve's per-cell polar maps depend only on the extrinsics and
         # the grid geometry, which this engine fixes
         if cfg.raycast_free_space and "carve_maps" not in params:

@@ -4,6 +4,8 @@ scene pool of bench.py, build_obs_pool, which imports JAX)."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -31,11 +33,16 @@ class FleetPool:
     r is SyntheticScene(seed=r, n_ground=max_points // 2) with the default
     traffic and statics, 0-2 extra cars drawn from default_rng(1000 + r),
     seen at a time t_r drawn from the same generator in [0, 2). Tick i
-    shows every rig at t_r + 0.1 i (tick 0 is bench's pool)."""
+    shows every rig at t_r + 0.1 i (tick 0 is bench's pool).
 
-    def __init__(self, cfg: GridVisionConfig, n_rigs: int, device="cuda"):
+    image_dtype: the frames' storage dtype (bench.build_obs_pool's; bf16 in
+    the production configuration: 8-bit pixels are exact in bf16)."""
+
+    def __init__(self, cfg: GridVisionConfig, n_rigs: int, device="cuda",
+                 image_dtype=torch.float32):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.image_dtype = image_dtype
         self.scenes, self.t0 = [], []
         for r in range(n_rigs):
             scene = SyntheticScene(cfg, seed=r, n_ground=cfg.max_points // 2)
@@ -53,6 +60,8 @@ class FleetPool:
     def obs(self, tick: int = 0) -> Obs:
         """The fleet's Obs at tick `tick`, leading rig axis, on the pool's
         device (rendered on the host, then one copy per field)."""
-        host = [obs_from_scene(s, t + 0.1 * tick, self.cfg, "cpu")
-                for s, t in zip(self.scenes, self.t0)]
-        return stack(host).to(self.device)
+        host = stack([obs_from_scene(s, t + 0.1 * tick, self.cfg, "cpu")
+                      for s, t in zip(self.scenes, self.t0)])
+        host = dataclasses.replace(host,
+                                   image=host.image.to(self.image_dtype))
+        return host.to(self.device)

@@ -706,3 +706,128 @@ def test_gated_wrappers_reject_bad_epilogue_inputs(cuda_device):
         with pytest.raises(ValueError, match=match):
             cuda_raycast.fused_carve_update_gated(lo, box, ranges, cbin, cr,
                                                   g, p, cfg)
+
+
+# ---- the bf16 forms (compute_dtype="bfloat16") ---------------------------
+
+BF = torch.bfloat16
+
+
+def _bf16_hold(got, ref):
+    """A bf16 form against its twin: the JAX package's bf16 kernel bar
+    (rtol = atol = 0.06) and >= 99 % of the elements bit-equal."""
+    assert got.dtype == ref.dtype == BF
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0.06,
+                               atol=0.06)
+    assert (got == ref).float().mean().item() >= 0.99
+
+
+def _frames8(rng, shape, device):
+    return torch.as_tensor(rng.integers(0, 256, shape).astype(np.float32),
+                           device=device).to(BF)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,h,w,size", [(1, 480, 640, 416),
+                                            (64, 480, 640, 416),
+                                            (3, 200, 260, 148)])
+def test_stem_bf16_kernel_matches_twin(cuda_device, batch, h, w, size):
+    """1 and 64 frames at the ticks' shapes, and unaligned sizes (ragged
+    conv0 and conv1 tiles)."""
+    cfg = GridVisionConfig(detection_weights_file="weights/detector.npz")
+    det = weights.load_all(cfg, device=cuda_device)["detector"]
+    consts = cuda_stem.prepare_stem_constants(det, BF)
+    img = _frames8(np.random.default_rng(batch), (batch, h, w, 3),
+                   cuda_device)
+    n0 = cuda_stem.launches_bf16
+    got = cuda_stem.detector_stem_cuda(img, consts, size)
+    torch.cuda.synchronize()
+    assert cuda_stem.launches_bf16 == n0 + 1
+    _bf16_hold(got, cuda_stem.detector_stem_plain(img, consts, size))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,hw", [(1, 104), (64, 104), (2, 38)])
+def test_csp_bf16_kernel_matches_twin(cuda_device, batch, hw):
+    cfg = GridVisionConfig(detection_weights_file="weights/detector.npz")
+    det = weights.load_all(cfg, device=cuda_device)["detector"]
+    consts = cuda_csp.prepare_csp_constants(det, BF)
+    g = torch.Generator(device=cuda_device).manual_seed(batch)
+    x = (torch.rand((batch, hw, hw, 64), generator=g, device=cuda_device)
+         * 4).to(BF)
+    n0 = cuda_csp.launches_bf16
+    with torch.no_grad():
+        got = cuda_csp.detector_csp_cuda(x, det, consts)
+        torch.cuda.synchronize()
+        ref = cuda_csp.detector_csp_plain(x, det, consts)
+    assert cuda_csp.launches_bf16 == n0 + 1
+    assert got.shape == (batch, hw // 2, hw // 2, 128)
+    _bf16_hold(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rigs,n", [(1, 7), (64, 320)])
+def test_orient_bf16_kernel_matches_twin(cuda_device, rigs, n):
+    """Clamped, tiny and invalid boxes over 1 and 64 frames; an invalid
+    crop gives relu(t) rounded once."""
+    cfg = GridVisionConfig(vision_weights_file="weights/orientation.npz")
+    net = weights.load_all(cfg, device=cuda_device)["orientation"]
+    consts = cuda_orient.prepare_orient_constants(net, BF)
+    rng = np.random.default_rng(rigs)
+    images = _frames8(rng, (rigs, 480, 640, 3), cuda_device)
+    x0 = rng.uniform(-40, 600, n)
+    y0 = rng.uniform(-40, 440, n)
+    xyxy = np.stack([x0, y0, x0 + rng.uniform(8, 300, n),
+                     y0 + rng.uniform(8, 250, n)], -1).astype(np.float32)
+    valid = rng.uniform(size=n) > 0.1
+    valid[0] = False
+    rig = np.sort(rng.integers(0, rigs, n)).astype(np.int32)
+    args = [torch.as_tensor(a, device=cuda_device)
+            for a in (xyxy, valid, rig)]
+    n0 = cuda_orient.launches_bf16
+    with torch.no_grad():
+        got = cuda_orient.orient_front_cuda(images, *args, net, consts, 224)
+        torch.cuda.synchronize()
+        ref = cuda_orient.orient_front_plain(images, *args, net, 224, consts)
+    assert cuda_orient.launches_bf16 == n0 + 1
+    assert got.shape == (n, 28, 28, 128)
+    _bf16_hold(got, ref)
+    assert torch.equal(got[0], torch.relu(consts["t"]).to(BF).expand(
+        28, 28, 128))
+
+
+@pytest.mark.cuda
+def test_bf16_forms_raise_on_f32_inputs(cuda_device):
+    """A bf16 form takes bf16 frames and activations, and raises on f32
+    (it converts nothing silently)."""
+    cfg = GridVisionConfig(detection_weights_file="weights/detector.npz",
+                           vision_weights_file="weights/orientation.npz")
+    nets = weights.load_all(cfg, device=cuda_device)
+    det, net = nets["detector"], nets["orientation"]
+    frames = torch.zeros((1, 96, 128, 3), device=cuda_device)
+    with pytest.raises(ValueError, match="images must be"):
+        cuda_stem.detector_stem_cuda(
+            frames, cuda_stem.prepare_stem_constants(det, BF), 64)
+    with pytest.raises(ValueError, match="x must be"):
+        cuda_csp.detector_csp_cuda(
+            torch.zeros((1, 16, 16, 64), device=cuda_device), det,
+            cuda_csp.prepare_csp_constants(det, BF))
+    box = torch.tensor([[0.0, 0.0, 50.0, 50.0]], device=cuda_device)
+    with pytest.raises(ValueError, match="images must be"):
+        cuda_orient.orient_front_cuda(
+            frames, box, torch.ones(1, dtype=torch.bool, device=cuda_device),
+            torch.zeros(1, dtype=torch.int32, device=cuda_device), net,
+            cuda_orient.prepare_orient_constants(net, BF), 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(16, 16, 16), (128, 64, 288)])
+def test_bf16_tile_product_matches_emulation(cuda_device, m, n, k):
+    from grid_vision_tpu_torch.ops import bf16mma
+    g = torch.Generator(device=cuda_device).manual_seed(m)
+    a = torch.randn((m, k), generator=g, device=cuda_device)
+    b = torch.randn((k, n), generator=g, device=cuda_device)
+    got = cuda_csp.mma_product_bf16_cuda(a, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, bf16mma.matmul_bf16(a, b), rtol=1e-5,
+                               atol=1e-4)

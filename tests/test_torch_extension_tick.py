@@ -283,8 +283,8 @@ def test_check_slice_accepts_the_extension_flags(flag):
 
 @pytest.mark.parametrize("overrides,name", [
     (dict(detector_precision="int8"), "detector_precision"),
-    (dict(compute_dtype="bfloat16"), "compute_dtype"),
-    (dict(orientation_compute="bfloat16"), "orientation_compute"),
+    (dict(detector_s2d_stem=True), "detector_s2d_stem"),
+    (dict(orientation_s2d_fold=False), "orientation_s2d_fold"),
     (dict(use_vision_orientation=False), "use_vision_orientation"),
     (dict(knn_backend="approx"), "knn_backend"),
     (dict(orientation_arch="resnet"), "orientation_arch"),

@@ -3,14 +3,22 @@
 tests/fixtures/full_width_jax.npz holds what the JAX package's jitted Engine
 computes on the CPU ("xla" backends) at full width: 480x640 frames, detector
 416, orientation 224, 16384 points, the 500x200 grid, the shipped weights,
-the io/scene.py scene of seed 0, compat and extension mode, the last tick
-with neither image nor cloud (written by tools/jax_full_width_fixture.py).
-Here the port's Engine runs the same ticks on the CPU, on the plain
-("xla") backends and on the kernel backends (whose wrappers run their
-plain twins on a CPU tensor, the run gate and the export after them), and
-must reach BASELINE.md's bar: occupancy_i8 agreement >= 99 % every tick,
-and equal box and pose counts. chip_smoke.py's phase `jax_fixture` holds the
-kernels on the card to the same file.
+the io/scene.py scene of seed 0, compat and extension mode, each in f32
+and in the production bf16 configuration, the last tick with neither
+image nor cloud (written by tools/jax_full_width_fixture.py). Here the
+port's Engine runs the same ticks on the CPU, on the plain ("xla")
+backends and on the kernel backends (whose wrappers run their plain twins
+on a CPU tensor, the run gate and the export after them). f32 must reach
+BASELINE.md's bar: occupancy_i8 agreement >= 99 % every tick, and equal
+box and pose counts. bf16 (the JAX package's XLA chain rounds where the
+port's plain backend does, the kernels' twins where the Pallas kernels
+do, and the f32 sums of the two frameworks' convs run in other orders, so
+a rounding can flip) the bars of the JAX package's own bf16 against its
+f32 (PARITY.json production_vs_compat_vision: per-step min 0.97527, mean
+0.98586): equal box counts on >= 99 % of the ticks, occupancy_i8
+agreement >= 97.5 % every tick and >= 98.5 % on the mean.
+chip_smoke.py's phase `jax_fixture` holds the kernels on the card to the
+same file.
 """
 
 import dataclasses
@@ -48,7 +56,8 @@ def nets(reference):
 
 
 @pytest.mark.parametrize("backends", ["plain", "kernels"])
-@pytest.mark.parametrize("mode", ["compat", "extension"])
+@pytest.mark.parametrize("mode", ["compat", "extension", "compat_bf16",
+                                  "extension_bf16"])
 def test_port_matches_the_jax_package_at_full_width(reference, nets, mode,
                                                     backends):
     ref, meta = reference
@@ -61,7 +70,8 @@ def test_port_matches_the_jax_package_at_full_width(reference, nets, mode,
     scene.add_default_statics()
     state = eng.init_state()
     off = torch.zeros((), dtype=torch.bool)
-    n_poses = 0
+    bf16 = cfg.compute_dtype == "bfloat16"
+    n_poses, agree, same = 0, [], []
     for i in range(meta["ticks"]):
         obs = obs_from_scene(scene, i / 10.0, cfg, "cpu")
         if i == meta["gated_off_tick"]:
@@ -69,13 +79,20 @@ def test_port_matches_the_jax_package_at_full_width(reference, nets, mode,
         before = state.log_odds
         state, out = eng(state, obs)
         key = f"{mode}/{i}/"
-        assert int(out.boxes.valid.sum()) == int(
-            ref[key + "boxes_valid"].sum()), f"tick {i}: box count"
-        assert int(out.poses.valid.sum()) == int(
-            ref[key + "poses_valid"].sum()), f"tick {i}: pose count"
-        agree = (out.occupancy_i8.numpy() == ref[key + "occupancy_i8"]).mean()
-        assert agree >= 0.99, f"tick {i}: occupancy_i8 agreement {agree}"
+        same.append(int(out.boxes.valid.sum())
+                    == int(ref[key + "boxes_valid"].sum()))
+        agree.append((out.occupancy_i8.numpy()
+                      == ref[key + "occupancy_i8"]).mean())
+        if not bf16:
+            assert same[-1], f"tick {i}: box count"
+            assert int(out.poses.valid.sum()) == int(
+                ref[key + "poses_valid"].sum()), f"tick {i}: pose count"
+            assert agree[-1] >= 0.99, \
+                f"tick {i}: occupancy_i8 agreement {agree[-1]}"
         n_poses += int(out.poses.valid.sum())
+    if bf16:
+        assert np.mean(same) >= 0.99, same
+        assert np.mean(agree) >= 0.985 and min(agree) >= 0.975, agree
     # the gated-off tick left the grid as it was
     assert torch.equal(state.log_odds, before)
     assert n_poses > 0
