@@ -58,12 +58,21 @@ device JSON follows. Phases, each printing one line:
    tick is printed and must not be zero, and the outputs must agree with
    the same engine on the plain-torch backends; a profile of three
    extension fleet ticks; then a few ticks with yaw-aware rasterization
-   (plain torch on every backend) on the card; then the kernel path at full
-   width against the JAX package's fixture, each mode in f32 and bf16
-   (phase `jax_fixture`);
+   (plain torch on every backend) on the card; then the PCA pose branch
+   (use_vision_orientation=False; phase `pca`): the single-rig Engine for
+   PCA_ENGINE_TICKS ticks, the fleet for PCA_FLEET_TICKS ticks in f32 and
+   in bf16, and PCA_EXT_TICKS extension ticks with the carve kernel, each
+   against the same configuration on the plain backends, the orientation
+   kernel never launched; the PCA stage (plane, association, L-shape) run
+   under torch.cuda.set_sync_debug_mode("error"), its device time and
+   launches; the PCA fleet run's peak memory (max_memory_allocated, over
+   PCA_PEAK_GB fails) and a profile of three PCA fleet ticks; then the
+   kernel path at full width against the JAX package's fixture, each mode
+   (compat, extension, PCA) in f32 and bf16 (phase `jax_fixture`);
 8. a `kernels` JSON line for every ported kernel and form (launches: the
    fleet run's counts, the extension fleet run's for the carve kernel, the
-   bf16 fleet run's for the bf16 forms; for the
+   bf16 fleet run's for the bf16 forms, and `launches_pca_fleet`, the PCA
+   fleet run's (f32, bf16 for the bf16 forms); for the
    tensor-core kernels also `bound_3xtf32_ms`, the bound with three TF32
    products per f32 product at the TF32 rate; for them and the kNN kernel
    `device_ms`, their device time per profiled fleet tick, and
@@ -93,6 +102,10 @@ BF16_FLEET_TICKS = 10
 EXT_ENGINE_TICKS = 20
 EXT_FLEET_TICKS = 10
 YAW_TICKS = 2
+PCA_ENGINE_TICKS = 10
+PCA_FLEET_TICKS = 5
+PCA_EXT_TICKS = 2
+PCA_PEAK_GB = 40.0              # half the card: more fails the run
 N_RIGS = 64
 BUDGET = 5 * N_RIGS            # bench.py:206
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -1009,6 +1022,226 @@ def carved_shares(torch, cfg, obs_seq, extrinsics):
     return shares
 
 
+def pca_stage(torch, engine, states, obs):
+    """The PCA pose branch (plane, association, L-shape) of one tick, on
+    the inputs the tick gives it (boxes of the engine's detector, gated;
+    index 0 of each rig's rng split): pose count, device ms and device
+    launches per call from the profiler, host-clock ms per call, the same
+    for each part (RANSAC plane, association and sub-clouds, radius count,
+    PCA), and the sub-clouds' valid points against the packed points the
+    radius count processes. The stage runs once under
+    torch.cuda.set_sync_debug_mode("error"): a host sync fails the run."""
+    from grid_vision_tpu_torch import pipeline
+    from grid_vision_tpu_torch.geometry import intrinsic_matrix
+    from grid_vision_tpu_torch.utils import prng
+    cfg = engine.cfg
+    with torch.no_grad():
+        boxes, _ = pipeline.detect_batch(engine.params, obs.image, cfg)
+    boxes = dataclasses.replace(boxes,
+                                valid=boxes.valid & obs.has_image[:, None])
+    K = intrinsic_matrix(cfg.fx, cfg.fy, cfg.cx, cfg.cy,
+                         device=boxes.xyxy.device)
+    rng = prng.split(states.rng)[..., 0, :]
+
+    def call():
+        return pipeline.pose_branch(engine.params, obs, boxes, K, rng,
+                                    engine.extrinsics, cfg)
+
+    call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        poses, _ = call()
+    except RuntimeError as e:
+        torch.cuda.set_sync_debug_mode(0)
+        fail(f"the PCA stage synchronizes with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    n_poses = int(poses.valid.sum())
+    device_ms, launches = device_profile(torch, call, iters=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 3
+    # its parts, in the order _pca_poses runs them
+    from grid_vision_tpu_torch.geometry import transform_points
+    from grid_vision_tpu_torch.ops import association, lshape, plane
+    cloud = transform_points(engine.extrinsics.lidar_to_camera,
+                             obs.cloud.xyz)
+    valid = obs.cloud.mask() & obs.has_cloud[:, None]
+    n_boxes = boxes.capacity
+    parts = {"plane": lambda: plane.segment_ground_plane(
+        cloud, valid, rng, cfg.ransac_iters, cfg.ransac_distance_threshold)}
+    non_ground = parts["plane"]()[0]
+    parts["association"] = lambda: association.gather_box_clouds(
+        cloud, association.assign_points_to_boxes(
+            cloud, non_ground, K, boxes, cfg.camera_image_width,
+            cfg.camera_image_height)[0], n_boxes, cfg.max_points_per_box)
+    pts, pvalid, _ = parts["association"]()
+    parts["radius_count"] = lambda: lshape.radius_outlier_mask(
+        pts, pvalid, cfg.outlier_radius, cfg.outlier_min_neighbors,
+        max_valid=cloud.shape[-2])
+    kept = parts["radius_count"]()
+    parts["pca"] = lambda: lshape.pca_pose(pts, kept)
+    split = {}
+    for name, fn in parts.items():
+        ms, n = device_profile(torch, fn, iters=3)
+        split[name] = dict(device_ms=ms, device_launches=n)
+    return dict(poses=n_poses, device_ms=device_ms, device_launches=launches,
+                host_clock_ms=host_ms, sync_debug_mode="error", parts=split,
+                valid_sub_cloud_points=int(pvalid.sum()),
+                packed_points=cloud.shape[-2] * cloud.shape[0])
+
+
+def pca_phases(torch, dev, engine, cfg, fleet_cfg, nets, obs_seq,
+               fleet_obs, modules, forms, fleet_times, card):
+    """Phase `pca`: the PCA pose branch (use_vision_orientation=False) on
+    the single rig, the fleet in f32 and in bf16, and one extension
+    configuration, each against the same configuration on the plain
+    backends, counters from zero; the PCA stage's device time, launches
+    and host syncs (pca_stage); the PCA fleet tick's peak memory and
+    profile. Returns the launches of the f32 and the bf16 fleet runs."""
+    from grid_vision_tpu_torch import pipeline
+    from grid_vision_tpu_torch.types import stack
+    bf16 = torch.bfloat16
+    zero = {name: 0 for name in list(modules) + list(forms)}
+    pca = dict(use_vision_orientation=False)
+
+    def pca_run(run, want):
+        for m in modules.values():
+            m.launches = 0
+        for m in forms.values():
+            m.launches_bf16 = 0
+        result = run()
+        got = {name: m.launches for name, m in modules.items()}
+        got.update({name: m.launches_bf16 for name, m in forms.items()})
+        if got != dict(zero, **want):
+            fail(f"PCA run launches {got}, expected {dict(zero, **want)}")
+        return result, got
+
+    def pca_pair(base, **flags):
+        kern = pipeline.Engine(dataclasses.replace(base, **pca, **flags),
+                               extrinsics=engine.extrinsics, params=nets,
+                               device=dev)
+        plain = pipeline.Engine(dataclasses.replace(
+            base, **pca, **flags, detector_stem_backend="xla",
+            orientation_stem_backend="xla", grid_backend="xla",
+            knn_backend="xla"), extrinsics=engine.extrinsics, params=nets,
+            device=dev)
+        return kern, plain
+
+    def pose_counts(outs_a, outs_b):
+        a = [int(o.poses.valid.sum()) for o in outs_a]
+        if a != [int(o.poses.valid.sum()) for o in outs_b]:
+            fail("PCA pose counts differ from the plain path")
+        return a
+
+    pca_engine, pca_plain = pca_pair(cfg)
+    if any(k.startswith("orientation_stem") for k in pca_engine.params):
+        fail("a PCA engine folded the orientation kernel's constants")
+    pca_obs = obs_seq[:PCA_ENGINE_TICKS]
+    T = PCA_ENGINE_TICKS
+    (_, outs, times), pca_engine_launches = pca_run(
+        lambda: run_ticks(torch, pca_engine, pca_obs),
+        dict(detector_stem=T, grid_update=T, knn_median_depth=T))
+    _, plain_outs, plain_times = run_ticks(torch, pca_plain, pca_obs)
+    agree, n_boxes, n_poses = compare_outputs(torch, cfg, outs, plain_outs,
+                                              per_rig=False)
+    stage = pca_stage(torch, pca_engine, stack([pca_engine.init_state()]),
+                      stack([pca_obs[0]]))
+    phase("pca", path="engine", ticks=T, launches=pca_engine_launches,
+          median_tick_ms=statistics.median(times),
+          plain_median_tick_ms=statistics.median(plain_times),
+          min_occupancy_i8_agreement=agree, boxes_per_tick=n_boxes,
+          poses_per_tick=pose_counts(outs, plain_outs),
+          box_cloud_truncated=[int(o.saturation.box_cloud_truncated)
+                               for o in outs],
+          occupied_cells_last=int((outs[-1].occupancy_i8 > 50).sum()),
+          pca_stage=stage)
+    del outs, plain_outs, pca_engine, pca_plain
+
+    # the fleet in f32, then bf16 frames in the bf16 configuration
+    T = PCA_FLEET_TICKS
+    pca_fleet, pca_fplain = pca_pair(fleet_cfg)
+    pca_fobs = fleet_obs[:T]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (_, fouts, ftimes), pca_launches = pca_run(
+        lambda: run_fleet(torch, pca_fleet, pca_fobs, BUDGET),
+        dict(detector_stem=T, detector_csp=T, grid_update=T,
+             knn_median_depth=T))
+    peak_bytes = torch.cuda.max_memory_allocated()
+    if peak_bytes > PCA_PEAK_GB * 2 ** 30:
+        fail(f"the PCA fleet tick peaks at {peak_bytes / 2 ** 30:.2f} GiB")
+    _, fplain_outs, fplain_times = run_fleet(torch, pca_fplain, pca_fobs,
+                                             BUDGET)
+    fagree, f_boxes, f_poses = compare_outputs(torch, fleet_cfg, fouts,
+                                               fplain_outs, per_rig=True)
+    med, pmed = statistics.median(ftimes), statistics.median(fplain_times)
+    fstage = pca_stage(torch, pca_fleet, pca_fleet.init_states(N_RIGS),
+                       pca_fobs[0])
+    phase("pca", path="fleet", rigs=N_RIGS, ticks=T, launches=pca_launches,
+          median_tick_ms=med, plain_median_tick_ms=pmed,
+          rig_frames_per_s=N_RIGS / med * 1e3,
+          plain_rig_frames_per_s=N_RIGS / pmed * 1e3, tick_ms=ftimes,
+          vision_f32_median_tick_ms=statistics.median(fleet_times),
+          min_occupancy_i8_agreement_per_rig=fagree, boxes_per_tick=f_boxes,
+          poses_per_tick=f_poses,
+          box_cloud_truncated=[int(o.saturation.box_cloud_truncated.sum())
+                               for o in fouts],
+          peak_memory_gib=peak_bytes / 2 ** 30,
+          memory_before_gib=base_bytes / 2 ** 30, pca_stage=fstage,
+          card=card)
+    del fouts, fplain_outs, pca_fplain
+    torch.cuda.empty_cache()
+    phase("profile", path="pca_fleet/kernels",
+          **profile_fleet(torch, pca_fleet, pca_fobs[0], BUDGET))
+
+    bf_pca, bf_pca_plain = pca_pair(fleet_cfg, compute_dtype="bfloat16")
+    bf_pca_obs = [dataclasses.replace(o, image=o.image.to(bf16))
+                  for o in pca_fobs]
+    (_, fouts, ftimes), pca_bf_launches = pca_run(
+        lambda: run_fleet(torch, bf_pca, bf_pca_obs, BUDGET),
+        dict(detector_stem_bf16=T, detector_csp_bf16=T, grid_update=T,
+             knn_median_depth=T))
+    _, fplain_outs, fplain_times = run_fleet(torch, bf_pca_plain, bf_pca_obs,
+                                             BUDGET)
+    med, pmed = statistics.median(ftimes), statistics.median(fplain_times)
+    phase("pca", path="fleet_bf16", rigs=N_RIGS, ticks=T,
+          launches=pca_bf_launches, median_tick_ms=med,
+          plain_median_tick_ms=pmed, rig_frames_per_s=N_RIGS / med * 1e3,
+          plain_rig_frames_per_s=N_RIGS / pmed * 1e3, tick_ms=ftimes,
+          **compare_bf16(torch, fleet_cfg, fouts, fplain_outs))
+    del fouts, fplain_outs, bf_pca, bf_pca_plain, bf_pca_obs, pca_fleet
+    torch.cuda.empty_cache()
+
+    # one extension configuration with PCA: the carve kernel in the grid
+    # kernel's place
+    T = PCA_EXT_TICKS
+    ext_pca, ext_pca_plain = pca_pair(cfg, compat=False,
+                                      raycast_free_space=True)
+    (_, outs, _), pca_ext_launches = pca_run(
+        lambda: run_ticks(torch, ext_pca, obs_seq[:T]),
+        dict(detector_stem=T, carve_update=T, knn_median_depth=T))
+    _, plain_outs, _ = run_ticks(torch, ext_pca_plain, obs_seq[:T])
+    agree, n_boxes, _ = compare_outputs(torch, cfg, outs, plain_outs,
+                                        per_rig=False)
+    shares = carved_shares(torch, cfg, obs_seq[:T], engine.extrinsics)
+    if not max(shares) > 0.0:
+        fail("the PCA extension tick's scans carved no cell")
+    phase("pca", path="extension", ticks=T, launches=pca_ext_launches,
+          carved_share_per_tick=shares, min_occupancy_i8_agreement=agree,
+          boxes_per_tick=n_boxes,
+          poses_per_tick=pose_counts(outs, plain_outs))
+    del outs, plain_outs, ext_pca, ext_pca_plain
+    torch.cuda.empty_cache()
+    return pca_launches, pca_bf_launches
+
+
 def jax_fixture(torch, dev, root, cfg, nets, extrinsics):
     """The port's kernel path at full width against the JAX package's own
     outputs (tests/fixtures/full_width_jax.npz, written on the CPU by
@@ -1019,8 +1252,10 @@ def jax_fixture(torch, dev, root, cfg, nets, extrinsics):
     port's kernels follow, and its f32 sums run in another order): the bars
     of the JAX package's own bf16 against its f32 (PARITY.json
     production_vs_compat_vision), equal box counts on >= 99 % of ticks,
-    agreement >= 97.5 % every tick and >= 98.5 % on the mean. Returns the
-    per-tick agreement."""
+    agreement >= 97.5 % every tick and >= 98.5 % on the mean. The PCA
+    branch's modes (use_vision_orientation=False, f32 and bf16): its poses
+    come from the f32 cloud, so bf16 is held to >= 99 % every tick too, and
+    f32 to equal pose counts as well. Returns the per-tick agreement."""
     import numpy as np
     from grid_vision_tpu_torch import pipeline
     from grid_vision_tpu_torch.io.scene import SyntheticScene
@@ -1039,7 +1274,8 @@ def jax_fixture(torch, dev, root, cfg, nets, extrinsics):
         scene.add_default_traffic()
         scene.add_default_statics()
         state = eng.init_state()
-        agree, boxes, same = [], [], []
+        pca = not mcfg.use_vision_orientation
+        agree, boxes, same, poses = [], [], [], []
         for i in range(meta["ticks"]):
             obs = obs_from_scene(scene, i / 10.0, mcfg, dev)
             if i == meta["gated_off_tick"]:
@@ -1055,14 +1291,19 @@ def jax_fixture(torch, dev, root, cfg, nets, extrinsics):
             agree.append(float((o.occupancy_i8.cpu().numpy()
                                 == ref[key + "occupancy_i8"]).mean()))
             boxes.append(n_box)
+            poses.append(int(o.poses.valid.sum()))
+            if pca and not bf16 and poses[-1] != int(
+                    ref[key + "poses_valid"].sum()):
+                fail(f"{mode} tick {i}: {poses[-1]} poses, the JAX package "
+                     f"{int(ref[key + 'poses_valid'].sum())}")
         mean = sum(agree) / len(agree)
-        if (min(agree) < 0.99 and not bf16) or (bf16 and (
+        if (min(agree) < 0.99 and (pca or not bf16)) or (bf16 and (
                 sum(same) / len(same) < 0.99 or mean < 0.985
                 or min(agree) < 0.975)):
             fail(f"{mode}: against the JAX package: occupancy_i8 agreement "
                  f"{agree}, equal box counts {same}")
         out[mode] = dict(occupancy_i8_agreement=agree, boxes=boxes,
-                         equal_box_counts=same)
+                         poses=poses, equal_box_counts=same)
     return out
 
 
@@ -1518,6 +1759,16 @@ def main() -> None:
               (ref_outs[-1].occupancy_i8 > 50).sum()),
           fleet_occupied_cells_last=int((fouts[-1].occupancy_i8 > 50).sum()))
 
+    del ext_fleet, yaw_engine, yaw_fleet, outs, ref_outs, fouts
+    torch.cuda.empty_cache()
+
+    # 7b. the PCA pose branch (use_vision_orientation=False): RANSAC
+    # ground plane, frustum association, PCA L-shape in place of the
+    # orientation net; the orientation kernel must not launch
+    pca_launches, pca_bf_launches = pca_phases(
+        torch, dev, engine, cfg, fleet_cfg, nets, obs_seq, fleet_obs,
+        modules, forms, fleet_times, card)
+
     # the kernel path at full width against the JAX package's outputs
     phase("jax_fixture", **jax_fixture(torch, dev, root, cfg, nets,
                                        engine.extrinsics))
@@ -1541,6 +1792,8 @@ def main() -> None:
         if name in device_ms:
             kernels[-1].update(device_ms=device_ms[name],
                                check_device_ms=r["check_device_ms"])
+        kernels[-1]["launches_pca_fleet"] = (
+            pca_bf_launches if name in forms else pca_launches)[name]
         for key in ("bound_3xtf32_ms", "bound_old_bytes_ms", "gated_off",
                     "bit_equal_share", "toward_zero_share"):
             if key in r:

@@ -2,10 +2,13 @@
 
 A package of its own beside the JAX package, which stays the reference:
 it imports torch and numpy, never jax, flax or anything of
-grid_vision_tpu. Entry points (``pipeline.Engine``, ``pipeline.step``)
-run on CUDA unless the caller asks for the CPU. The TPU kernels of the
-main path are hand-written CUDA kernels for Hopper (csrc/), built with
-nvcc at first use; on CPU tensors each wrapper runs its plain torch twin.
+grid_vision_tpu. Entry points (``pipeline.Engine``, ``pipeline.step``,
+``pipeline.fleet_step``) run on CUDA unless the caller asks for the CPU,
+with either pose branch: the vision orientation net, or the PCA branch
+(``use_vision_orientation=False``: ops/plane.py, ops/association.py,
+ops/lshape.py). The TPU kernels of the main path are hand-written CUDA
+kernels for Hopper (csrc/), built with nvcc at first use; on CPU tensors
+each wrapper runs its plain torch twin.
 """
 
 from .config import GridVisionConfig, load_config

@@ -28,8 +28,17 @@ def intrinsic_inverse(K: torch.Tensor) -> torch.Tensor:
 
 def project_points(xyz: torch.Tensor, K: torch.Tensor):
     """(..., 3) camera-frame points -> (u, v, z); only an exact-zero z is
-    guarded, callers mask the rest."""
-    img = xyz @ K.T
+    guarded, callers mask the rest. Each row of K @ p is summed as
+    (x k0 + y k1) + z k2, each product rounded: the JAX package's jitted
+    tick holds K as a constant and XLA sums it so (its zero terms drop out
+    exactly), where a matmul would fuse multiply-adds. The frustum
+    association's inclusive box edges see the difference."""
+    x, y, zc = xyz.unbind(-1)
+
+    def row(i):
+        return (x * K[i, 0] + y * K[i, 1]) + zc * K[i, 2]
+
+    img = torch.stack([row(0), row(1), row(2)], dim=-1)
     z = img[..., 2]
     safe_z = torch.where(z == 0, torch.ones_like(z), z)
     return img[..., 0] / safe_z, img[..., 1] / safe_z, xyz[..., 2]

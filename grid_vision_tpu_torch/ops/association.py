@@ -81,3 +81,63 @@ def knn_median_depth_centers(uvd: torch.Tensor, uvd_valid: torch.Tensor,
         d2_sel = torch.cat([d2_sel, pad], dim=-1)
         z_sel = torch.cat([z_sel, pad], dim=-1)
     return median_of_selected(d2_sel, z_sel, k)
+
+
+def assign_points_to_boxes(xyz_cam: torch.Tensor, point_valid: torch.Tensor,
+                           K: torch.Tensor, boxes: Boxes, image_w: int,
+                           image_h: int):
+    """extractCloudPerBBox (cloud_detections.cpp:249-298): a point is
+    eligible when valid, finite, z > 0.001 and projecting inside [0, w) x
+    [0, h) (:262-277); it goes to the FIRST valid box whose pixel rectangle
+    holds (u, v), edges inclusive (:280-288, ``break`` on a match).
+    xyz_cam (..., P, 3), boxes (..., D). Returns (assignment (..., P) int32
+    box index or -1, u, v)."""
+    u, v, _ = project_points(xyz_cam, K)
+    eligible = (point_valid & torch.isfinite(xyz_cam).all(dim=-1)
+                & (xyz_cam[..., 2] > 0.001)
+                & (u >= 0) & (u < image_w) & (v >= 0) & (v < image_h))
+    xyxy = boxes.xyxy[..., None, :, :]                        # (..., 1, D, 4)
+    uu, vv = u[..., None], v[..., None]                       # (..., P, 1)
+    inside = ((uu >= xyxy[..., 0]) & (uu <= xyxy[..., 2])
+              & (vv >= xyxy[..., 1]) & (vv <= xyxy[..., 3])
+              & boxes.valid[..., None, :] & eligible[..., None])
+    first = torch.argmax(inside.to(torch.uint8), dim=-1)      # first True
+    assignment = torch.where(inside.any(dim=-1), first,
+                             torch.full_like(first, -1))
+    return assignment.to(torch.int32), u, v
+
+
+def count_assigned(assignment: torch.Tensor, num_boxes: int) -> torch.Tensor:
+    """(..., D) int32 number of points assigned to each box."""
+    slot = torch.where(assignment >= 0, assignment,
+                       torch.full_like(assignment, num_boxes)).long()
+    counts = torch.zeros(assignment.shape[:-1] + (num_boxes + 1,),
+                         dtype=torch.int32, device=assignment.device)
+    counts.scatter_add_(-1, slot, torch.ones_like(slot, dtype=torch.int32))
+    return counts[..., :num_boxes]
+
+
+def gather_box_clouds(xyz_cam: torch.Tensor, assignment: torch.Tensor,
+                      num_boxes: int, capacity: int):
+    """Per-box sub-clouds at a fixed capacity: each box's first `capacity`
+    assigned points in cloud order (the reference keeps them all, in
+    encounter order; `truncated` says where the cap bound). A stable sort
+    groups the points by box in cloud order; slot j of box d is the j-th
+    point of its group.
+
+    Returns (points (..., D, capacity, 3), valid (..., D, capacity),
+    truncated (..., D))."""
+    p = xyz_cam.shape[-2]
+    slot = torch.where(assignment >= 0, assignment,
+                       torch.full_like(assignment, num_boxes))
+    order = torch.sort(slot, dim=-1, stable=True).indices     # (..., P)
+    counts = count_assigned(assignment, num_boxes)            # (..., D)
+    start = torch.cumsum(counts, dim=-1) - counts
+    j = torch.arange(capacity, dtype=torch.int64, device=xyz_cam.device)
+    valid = j < counts[..., None]                             # (..., D, cap)
+    pos = torch.clamp(start[..., None].long() + j, max=p - 1)
+    idx = torch.take_along_dim(order, pos.flatten(-2), dim=-1)
+    pts = torch.take_along_dim(xyz_cam, idx[..., None], dim=-2).reshape(
+        valid.shape + (3,))
+    pts = torch.where(valid[..., None], pts, torch.zeros((), device=pts.device))
+    return pts, valid, counts > capacity

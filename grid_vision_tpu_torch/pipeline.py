@@ -6,7 +6,11 @@ step(params, state, obs, extrinsics, cfg) -> (state', StepOutput):
   1. detector front end + YOLOv4-tiny, decode + greedy NMS;
   2. cloud to the camera frame, projection;
   3. kNN median depth of the static boxes -> base-frame points;
-  4. crop / standardize the dynamic boxes, orientation net, MultiBin;
+  4. the dynamic poses: with use_vision_orientation, crop / standardize
+     the dynamic boxes, orientation net, MultiBin; without it (the PCA
+     branch, reference :210-231), RANSAC ground plane, frustum
+     association of the non-ground points to ALL boxes, radius outlier
+     removal and a PCA L-shape per box;
   5. camera -> base frame;
   6. grid update (decay, footprint hits, clamp, sigmoid), int8 export; in
      extension mode (compat=False) the raycast free-space carve goes in
@@ -16,24 +20,26 @@ step(params, state, obs, extrinsics, cfg) -> (state', StepOutput):
 fleet_step(params, states, obs_b, extrinsics, cfg, orientation_budget)
 runs the same tick over a leading rig axis: one batch-R detector call, the
 orientation crops of all rigs compacted fleet-wide to the top `budget` by
-confidence, and the rest of the tick (the JAX package's vmap of fuse)
-written out with the rig axis, so each kernel launches once per fleet
-tick with the rig batch as its launch grid. The single-rig step is that
-batched tick at R = 1.
+confidence (the PCA branch has no budget: every rig's poses, as the JAX
+package's vmap of step), and the rest of the tick (the JAX package's vmap
+of fuse) written out with the rig axis, so each kernel launches once per
+fleet tick with the rig batch as its launch grid. The single-rig step is
+that batched tick at R = 1.
 
 Backends keep the JAX package's switch values: ``"pallas"`` (and for the
 detector ``"pallas2"`` / ``"pallas3"``, which add the CSP-stage kernel)
 runs this package's CUDA kernels (ops/cuda_*.py), ``"xla"`` the
 plain-torch port of the JAX package's XLA function.
 
-This port covers the vision-orientation path in f32 and in bf16
-(compute_dtype="bfloat16", with every orientation_compute): the shipped
-default config, the fleet configuration of bench.py, the extension flags
-(raycast_free_space, yaw_aware_rasterization, vision_depth_refine,
-class_aware_nms) and every kernel backend. In bf16 the detector and the
-orientation branch (crops, net) compute in bf16 as the JAX package does;
-MultiBin, decode, NMS, the kNN, the grid and the carve stay f32. Options
-it does not port yet (int8, the s2d detector stem, the PCA branch,
+This port covers both pose branches (use_vision_orientation true and
+false) in f32 and in bf16 (compute_dtype="bfloat16", with every
+orientation_compute): the shipped default config, the fleet configuration
+of bench.py, the extension flags (raycast_free_space,
+yaw_aware_rasterization, vision_depth_refine, class_aware_nms) and every
+kernel backend. In bf16 the detector and the orientation branch (crops,
+net) compute in bf16 as the JAX package does; MultiBin, decode, NMS, the
+kNN, the PCA branch (from the f32 cloud), the grid and the carve stay f32.
+Options it does not port yet (int8, the s2d detector stem,
 knn_backend="approx", the resnet orientation arch) raise
 NotImplementedError rather than run something else.
 """
@@ -51,8 +57,8 @@ from .geometry import (intrinsic_inverse, intrinsic_matrix, pixel_to_3d,
                        transform_points, transform_pose)
 from .models import orientation_net, weights, yolov4_tiny
 from .ops import (association, cuda_csp, cuda_grid, cuda_knn, cuda_orient,
-                  cuda_raycast, cuda_stem, multibin, preprocess, rasterize,
-                  raycast)
+                  cuda_raycast, cuda_stem, lshape, multibin, plane,
+                  preprocess, rasterize, raycast)
 from .ops.decode import extract_boxes, top_k
 from .taxonomy import is_dynamic
 from .types import (Boxes, Extrinsics, GridState, LShapePoses, Obs,
@@ -92,7 +98,6 @@ def check_slice(cfg: GridVisionConfig) -> None:
         "detector_stem_backend": cfg.detector_stem_backend not in (
             "xla", "pallas", "pallas2", "pallas3"),
         "knn_backend": cfg.knn_backend not in ("xla", "pallas"),
-        "use_vision_orientation": not cfg.use_vision_orientation,
         "orientation_arch": cfg.orientation_arch != "s2d",
         "orientation_s2d_fold": not cfg.orientation_s2d_fold,
         "orientation_stem_backend": cfg.orientation_stem_backend not in (
@@ -253,20 +258,78 @@ def _fleet_vision_poses(params, images: torch.Tensor, boxes_b: Boxes,
     return poses_b, (n_valid - n_kept).to(torch.int32)
 
 
+def _pca_poses(cloud_cam: torch.Tensor, cloud_valid: torch.Tensor,
+               boxes: Boxes, K: torch.Tensor, rng: torch.Tensor,
+               cfg: GridVisionConfig):
+    """The use_vision_orientation=false branch (:210-231) for R rigs,
+    camera frame: RANSAC ground plane, the non-ground points assigned to
+    ALL boxes (the reference passes `bboxes`, not the dynamic ones,
+    :215-216), a capped sub-cloud per box, radius outlier removal and a
+    PCA L-shape; no pose unless the rig has a dynamic box (:188). Computed
+    in f32 from the f32 cloud whatever compute_dtype is. cloud_cam (R, P,
+    3), cloud_valid (R, P), boxes (R, D) gated by has_image, rng (R, 2).
+    Returns (poses (R, D), box_cloud_truncated (R,) int32: valid boxes
+    whose sub-cloud hit max_points_per_box)."""
+    non_ground, _plane, ok = plane.segment_ground_plane(
+        cloud_cam, cloud_valid, rng, cfg.ransac_iters,
+        cfg.ransac_distance_threshold)
+    assignment, _, _ = association.assign_points_to_boxes(
+        cloud_cam, non_ground, K, boxes, cfg.camera_image_width,
+        cfg.camera_image_height)
+    pts, pvalid, truncated = association.gather_box_clouds(
+        cloud_cam, assignment, boxes.capacity, cfg.max_points_per_box)
+    poses = lshape.pca_lshape_poses(pts, pvalid, boxes.label,
+                                    cfg.outlier_radius,
+                                    cfg.outlier_min_neighbors,
+                                    max_valid=cloud_cam.shape[-2])
+    any_dynamic = (boxes.valid & is_dynamic(boxes.label)).any(dim=-1)
+    n_truncated = (truncated & boxes.valid).sum(dim=-1).to(torch.int32)
+    valid = poses.valid & (ok & any_dynamic)[:, None]
+    return dataclasses.replace(poses, valid=valid), n_truncated
+
+
+def pose_branch(params, obs: Obs, boxes: Boxes, K: torch.Tensor,
+                rng: torch.Tensor, extrinsics: Extrinsics,
+                cfg: GridVisionConfig):
+    """The dynamic-pose section of the tick for R rigs (the JAX package's
+    pose_branch, rigs on the leading axis): boxes (R, D) must carry the
+    has_image gate, rng (R, 2) is index 0 of each rig's tick split.
+    Vision: each rig's first max_orientation_batch dynamic boxes through
+    the crop chain and the net (no fleet budget); PCA: _pca_poses. Returns
+    (camera-frame LShapePoses (R, cap), box_cloud_truncated (R,))."""
+    n_rigs = boxes.valid.shape[0]
+    if cfg.use_vision_orientation:
+        poses = stack([_vision_orientation_poses(
+            params, obs.image[r], boxes.select(r), K, cfg)
+            for r in range(n_rigs)])
+        return poses, torch.zeros((n_rigs,), dtype=torch.int32,
+                                  device=boxes.valid.device)
+    cloud_cam = transform_points(extrinsics.lidar_to_camera, obs.cloud.xyz)
+    cloud_valid = obs.cloud.mask() & obs.has_cloud[:, None]
+    return _pca_poses(cloud_cam, cloud_valid, boxes, K, rng, cfg)
+
+
 def _fuse_rigs(state: GridState, obs: Obs, boxes: Boxes,
                extrinsics: Extrinsics, cfg: GridVisionConfig,
                poses_cam: LShapePoses, prenms_overflow: torch.Tensor,
-               orientation_dropped: torch.Tensor, carve_maps=None):
+               orientation_dropped: torch.Tensor, carve_maps=None,
+               box_cloud_truncated: torch.Tensor | None = None,
+               rng_next: torch.Tensor | None = None):
     """Everything after 2D detection for R rigs at once (the JAX package's
     vmap of fuse with injected camera-frame poses): every tensor carries a
-    leading rig axis; boxes (R, D), poses_cam (R, cap), counters (R,).
+    leading rig axis; boxes (R, D), poses_cam (R, cap: max_orientation_batch
+    with vision orientation, D for the PCA branch), counters (R,;
+    box_cloud_truncated None: 0).
     carve_maps: raycast.cell_polar_maps of these extrinsics when the caller
-    keeps them (the Engine does), else computed here."""
+    keeps them (the Engine does), else computed here. rng_next: index 1 of
+    the tick's rng split when the caller made it (the PCA branch draws from
+    index 0), else split here."""
     dev = state.log_odds.device
     n_rigs = state.log_odds.shape[0]
     zero = torch.zeros((n_rigs,), dtype=torch.int32, device=dev)
     minus_one = torch.full((), -1.0, device=dev)
-    rng_next = prng.split(state.rng)[..., 1, :]
+    if rng_next is None:
+        rng_next = prng.split(state.rng)[..., 1, :]
 
     boxes = dataclasses.replace(boxes,
                                 valid=boxes.valid & obs.has_image[:, None])
@@ -283,11 +346,12 @@ def _fuse_rigs(state: GridState, obs: Obs, boxes: Boxes,
         PointCloud(xyz=cloud_cam, intensity=obs.cloud.intensity,
                    count=obs.cloud.count), K)
     uvd_valid = uvd_valid & obs.has_cloud[:, None]
-    if cfg.max_static_depth < boxes.capacity and not cfg.vision_depth_refine:
+    refine = cfg.vision_depth_refine and cfg.use_vision_orientation
+    if cfg.max_static_depth < boxes.capacity and not refine:
         # compact the static split to max_static_depth query slots
         # (highest confidence first); clamped boxes keep depth -1. The
-        # depth refine reads the dynamic slots' depths too and keeps the
-        # full-capacity query.
+        # depth refine (vision poses only) reads the dynamic slots' depths
+        # too and keeps the full-capacity query.
         score = torch.where(static_mask, boxes.confidence, minus_one)
         _, knn_take = top_k(score, cfg.max_static_depth)
         q_boxes = boxes.take(knn_take, valid=torch.take_along_dim(
@@ -314,17 +378,22 @@ def _fuse_rigs(state: GridState, obs: Obs, boxes: Boxes,
     static_points = torch.where(static_mask[..., None], base_points,
                                 torch.zeros((), device=dev))
 
-    if cfg.vision_depth_refine:
+    if refine:
         poses_cam = _refine_depth(poses_cam, boxes, depths, obs.has_cloud,
                                   K)
 
-    n_dyn = (boxes.valid & is_dynamic(boxes.label)).sum(dim=-1).to(
-        torch.int32)
+    if cfg.use_vision_orientation:
+        n_dyn = (boxes.valid & is_dynamic(boxes.label)).sum(dim=-1).to(
+            torch.int32)
+        orientation_clamped = torch.clamp(
+            n_dyn - cfg.max_orientation_batch, min=0)
+    else:
+        orientation_clamped = zero
     saturation = SaturationStats(
         prenms_overflow=prenms_overflow.to(torch.int32),
-        orientation_clamped=torch.clamp(n_dyn - cfg.max_orientation_batch,
-                                        min=0),
-        box_cloud_truncated=zero,
+        orientation_clamped=orientation_clamped,
+        box_cloud_truncated=(zero if box_cloud_truncated is None
+                             else box_cloud_truncated.to(torch.int32)),
         orientation_dropped=orientation_dropped.to(torch.int32),
         static_depth_clamped=static_depth_clamped,
     )
@@ -441,16 +510,19 @@ def fuse(params: Dict[str, Any], state: GridState, obs: Obs, boxes: Boxes,
     be raycast.cell_polar_maps of these extrinsics (the Engine's are)."""
     check_slice(cfg)
     dev = state.log_odds.device
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    gated = dataclasses.replace(boxes, valid=boxes.valid & obs.has_image)
+    zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+    state1, obs1, boxes1 = (stack([v]) for v in (state, obs, boxes))
+    gated = dataclasses.replace(boxes1,
+                                valid=boxes1.valid & obs1.has_image[:, None])
     K = intrinsic_matrix(cfg.fx, cfg.fy, cfg.cx, cfg.cy, device=dev)
-    poses_cam = _vision_orientation_poses(params, obs.image, gated, K, cfg)
-    state1, obs1, boxes1, poses1 = (stack([v]) for v in (state, obs, boxes,
-                                                         poses_cam))
-    overflow = zero if prenms_overflow is None else prenms_overflow
+    keys = prng.split(state1.rng)
+    poses1, truncated = pose_branch(params, obs1, gated, K,
+                                    keys[..., 0, :], extrinsics, cfg)
+    overflow = zero if prenms_overflow is None else prenms_overflow[None]
     new_state, out = _fuse_rigs(state1, obs1, boxes1, extrinsics, cfg,
-                                poses1, overflow[None], zero[None],
-                                params.get("carve_maps"))
+                                poses1, overflow, zero,
+                                params.get("carve_maps"), truncated,
+                                keys[..., 1, :])
     return new_state.select(0), out.select(0)
 
 
@@ -462,24 +534,32 @@ def fleet_step(params: Dict[str, Any], states: GridState, obs_b: Obs,
     tensors (GridState.create_batch, runtime.stream.FleetPool). The
     orientation crops of all rigs are compacted fleet-wide to the top
     `orientation_budget` by confidence; None keeps every rig's
-    max_orientation_batch slots, which equals per-rig step. Returns
-    (states', StepOutput with a rig axis)."""
+    max_orientation_batch slots, which equals per-rig step. The PCA
+    branch ignores the budget (every rig's poses: per-rig step, as the JAX
+    package's vmap of step). Returns (states', StepOutput with a rig
+    axis)."""
     check_slice(cfg)
-    if not cfg.use_vision_orientation:
-        raise NotImplementedError("fleet_step's PCA mode is not in the "
-                                  "torch port yet")
     n_rigs = obs_b.image.shape[0]
-    budget = (n_rigs * cfg.max_orientation_batch
-              if orientation_budget is None else orientation_budget)
+    dev = obs_b.image.device
     boxes_b, overflow_b = detect_batch(params, obs_b.image, cfg)
     boxes_b = dataclasses.replace(
         boxes_b, valid=boxes_b.valid & obs_b.has_image[:, None])
-    K = intrinsic_matrix(cfg.fx, cfg.fy, cfg.cx, cfg.cy,
-                         device=obs_b.image.device)
-    poses_b, dropped_b = _fleet_vision_poses(
-        params, obs_b.image, boxes_b, K, cfg, budget)
+    K = intrinsic_matrix(cfg.fx, cfg.fy, cfg.cx, cfg.cy, device=dev)
+    zero = torch.zeros((n_rigs,), dtype=torch.int32, device=dev)
+    keys = prng.split(states.rng)
+    if cfg.use_vision_orientation:
+        budget = (n_rigs * cfg.max_orientation_batch
+                  if orientation_budget is None else orientation_budget)
+        poses_b, dropped_b = _fleet_vision_poses(
+            params, obs_b.image, boxes_b, K, cfg, budget)
+        truncated_b = zero
+    else:
+        poses_b, truncated_b = pose_branch(params, obs_b, boxes_b, K,
+                                           keys[..., 0, :], extrinsics, cfg)
+        dropped_b = zero
     return _fuse_rigs(states, obs_b, boxes_b, extrinsics, cfg, poses_b,
-                      overflow_b, dropped_b, params.get("carve_maps"))
+                      overflow_b, dropped_b, params.get("carve_maps"),
+                      truncated_b, keys[..., 1, :])
 
 
 class Engine:
@@ -516,7 +596,8 @@ class Engine:
                 (cfg.detector_stem_backend in ("pallas2", "pallas3"),
                  _consts_key("detector_csp", dt),
                  cuda_csp.prepare_csp_constants, "detector"),
-                (cfg.orientation_stem_backend == "pallas",
+                (cfg.orientation_stem_backend == "pallas"
+                 and cfg.use_vision_orientation,
                  _consts_key("orientation_stem", gdt),
                  cuda_orient.prepare_orient_constants, "orientation")):
             if used and key not in params:

@@ -52,8 +52,14 @@ def _lookup(lut: np.ndarray, labels: torch.Tensor) -> torch.Tensor:
 
 
 def is_dynamic(labels: torch.Tensor) -> torch.Tensor:
-    """Vectorized dynamic/static split of int class ids."""
-    return _lookup(DYNAMIC_LUT, labels)
+    """Vectorized dynamic/static split of int class ids (DYNAMIC_LUT),
+    compared against the class ids on the labels' device: no table is
+    copied there, so the card's host does not wait on a copy."""
+    labels = labels.clamp(0, 10)
+    out = labels == int(_DYNAMIC[0])
+    for c in _DYNAMIC[1:]:
+        out = out | (labels == int(c))
+    return out
 
 
 def estimated_depth(labels: torch.Tensor) -> torch.Tensor:

@@ -55,3 +55,22 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     lo = torch.arange(num, dtype=torch.int64, device=key.device)
     y1, y2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
     return torch.stack([y1, y2], dim=-1).to(torch.uint32)
+
+
+def uniform(key: torch.Tensor, shape) -> torch.Tensor:
+    """jax.random.uniform(key, shape): f32 in [0, 1), (..., 2) keys ->
+    (..., *shape). The partitionable bits: element i (row-major flat
+    index) hashes the 64-bit counter i, its 32 bits are the two output
+    words xor-ed; the top 23 of them become the mantissa of a float in
+    [1, 2), minus 1."""
+    shape = tuple(shape)
+    n = 1
+    for s in shape:
+        n *= s
+    k = key.to(torch.int64)
+    k1, k2 = k[..., 0:1], k[..., 1:2]                 # (..., 1)
+    lo = torch.arange(n, dtype=torch.int64, device=key.device)
+    y1, y2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+    mantissa = ((y1 ^ y2) >> 9) | 0x3F800000          # < 2**31
+    f = mantissa.to(torch.int32).view(torch.float32) - 1.0
+    return f.reshape(key.shape[:-1] + shape)

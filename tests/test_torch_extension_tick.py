@@ -285,7 +285,7 @@ def test_check_slice_accepts_the_extension_flags(flag):
     (dict(detector_precision="int8"), "detector_precision"),
     (dict(detector_s2d_stem=True), "detector_s2d_stem"),
     (dict(orientation_s2d_fold=False), "orientation_s2d_fold"),
-    (dict(use_vision_orientation=False), "use_vision_orientation"),
+    (dict(detector_stem_backend="im2col"), "detector_stem_backend"),
     (dict(knn_backend="approx"), "knn_backend"),
     (dict(orientation_arch="resnet"), "orientation_arch"),
 ])

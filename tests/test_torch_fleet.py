@@ -185,8 +185,15 @@ def test_pool_matches_bench_pool(fleet):
 
 
 def test_fleet_rejects_unported_modes(fleet):
+    """The PCA branch runs on the fleet path (tests/test_torch_pca_fleet.py
+    holds it to the JAX package); int8 is still refused."""
     _, cfg, _, eng, _, obs_seq = fleet
     pca = dataclasses.replace(cfg, use_vision_orientation=False)
-    with pytest.raises(NotImplementedError, match="use_vision_orientation"):
+    _, out = pipeline.fleet_step(eng.params, eng.init_states(R), obs_seq[0],
+                                 eng.extrinsics, pca)
+    assert out.poses.capacity == out.boxes.capacity    # every box
+    assert not out.saturation.orientation_dropped.any()
+    int8 = dataclasses.replace(cfg, detector_precision="int8")
+    with pytest.raises(NotImplementedError, match="detector_precision"):
         pipeline.fleet_step(eng.params, eng.init_states(R), obs_seq[0],
-                            eng.extrinsics, pca)
+                            eng.extrinsics, int8)

@@ -141,8 +141,6 @@ def test_helpers_default_to_the_card():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="use_vision_orientation"):
-        pipeline.check_slice(GridVisionConfig(use_vision_orientation=False))
     with pytest.raises(NotImplementedError, match="detector_precision"):
         pipeline.check_slice(GridVisionConfig(detector_precision="int8"))
 

@@ -3,16 +3,18 @@
 PyTorch / CUDA port is held to (tests/test_torch_full_width.py on the CPU,
 chip_smoke.py's phase `jax_fixture` on the card):
 
-    python3 tools/jax_full_width_fixture.py      # from the repo's root, ~4 min
+    python3 tools/jax_full_width_fixture.py      # from the repo's root, ~6 min
 
 Runs the JAX package's jitted Engine on the CPU, on the "xla" backends its
 own tests use, at full width: 480x640 frames, detector 416, orientation 224 /
 width 32, 16384 points, the 500x200 grid, the shipped weights, the
 `io/scene.py` scene of seed 0 (15000 ground points, the default traffic and
-statics; frames at t = i / 10). Four modes: compat (the shipped defaults),
+statics; frames at t = i / 10). Six modes: compat (the shipped defaults),
 extension (compat=False, raycast free-space carving, depth refine,
-class-aware NMS), and each of the two in the production bf16 configuration
-(compute_dtype="bfloat16"). TICKS ticks each, the last with neither image
+class-aware NMS), each of the two in the production bf16 configuration
+(compute_dtype="bfloat16"), and the PCA pose branch
+(use_vision_orientation=False: RANSAC ground plane, frustum association,
+PCA L-shape) in compat mode, f32 and bf16. TICKS ticks each, the last with neither image
 nor cloud (the run gate: the grid must stay as it was). Writes boxes, poses and
 occupancy_i8 of every tick to tests/fixtures/full_width_jax.npz.
 """
@@ -48,6 +50,8 @@ MODES = {
     "extension": EXTENSION,
     "compat_bf16": dict(compute_dtype="bfloat16"),
     "extension_bf16": dict(EXTENSION, compute_dtype="bfloat16"),
+    "pca": dict(use_vision_orientation=False),
+    "pca_bf16": dict(use_vision_orientation=False, compute_dtype="bfloat16"),
 }
 WEIGHTS = dict(detection_weights_file="weights/detector.npz",
                vision_weights_file="weights/orientation.npz")
