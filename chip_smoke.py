@@ -68,11 +68,25 @@ device JSON follows. Phases, each printing one line:
    launches; the PCA fleet run's peak memory (max_memory_allocated, over
    PCA_PEAK_GB fails) and a profile of three PCA fleet ticks; then the
    kernel path at full width against the JAX package's fixture, each mode
-   (compat, extension, PCA) in f32 and bf16 (phase `jax_fixture`);
+   (compat, extension, PCA) in f32 and bf16 (phase `jax_fixture`); then
+   the streaming ingest path (phase `stream`, stream_phases): the packed
+   wire's sizes, its unpack on the card (bit-equal to the CPU's, no host
+   sync), warmup, the link's pageable and pinned bandwidth and plan_wire's
+   choice, per-frame packed ticks (host buffers copied by the engine)
+   against typed ones, f32 and bf16 (STREAM_TICKS) and extension
+   (STREAM_EXT_TICKS), bit-equal, with the stem, CSP, grid (or carve) and
+   kNN counters from zero once a tick; free-running ticks through the
+   engine's pageable copies and through a pinned staging ring built here
+   (PinnedRing, not part of the port); both wires against the
+   JAX package's packed ticks (tests/fixtures/stream_wire_jax.npz); the
+   ROI-delta and chunked replays bit-equal to the per-frame one, a
+   recording played back equal to it, and every replay's rate;
 8. a `kernels` JSON line for every ported kernel and form (launches: the
    fleet run's counts, the extension fleet run's for the carve kernel, the
-   bf16 fleet run's for the bf16 forms, and `launches_pca_fleet`, the PCA
-   fleet run's (f32, bf16 for the bf16 forms); for the
+   bf16 fleet run's for the bf16 forms, `launches_pca_fleet`, the PCA
+   fleet run's (f32, bf16 for the bf16 forms), and `launches_stream`, the
+   per-frame packed run's (f32; bf16 for the bf16 forms; extension for the
+   carve kernel); for the
    tensor-core kernels also `bound_3xtf32_ms`, the bound with three TF32
    products per f32 product at the TF32 rate; for them and the kNN kernel
    `device_ms`, their device time per profiled fleet tick, and
@@ -106,6 +120,12 @@ PCA_ENGINE_TICKS = 10
 PCA_FLEET_TICKS = 5
 PCA_EXT_TICKS = 2
 PCA_PEAK_GB = 40.0              # half the card: more fails the run
+STREAM_TICKS = 20
+STREAM_EXT_TICKS = 4
+STREAM_REPLAY_TICKS = 16
+STREAM_CHUNK = 8
+STREAM_RING = 64
+STREAM_PAIRS = 10
 N_RIGS = 64
 BUDGET = 5 * N_RIGS            # bench.py:206
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -1106,20 +1126,10 @@ def pca_phases(torch, dev, engine, cfg, fleet_cfg, nets, obs_seq,
     from grid_vision_tpu_torch import pipeline
     from grid_vision_tpu_torch.types import stack
     bf16 = torch.bfloat16
-    zero = {name: 0 for name in list(modules) + list(forms)}
     pca = dict(use_vision_orientation=False)
 
     def pca_run(run, want):
-        for m in modules.values():
-            m.launches = 0
-        for m in forms.values():
-            m.launches_bf16 = 0
-        result = run()
-        got = {name: m.launches for name, m in modules.items()}
-        got.update({name: m.launches_bf16 for name, m in forms.items()})
-        if got != dict(zero, **want):
-            fail(f"PCA run launches {got}, expected {dict(zero, **want)}")
-        return result, got
+        return _counted(modules, forms, run, want, "PCA run")
 
     def pca_pair(base, **flags):
         kern = pipeline.Engine(dataclasses.replace(base, **pca, **flags),
@@ -1307,6 +1317,411 @@ def jax_fixture(torch, dev, root, cfg, nets, extrinsics):
     return out
 
 
+def _counted(modules, forms, run, want, what):
+    """run() with every launch counter set to 0 just before it; fails
+    unless the counts read just after equal `want` (unnamed kernels 0).
+    Returns (run's result, the counts)."""
+    for m in modules.values():
+        m.launches = 0
+    for m in forms.values():
+        m.launches_bf16 = 0
+    result = run()
+    got = {name: m.launches for name, m in modules.items()}
+    got.update({name: m.launches_bf16 for name, m in forms.items()})
+    want = dict({name: 0 for name in got}, **want)
+    if got != want:
+        fail(f"{what}: launches {got}, expected {want}")
+    return result, got
+
+
+def _same_ticks(torch, what, outs, refs, exact=True):
+    """Per tick: box counts equal, and occupancy_i8 bit-equal (exact) or
+    the share of cells within one int8 step (returned)."""
+    shares = []
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        if int(o.boxes.valid.sum()) != int(r.boxes.valid.sum()) and exact:
+            fail(f"{what} tick {i}: box counts differ")
+        if exact:
+            if not torch.equal(o.occupancy_i8, r.occupancy_i8):
+                fail(f"{what} tick {i}: occupancy_i8 differs")
+            shares.append(1.0)
+        else:
+            d = (o.occupancy_i8.int() - r.occupancy_i8.int()).abs()
+            shares.append((d <= 1).float().mean().item())
+    return shares
+
+
+class PinnedRing:
+    """Host np.uint8 buffers to the card through `slots` page-locked
+    staging buffers with non-blocking copies, so a copy overlaps the
+    previous tick: the comparison the stream phase makes with the engine's
+    pageable copy (the port itself copies pageable). Before a slot is
+    refilled the host waits on the event recorded after that slot's last
+    copy: a refilled slot under an unfinished copy would corrupt a frame
+    silently."""
+
+    def __init__(self, torch, dev, slots: int = 2):
+        self.torch, self.dev, self.slots = torch, dev, slots
+        self.ring, self.next = None, 0
+
+    def __call__(self, host):
+        torch = self.torch
+        if self.ring is None:
+            self.ring = [(torch.empty(host.nbytes, dtype=torch.uint8,
+                                      pin_memory=True), torch.cuda.Event())
+                         for _ in range(self.slots)]
+        slot, done = self.ring[self.next]
+        self.next = (self.next + 1) % self.slots
+        done.synchronize()
+        slot.numpy()[:] = host.reshape(-1)
+        out = torch.empty(host.shape, dtype=torch.uint8, device=self.dev)
+        out.copy_(slot.view(host.shape), non_blocking=True)
+        done.record()
+        return out
+
+
+def pinned_link_bandwidth(torch, dev, reps: int = 5, big: int = 8 << 20,
+                          small: int = 1 << 12) -> float:
+    """stream.probe_link_bandwidth's two-size probe from page-locked host
+    memory with non-blocking copies: bytes/s."""
+    def t_of(nbytes):
+        buf = torch.ones(nbytes, dtype=torch.uint8, pin_memory=True)
+        ts = []
+        for _ in range(reps + 1):        # the first copy warms up
+            t0 = time.perf_counter()
+            buf.to(dev, non_blocking=True)[-1:].sum().item()
+            ts.append(time.perf_counter() - t0)
+        return statistics.median(ts[1:])
+
+    return (big - small) / max(t_of(big) - t_of(small), 1e-6)
+
+
+def stream_phases(torch, dev, root, cfg, nets, extrinsics, modules, forms):
+    """Phase `stream`: the streaming ingest path (the packed wire,
+    Engine.call_packed / call_packed_delta / call_packed_chunk, replay,
+    record / play) at full width, shipped weights, stem "pallas2", grid
+    and kNN "pallas", on SyntheticScene seed 0 with the default traffic:
+
+    - the wire: bytes per frame of each mode; Obs.unpack / unpack_delta on
+      the card bit-equal to the CPU's on the same buffers (480x640 and
+      KITTI's 375x1242, whose cloud starts at unaligned offsets) and free
+      of host syncs (torch.cuda.set_sync_debug_mode("error")); their
+      device launches and time;
+    - warmup seconds; the pageable and pinned host->device bandwidth and
+      plan_wire's decision on the pageable one (the engine's copy);
+    - per-frame packed (rgb8 / f32, host buffers) against the typed tick
+      over STREAM_TICKS frames, f32 and bf16, and STREAM_EXT_TICKS
+      extension frames: bit-equal occupancy_i8 and equal box counts every
+      tick, each counter from 0: the stem, CSP, grid (or carve) and kNN
+      kernels once a tick; the same frames free-running (no sync between
+      ticks) through the engine's pageable copies and through a PinnedRing
+      of 2, STREAM_PAIRS alternating pairs, each bit-equal, their rates,
+      and the host time of one upload each way;
+    - each wire (rgb8 / f32, yuv420 / f16) against the JAX package's ticks
+      on the same buffers (tests/fixtures/stream_wire_jax.npz): >= 99 %
+      of occupancy_i8 equal, equal box counts; yuv420 / f16 against the
+      lossless wire: the share of cells within one int8 step within 1e-4
+      of the JAX package's own share on every tick, and >= 99 % where the
+      JAX package's is (it is 97.8 % from the third tick on: the lossy
+      frame moves the poses);
+    - replay, replay_delta and replay_chunked (K = STREAM_CHUNK) over
+      STREAM_REPLAY_TICKS frames (delta and chunked bit-equal to the
+      per-frame replay's final state), replay_ring and the typed replay's
+      rates; a recording of the same frames played back (record_scene,
+      play): equal to the per-frame replay's final grid;
+    - device launches and time of the unpacks and of a packed tick
+      against a typed one, profiled after every host-clock timing.
+
+    Returns the launches of the f32, bf16 and extension packed runs."""
+    import numpy as np
+    from grid_vision_tpu_torch import pipeline, types
+    from grid_vision_tpu_torch.io.scene import SyntheticScene
+    from grid_vision_tpu_torch.runtime import record, stream
+    scfg = dataclasses.replace(cfg, detector_stem_backend="pallas2")
+
+    def scene_of(c):
+        scene = SyntheticScene(c, seed=0)
+        scene.add_default_traffic()
+        return scene
+
+    def engine_of(c):
+        return pipeline.Engine(c, extrinsics=extrinsics, params=nets,
+                               device=dev, base_dir=root)
+
+    def ticks(eng, inputs, call, sync_each=True):
+        state, outs, times = eng.init_state(), [], []
+        torch.cuda.synchronize()
+        t_all = time.perf_counter()
+        for x in inputs:
+            t0 = time.perf_counter()
+            state, out = call(state, x)
+            if sync_each:
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            outs.append(out)
+        torch.cuda.synchronize()
+        return state, outs, times, len(inputs) / (time.perf_counter() - t_all)
+
+    res = {}
+    # the wire
+    wire = {}
+    for codec in ("rgb8", "yuv420"):
+        for cloud in ("float32", "float16"):
+            c = dataclasses.replace(scfg, wire_image_codec=codec,
+                                    wire_cloud_dtype=cloud)
+            wire[f"{codec}/{cloud}"] = types.Obs.packed_nbytes(c)
+    h, w, p = scfg.camera_image_height, scfg.camera_image_width, \
+        scfg.max_points
+    wire["delta/float32"] = types.delta_nbytes(scfg)
+    wire["typed_obs_f32"] = h * w * 3 * 4 + p * 16 + 4 + 2
+    res["bytes_per_frame"] = wire
+
+    profiled = {}          # name -> call, profiled after the host timings
+    for size in ((480, 640), (374, 1242), (375, 1242)):
+        for codec in ("rgb8", "yuv420"):
+            if codec == "yuv420" and size[0] % 2:
+                continue
+            for cloud in ("float32", "float16"):
+                c = dataclasses.replace(
+                    scfg, camera_image_height=size[0],
+                    camera_image_width=size[1], wire_image_codec=codec,
+                    wire_cloud_dtype=cloud)
+                scene = scene_of(c)
+                buf, _ = stream.packed_from_scene(scene, 0.0, c)
+                host = {"unpack": types.Obs.unpack(torch.from_numpy(buf), c)}
+                dbuf = torch.from_numpy(buf).to(dev)
+                # (defaults bind this iteration's values: the calls are
+                # profiled after the loop)
+                calls = {"unpack": lambda b=dbuf, c=c: types.Obs.unpack(b, c)}
+                if codec == "rgb8":
+                    hr, wr = types.delta_roi_shape(c)
+                    img = np.clip(scene.image_at(0.1), 0, 255).astype(
+                        np.uint8)
+                    xyz, inten, n, _ = types.PointCloud.pack_host(
+                        scene.cloud_at(0.1), None, c.max_points)
+                    dhost = torch.from_numpy(types.pack_delta_bytes(
+                        img[5:5 + hr, 7:7 + wr], 5, 7, xyz, inten, n, True,
+                        True, c))
+                    host["unpack_delta"] = types.unpack_delta(
+                        dhost, host["unpack"].image, c)
+                    ddev, prev = dhost.to(dev), host["unpack"].image.to(dev)
+                    calls["unpack_delta"] = (
+                        lambda b=ddev, p=prev, c=c: types.unpack_delta(b, p, c))
+                torch.cuda.synchronize()
+                for name, fn in calls.items():
+                    what = f"{name} {size[0]}x{size[1]} {codec}/{cloud}"
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        g = fn()
+                    except RuntimeError as e:
+                        fail(f"{what} synchronizes with the host: {e}")
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                    r = host[name]
+                    for field, a, b in (
+                            ("image", g.image, r.image),
+                            ("xyz", g.cloud.xyz, r.cloud.xyz),
+                            ("intensity", g.cloud.intensity,
+                             r.cloud.intensity),
+                            ("count", g.cloud.count, r.cloud.count),
+                            ("flags", torch.stack([g.has_image,
+                                                   g.has_cloud]),
+                             torch.stack([r.has_image, r.has_cloud]))):
+                        if not torch.equal(a.cpu(), b):
+                            fail(f"{what}: {field} on the card differs from "
+                                 f"the CPU's")
+                    profiled[what] = fn
+    res["unpack_sync_debug_mode"] = "error"
+    res["unpack_bit_equal_to_cpu"] = True
+
+    eng = engine_of(scfg)
+    t0 = time.perf_counter()
+    eng.warmup()
+    res["warmup_s"] = time.perf_counter() - t0
+    bw_pageable = stream.probe_link_bandwidth(dev)
+    bw_pinned = pinned_link_bandwidth(torch, dev)
+    plan = stream.plan_wire(scfg, scene_of(scfg), bw_pageable)
+    res["link_bytes_per_s"] = dict(pageable=bw_pageable, pinned=bw_pinned)
+    res["plan_wire"] = dataclasses.asdict(plan)
+
+    # per-frame packed against typed, counters from zero
+    f32_want = dict(detector_stem=STREAM_TICKS, detector_csp=STREAM_TICKS,
+                    grid_update=STREAM_TICKS, knn_median_depth=STREAM_TICKS)
+    launches = {}
+    ext = dict(compat=False, raycast_free_space=True,
+               vision_depth_refine=True, class_aware_nms=True)
+    for mode, c, n, want in (
+            ("f32", scfg, STREAM_TICKS, f32_want),
+            ("bf16", dataclasses.replace(scfg, compute_dtype="bfloat16"),
+             STREAM_TICKS, dict(detector_stem_bf16=STREAM_TICKS,
+                                detector_csp_bf16=STREAM_TICKS,
+                                grid_update=STREAM_TICKS,
+                                knn_median_depth=STREAM_TICKS)),
+            ("extension", dataclasses.replace(scfg, **ext), STREAM_EXT_TICKS,
+             dict(detector_stem=STREAM_EXT_TICKS,
+                  detector_csp=STREAM_EXT_TICKS,
+                  knn_median_depth=STREAM_EXT_TICKS,
+                  carve_update=STREAM_EXT_TICKS))):
+        e = eng if mode == "f32" else engine_of(c)
+        scene = scene_of(c)
+        bufs = [stream.packed_from_scene(scene, i / 10.0, c)[0]
+                for i in range(n)]
+        obs = [stream.obs_from_scene(scene, i / 10.0, c, dev)
+               for i in range(n)]
+        _, typed, typed_ms, _ = ticks(e, obs, e)
+        (_, packed, packed_ms, _), got = _counted(
+            modules, forms, lambda: ticks(e, bufs, e.call_packed), want,
+            f"stream {mode} packed run")
+        _same_ticks(torch, f"stream {mode} packed vs typed", packed, typed)
+        launches[mode] = got
+        # host-clock ticks in turns: typed, packed (above), packed, typed
+        packed_ms2 = ticks(e, bufs, e.call_packed)[2]
+        typed_ms2 = ticks(e, obs, e)[2]
+        row = dict(ticks=n, launches=got,
+                   median_typed_tick_ms=[statistics.median(typed_ms),
+                                         statistics.median(typed_ms2)],
+                   median_packed_tick_ms=[statistics.median(packed_ms),
+                                          statistics.median(packed_ms2)],
+                   boxes_per_tick=[int(o.boxes.valid.sum()) for o in packed],
+                   poses_per_tick=[int(o.poses.valid.sum()) for o in packed])
+        if mode == "f32":
+            # free-running (no sync between ticks): the engine's pageable
+            # copies against a pinned ring of 2, STREAM_PAIRS pairs, the
+            # side that runs first alternating, each run bit-equal to the
+            # typed ticks; then the host time of one upload (the card idle
+            # before it), in turns
+            pinned = PinnedRing(torch, dev, slots=2)
+            uploads = {"pageable": e.upload, "pinned_ring": pinned}
+            rates = {"pageable": [], "pinned_ring": []}
+            upload_ms = {"pageable": [], "pinned_ring": []}
+            pair = tuple(uploads.items())
+            for name, up in [x for k in range(STREAM_PAIRS)
+                             for x in (pair if k % 2 == 0 else pair[::-1])]:
+                _, free, _, hz = ticks(
+                    e, bufs[:STREAM_REPLAY_TICKS],
+                    lambda st, b, up=up: pipeline.step_packed(
+                        e.params, st, up(b), e.extrinsics, e.cfg),
+                    sync_each=False)
+                _same_ticks(torch, f"stream free-running {name}", free,
+                            typed[:STREAM_REPLAY_TICKS])
+                rates[name].append(hz)
+            for name, up in pair * 2:
+                times = []
+                for b in bufs:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    up(b)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                upload_ms[name].append(statistics.median(times))
+            torch.cuda.synchronize()
+            row["free_running_hz"] = rates
+            row["upload_host_ms"] = upload_ms
+            # a packed tick's device launches and time against a typed
+            # one (profiled at the end of the phase)
+            s0 = e.init_state()
+            dbuf = torch.from_numpy(bufs[0]).to(dev)
+            b0, o0 = bufs[0], obs[0]
+            profiled["tick typed"] = lambda e=e: e(s0, o0)
+            profiled["tick packed, host buffer"] = (
+                lambda e=e: e.call_packed(s0, b0))
+            profiled["tick packed, device buffer"] = (
+                lambda e=e: e.call_packed(s0, dbuf))
+        res[mode] = row
+        del typed, packed, obs
+        torch.cuda.empty_cache()
+
+    # the lossy wire against the lossless one, each wire's ticks against
+    # the JAX package's on the same buffers (tests/fixtures/
+    # stream_wire_jax.npz, written by tools/jax_stream_fixture.py): >= 99 %
+    # of occupancy_i8 equal and equal box counts every tick; the share of
+    # cells within one int8 step between the wires within 1e-4 of the JAX
+    # package's own share on every tick, and >= 99 % where that is
+    ref = np.load(os.path.join(root, "tests", "fixtures",
+                               "stream_wire_jax.npz"))
+    meta = json.loads(str(ref["meta"]))
+    grids, wires = {}, {}
+    for wire, flags in meta["wires"].items():
+        c = dataclasses.replace(scfg, **flags)
+        e = engine_of(c)
+        scene = scene_of(c)
+        bufs = [stream.packed_from_scene(scene, i / 10.0, c)[0]
+                for i in range(meta["ticks"])]
+        _, outs, _, _ = ticks(e, bufs, e.call_packed)
+        agree = []
+        for i, o in enumerate(outs):
+            key = f"{wire}/{i}/"
+            if int(o.boxes.valid.sum()) != int(ref[key + "boxes_valid"].sum()):
+                fail(f"stream {wire} tick {i}: box count differs from the "
+                     f"JAX package's")
+            agree.append(float((o.occupancy_i8.cpu().numpy()
+                                == ref[key + "occupancy_i8"]).mean()))
+        if min(agree) < 0.99:
+            fail(f"stream {wire}: occupancy_i8 against the JAX package "
+                 f"{agree}")
+        grids[wire] = outs
+        wires[wire] = dict(occupancy_i8_agreement_with_jax=agree,
+                           boxes_per_tick=[int(o.boxes.valid.sum())
+                                           for o in outs])
+    shares = _same_ticks(torch, "yuv420/f16", grids["yuv420_f16"],
+                         grids["rgb8_f32"], exact=False)
+    jax_shares = [float(x) for x in ref["within_one_step"]]
+    for i, (got, theirs) in enumerate(zip(shares, jax_shares)):
+        if abs(got - theirs) > 1e-4 or (theirs >= 0.99 and got < 0.99):
+            fail(f"yuv420/f16 against lossless, tick {i}: {got} within one "
+                 f"step (the JAX package: {theirs})")
+    res["yuv420_f16"] = dict(wires, within_one_step=shares,
+                             jax_within_one_step=jax_shares)
+    del grids
+
+    # replays: per frame, ROI delta, chunked, ring, typed; record / play
+    n = STREAM_REPLAY_TICKS
+    per_frame = stream.replay(eng, scene_of(scfg), n)
+    delta = stream.replay_delta(eng, scene_of(scfg), n)
+    chunked = stream.replay_chunked(eng, scene_of(scfg), n,
+                                    chunk=STREAM_CHUNK)
+    for name, r in (("replay_delta", delta), ("replay_chunked", chunked)):
+        if not (torch.equal(r.final_state.log_odds,
+                            per_frame.final_state.log_odds)
+                and torch.equal(r.final_state.rng,
+                                per_frame.final_state.rng)):
+            fail(f"{name}'s final state differs from the per-frame replay")
+    ring = stream.replay_ring(eng, scene_of(scfg), STREAM_RING,
+                              chunk=STREAM_CHUNK, ring=STREAM_RING)
+    typed = stream.replay(eng, scene_of(scfg), n, packed=False)
+    if not torch.equal(typed.final_state.log_odds,
+                       per_frame.final_state.log_odds):
+        fail("the typed replay's final state differs from the packed one")
+    path = os.path.join(root, "build", "stream_smoke.gvr")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    record.record_scene(path, scfg, n, seed=0)
+    n_played, played = record.play(path, chunk=STREAM_CHUNK, device=dev,
+                                   base_dir=root)
+    os.remove(path)
+    if n_played != n or not torch.equal(played.log_odds,
+                                        per_frame.final_state.log_odds):
+        fail("play of the recording differs from the per-frame replay")
+    enc = delta.delta_encoder
+    res["replay_hz"] = dict(
+        replay=per_frame.achieved_hz, replay_delta=delta.achieved_hz,
+        replay_chunked=chunked.achieved_hz, replay_ring=ring.achieved_hz,
+        replay_typed=typed.achieved_hz)
+    res["replay"] = dict(frames=n, chunk=STREAM_CHUNK,
+                         ring_frames=STREAM_RING,
+                         delta_keyframes=enc.keyframes,
+                         delta_records=enc.deltas,
+                         delta_and_chunked_bit_equal=True,
+                         play_equals_replay=True)
+    # device time and launches a call, after every host-clock timing: once
+    # the profiler has run in a process, each launch costs the host more
+    res["device_profile"] = {}
+    for name, fn in profiled.items():
+        ms, n_launch = device_profile(torch, fn, iters=3)
+        res["device_profile"][name] = dict(device_ms=ms,
+                                           device_launches=n_launch)
+    phase("stream", **res)
+    return launches
+
+
 def kernel_phase(path: str, r: dict) -> None:
     phase("kernel", path=path,
           **{k: v for k, v in r.items() if k not in ("bound", "call")},
@@ -1375,6 +1790,12 @@ def main() -> None:
         knn_backend="pallas")
     engine = pipeline.Engine(cfg, extrinsics=default_extrinsics(dev),
                              device=dev, base_dir=root)
+    modules = {"detector_stem": cuda_stem, "grid_update": cuda_grid,
+               "knn_median_depth": cuda_knn, "detector_csp": cuda_csp,
+               "orient_front": cuda_orient, "carve_update": cuda_raycast}
+    forms = {"detector_stem_bf16": cuda_stem, "detector_csp_bf16": cuda_csp,
+             "orient_front_bf16": cuda_orient}
+    nets = {k: engine.params[k] for k in ("detector", "orientation")}
     scene = SyntheticScene(cfg, seed=0, n_ground=15000)
     scene.add_default_traffic()
     scene.add_default_statics()
@@ -1465,10 +1886,8 @@ def main() -> None:
         if name == "knn_median_depth" and path != "fleet"]
 
     # 4. the single-rig main path, counters from zero
-    single = {"detector_stem": cuda_stem, "grid_update": cuda_grid,
-              "knn_median_depth": cuda_knn}
-    modules = dict(single, detector_csp=cuda_csp, orient_front=cuda_orient,
-                   carve_update=cuda_raycast)
+    single = {name: modules[name]
+              for name in ("detector_stem", "grid_update", "knn_median_depth")}
     for m in modules.values():
         m.launches = 0
     _, outs, times = run_ticks(torch, engine, obs_seq)
@@ -1565,21 +1984,9 @@ def main() -> None:
     # kernel backends against the same bf16 configuration on the plain
     # ones; counters from zero, the f32 forms must not launch
     bf16 = torch.bfloat16
-    nets = {k: engine.params[k] for k in ("detector", "orientation")}
-    forms = {"detector_stem_bf16": cuda_stem, "detector_csp_bf16": cuda_csp,
-             "orient_front_bf16": cuda_orient}
 
     def bf16_run(run, want):
-        for m in modules.values():
-            m.launches = 0
-        for m in forms.values():
-            m.launches_bf16 = 0
-        result = run()
-        got = {name: m.launches for name, m in modules.items()}
-        got.update({name: m.launches_bf16 for name, m in forms.items()})
-        if got != want:
-            fail(f"bf16 run launches {got}, expected {want}")
-        return result, got
+        return _counted(modules, forms, run, want, "bf16 run")
 
     def bf16_pair(base):
         kern = pipeline.Engine(dataclasses.replace(
@@ -1674,13 +2081,7 @@ def main() -> None:
         return kern, plain
 
     def count_run(run, want):
-        for m in modules.values():
-            m.launches = 0
-        result = run()
-        got = {name: m.launches for name, m in modules.items()}
-        if got != want:
-            fail(f"extension tick launches {got}, expected {want}")
-        return result, got
+        return _counted(modules, forms, run, want, "extension tick")
 
     ext_engine, ext_plain = ext_pair(cfg)
     ext_obs = obs_seq[:EXT_ENGINE_TICKS]
@@ -1773,6 +2174,10 @@ def main() -> None:
     phase("jax_fixture", **jax_fixture(torch, dev, root, cfg, nets,
                                        engine.extrinsics))
 
+    # the streaming ingest path: the packed wire, replay, record / play
+    stream_launches = stream_phases(torch, dev, root, cfg, nets,
+                                    engine.extrinsics, modules, forms)
+
     # 8. the kernels line, then the card, then the device JSON
     launches["carve_update"] = ext_launches["carve_update"]
     engine_launches["carve_update"] = ext_engine_launches["carve_update"]
@@ -1794,6 +2199,9 @@ def main() -> None:
                                check_device_ms=r["check_device_ms"])
         kernels[-1]["launches_pca_fleet"] = (
             pca_bf_launches if name in forms else pca_launches)[name]
+        kernels[-1]["launches_stream"] = stream_launches[
+            "bf16" if name in forms else "extension"
+            if name == "carve_update" else "f32"][name]
         for key in ("bound_3xtf32_ms", "bound_old_bytes_ms", "gated_off",
                     "bit_equal_share", "toward_zero_share"):
             if key in r:

@@ -17,6 +17,10 @@ step(params, state, obs, extrinsics, cfg) -> (state', StepOutput):
      front of it, or the footprints follow the estimated yaw;
   7. the rng split (the JAX package's per-tick jax.random.split).
 
+step_packed(params, state, packed, extrinsics, cfg) is step on the packed
+wire (types.Obs.unpack); the Engine's call_packed / call_packed_delta /
+call_packed_chunk take host buffers (runtime/stream.py, runtime/record.py).
+
 fleet_step(params, states, obs_b, extrinsics, cfg, orientation_budget)
 runs the same tick over a leading rig axis: one batch-R detector call, the
 orientation crops of all rigs compacted fleet-wide to the top `budget` by
@@ -49,6 +53,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from .config import GridVisionConfig
@@ -62,7 +67,8 @@ from .ops import (association, cuda_csp, cuda_grid, cuda_knn, cuda_orient,
 from .ops.decode import extract_boxes, top_k
 from .taxonomy import is_dynamic
 from .types import (Boxes, Extrinsics, GridState, LShapePoses, Obs,
-                    PointCloud, SaturationStats, StepOutput, stack)
+                    PointCloud, SaturationStats, StepOutput, stack,
+                    unpack_delta)
 from .utils import prng
 
 
@@ -501,23 +507,43 @@ def step(params: Dict[str, Any], state: GridState, obs: Obs,
 
 
 @torch.no_grad()
+def step_packed(params: Dict[str, Any], state: GridState,
+                packed: torch.Tensor, extrinsics: Extrinsics,
+                cfg: GridVisionConfig):
+    """step() on a packed-wire observation (types.Obs.unpack of a 1-D
+    uint8 tensor): the streaming ingest path, one host->device transfer a
+    frame. The unpack is views and, at most, a few small copies on the
+    buffer's device; with the rgb8 codec the tick takes the uint8 frame."""
+    return step(params, state, Obs.unpack(packed, cfg), extrinsics, cfg)
+
+
+@torch.no_grad()
 def fuse(params: Dict[str, Any], state: GridState, obs: Obs, boxes: Boxes,
          extrinsics: Extrinsics, cfg: GridVisionConfig,
-         prenms_overflow: torch.Tensor | None = None):
+         poses_cam: LShapePoses | None = None,
+         prenms_overflow: torch.Tensor | None = None,
+         box_cloud_truncated: torch.Tensor | None = None):
     """Everything after 2D detection for one rig: association, poses, grid
     update, outputs. Split out so tests can inject known boxes. Runs the
-    rig-batched tick at R = 1. params["carve_maps"], where present, must
-    be raycast.cell_polar_maps of these extrinsics (the Engine's are)."""
+    rig-batched tick at R = 1. poses_cam: pre-computed camera-frame poses
+    (pose_branch's, one rig, with its box_cloud_truncated) in place of the
+    pose branch. params["carve_maps"], where present, must be
+    raycast.cell_polar_maps of these extrinsics (the Engine's are)."""
     check_slice(cfg)
     dev = state.log_odds.device
     zero = torch.zeros((1,), dtype=torch.int32, device=dev)
     state1, obs1, boxes1 = (stack([v]) for v in (state, obs, boxes))
-    gated = dataclasses.replace(boxes1,
-                                valid=boxes1.valid & obs1.has_image[:, None])
-    K = intrinsic_matrix(cfg.fx, cfg.fy, cfg.cx, cfg.cy, device=dev)
     keys = prng.split(state1.rng)
-    poses1, truncated = pose_branch(params, obs1, gated, K,
-                                    keys[..., 0, :], extrinsics, cfg)
+    if poses_cam is None:
+        gated = dataclasses.replace(
+            boxes1, valid=boxes1.valid & obs1.has_image[:, None])
+        K = intrinsic_matrix(cfg.fx, cfg.fy, cfg.cx, cfg.cy, device=dev)
+        poses1, truncated = pose_branch(params, obs1, gated, K,
+                                        keys[..., 0, :], extrinsics, cfg)
+    else:
+        poses1 = stack([poses_cam])
+        truncated = (zero if box_cloud_truncated is None
+                     else box_cloud_truncated.reshape(1))
     overflow = zero if prenms_overflow is None else prenms_overflow[None]
     new_state, out = _fuse_rigs(state1, obs1, boxes1, extrinsics, cfg,
                                 poses1, overflow, zero,
@@ -626,3 +652,68 @@ class Engine:
         """fleet_step on this engine's nets: (states', StepOutput)."""
         return fleet_step(self.params, states, obs_b, self.extrinsics,
                           self.cfg, orientation_budget)
+
+    def warmup(self, obs: Obs | None = None) -> None:
+        """Build the kernels of this configuration and run one tick on a
+        blank Obs (or `obs`), so that a frame size or option a kernel
+        refuses fails here rather than at the first tick (the JAX
+        package's ahead-of-time compile)."""
+        if obs is None:
+            obs = Obs.create(self.cfg, device=self.device)
+        step(self.params, self.init_state(), obs, self.extrinsics, self.cfg)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def upload(self, packed) -> torch.Tensor:
+        """A packed buffer (host np.uint8 array or tensor) as a uint8
+        tensor on this engine's device. A host array is copied from
+        pageable memory (copied first if read-only); the host waits for
+        the copy."""
+        if packed.dtype not in (torch.uint8, np.uint8):
+            raise ValueError(f"packed buffer must be uint8, got "
+                             f"{packed.dtype}")
+        if isinstance(packed, torch.Tensor):
+            return packed.to(self.device)
+        host = np.ascontiguousarray(packed)
+        return torch.from_numpy(host if host.flags.writeable
+                                else host.copy()).to(self.device)
+
+    def call_packed(self, state: GridState, packed):
+        """step on a packed-wire observation (types.Obs.pack_bytes): a
+        host np.uint8 buffer, which is copied to this engine's device, or
+        a uint8 tensor already there. Returns (state', StepOutput)."""
+        return step_packed(self.params, state, self.upload(packed),
+                           self.extrinsics, self.cfg)
+
+    def call_packed_delta(self, state: GridState, prev_image_u8, buf,
+                          keyframe: bool):
+        """ROI-delta streaming step (types.pack_delta_bytes wire).
+        prev_image_u8: the (H, W, 3) uint8 previous frame on this
+        engine's device (carry what this returns). keyframe=True takes a
+        full Obs.pack_bytes buffer instead (the encoder's fallback when
+        the change exceeds the ROI window). Returns (state', image_u8',
+        out)."""
+        if self.cfg.wire_image_codec != "rgb8":
+            raise ValueError("the ROI-delta wire ships raw rgb8 windows;"
+                             " set wire_image_codec='rgb8'")
+        buf = self.upload(buf)
+        obs = (Obs.unpack(buf, self.cfg) if keyframe
+               else unpack_delta(buf, prev_image_u8, self.cfg))
+        new_state, out = step(self.params, state, obs, self.extrinsics,
+                              self.cfg)
+        return new_state, obs.image, out
+
+    def call_packed_chunk(self, state: GridState, chunk):
+        """Throughput-mode ingest: a (K, nbytes) stack of packed frames
+        crosses to the device as ONE transfer, then runs K sequential
+        steps. Returns (state', outs): the per-step StepOutputs stacked on
+        a leading K axis, every frame's outputs computed (the chunk delays
+        outputs, it does not drop them). Equal to K call_packed steps."""
+        bufs = self.upload(chunk)
+        outs = []
+        for k in range(bufs.shape[0]):
+            state, out = step_packed(self.params, state, bufs[k],
+                                     self.extrinsics, self.cfg)
+            outs.append(out)
+        return state, stack(outs)
+

@@ -26,6 +26,28 @@ class ObjectClass(enum.IntEnum):
 
 NUM_CLASSES = 10
 
+CLASS_NAMES = {
+    ObjectClass.BIKE: "Bike",
+    ObjectClass.MOTORBIKE: "Motorbike",
+    ObjectClass.PERSON: "Person",
+    ObjectClass.TRAFFIC_LIGHT_GREEN: "Light Green",
+    ObjectClass.TRAFFIC_LIGHT_ORANGE: "Light Orange",
+    ObjectClass.TRAFFIC_LIGHT_RED: "Light Red",
+    ObjectClass.TRAFFIC_SIGN_30: "Sign 30",
+    ObjectClass.TRAFFIC_SIGN_60: "Sign 60",
+    ObjectClass.TRAFFIC_SIGN_90: "Sign 90",
+    ObjectClass.VEHICLE: "Vehicle",
+    ObjectClass.UNKNOWN: "Unknown",
+}
+
+
+def class_name(label: int) -> str:
+    try:
+        return CLASS_NAMES[ObjectClass(int(label))]
+    except ValueError:
+        return "Unknown"
+
+
 _DYNAMIC = (ObjectClass.VEHICLE, ObjectClass.BIKE, ObjectClass.MOTORBIKE,
             ObjectClass.PERSON)
 

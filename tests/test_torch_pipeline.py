@@ -152,7 +152,18 @@ def test_import_pulls_in_no_jax():
             " grid_vision_tpu_torch.ops.cuda_orient,"
             " grid_vision_tpu_torch.ops.cuda_raycast,"
             " grid_vision_tpu_torch.ops.raycast,"
-            " grid_vision_tpu_torch.utils.prng; bad = [m for m in sys.modules if m in"
+            " grid_vision_tpu_torch.utils.prng,"
+            " grid_vision_tpu_torch.utils.stats,"
+            " grid_vision_tpu_torch.runtime.native,"
+            " grid_vision_tpu_torch.runtime.timing,"
+            " grid_vision_tpu_torch.runtime.live,"
+            " grid_vision_tpu_torch.runtime.record,"
+            " grid_vision_tpu_torch.runtime.session,"
+            " grid_vision_tpu_torch.io.sensors,"
+            " grid_vision_tpu_torch.io.grid_codec,"
+            " grid_vision_tpu_torch.io.viz,"
+            " grid_vision_tpu_torch.io.font,"
+            " grid_vision_tpu_torch.__main__; bad = [m for m in sys.modules if m in"
             " ('jax', 'flax', 'optax', 'grid_vision_tpu') or m.startswith("
             "('jax.', 'flax.', 'optax.', 'grid_vision_tpu.'))]; print(bad);"
             " sys.exit(1 if bad else 0)")
