@@ -80,13 +80,24 @@ device JSON follows. Phases, each printing one line:
    (PinnedRing, not part of the port); both wires against the
    JAX package's packed ticks (tests/fixtures/stream_wire_jax.npz); the
    ROI-delta and chunked replays bit-equal to the per-frame one, a
-   recording played back equal to it, and every replay's rate;
+   recording played back equal to it, and every replay's rate; then the
+   multi-object tracker (phase `tracked`, tracked_phases): Engine.call_tracked
+   on the single rig against the plain backends (integer track fields
+   equal every tick, compat, PCA and extension), the kernel path against
+   the JAX package's tracked ticks (tests/fixtures/tracked_jax.npz), the
+   seed-0 MOT replay on the card equal to the CPU's, the fleet's
+   rig-batched tracker bit-equal to single-rig calls (f32 and bf16) with a
+   forecast every 5th tick, and the tracker's cost (no host sync, device
+   time and launches a call, tracked against untracked ticks, the fleet
+   forecast's peak memory);
 8. a `kernels` JSON line for every ported kernel and form (launches: the
    fleet run's counts, the extension fleet run's for the carve kernel, the
    bf16 fleet run's for the bf16 forms, `launches_pca_fleet`, the PCA
    fleet run's (f32, bf16 for the bf16 forms), and `launches_stream`, the
    per-frame packed run's (f32; bf16 for the bf16 forms; extension for the
-   carve kernel); for the
+   carve kernel), and `launches_tracked`, the tracked fleet run's (f32;
+   bf16 for the bf16 forms; the tracked extension run's for the carve
+   kernel); for the
    tensor-core kernels also `bound_3xtf32_ms`, the bound with three TF32
    products per f32 product at the TF32 rate; for them and the kNN kernel
    `device_ms`, their device time per profiled fleet tick, and
@@ -126,6 +137,12 @@ STREAM_REPLAY_TICKS = 16
 STREAM_CHUNK = 8
 STREAM_RING = 64
 STREAM_PAIRS = 10
+TRACKED_TICKS = 20
+TRACKED_PCA_TICKS = 5
+TRACKED_EXT_TICKS = 4
+TRACKED_PAIRS = 10
+TRACKED_PEAK_GB = 40.0          # half the card: more fails the run
+FORECAST_HORIZONS = (0.5, 1.0, 2.0)
 N_RIGS = 64
 BUDGET = 5 * N_RIGS            # bench.py:206
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -1722,6 +1739,362 @@ def stream_phases(torch, dev, root, cfg, nets, extrinsics, modules, forms):
     return launches
 
 
+TRACK_INT_FIELDS = ("id", "valid", "hits", "misses", "age", "label",
+                    "has_pose", "next_id")
+TRACK_STATS = ("matched", "spawned", "killed", "spawn_dropped", "reacquired")
+
+
+def track_margins(torch, tracking, prev, out, dt, cfg, tcfg):
+    """Where a tick's integer track fields differ between two runs: the
+    least distance of a candidate pair's IoU from iou_min, and of a lost
+    track's 3D distance from its re-acquisition radius (the comparisons an
+    ulp can flip), from the state the tick started with (one rig)."""
+    pred = tracking._fma(prev.vel_px, dt, prev.xyxy)
+    iou = tracking.cross_iou(pred, out.boxes.xyxy)
+    pair = prev.valid[:, None] & out.boxes.valid[None, :]
+    det_pos = tracking.per_box_pose(out, cfg)[0]
+    coast = tracking._fma(prev.velocity, dt, prev.position)
+    dist = tracking._norm3(coast[:, None, :] - det_pos[None, :, :])
+    radius = (tcfg.reacq_radius + tcfg.reacq_radius_rate
+              * (prev.misses + 1).float() * dt)
+    lost = prev.valid & (prev.misses + 1 > tcfg.max_misses) & prev.has_pose
+    cand = lost[:, None] & out.boxes.valid[None, :]
+    return dict(
+        iou_margin=((iou - tcfg.iou_min).abs()[pair].min().item()
+                    if pair.any() else None),
+        radius_margin=((dist - radius[:, None]).abs()[cand].min().item()
+                       if cand.any() else None))
+
+
+def tracked_phases(torch, dev, root, cfg, nets, extrinsics, fleet_cfg,
+                   fleet_obs, modules, forms, card):
+    """Phase `tracked`: the multi-object tracker (ops/tracking.py) behind
+    the ported tick, Engine.call_tracked and the rig-batched update_tracks.
+
+    1. The single rig at full width, shipped weights, f32 compat, stem
+       "pallas2", grid and kNN "pallas", SyntheticScene seed 0 with the
+       default traffic, dt = 0.1: TRACKED_TICKS call_tracked ticks against
+       the plain backends tick by tick (integer track fields, confirmed()
+       and TrackStats equal; a flip fails with its tick and the least IoU
+       margin to iou_min of that tick), TRACKED_PCA_TICKS in the PCA
+       branch, TRACKED_EXT_TICKS in extension mode; the kernels counted
+       from zero; at least one track confirmed.
+    2. The kernel path's first ticks against tests/fixtures/tracked_jax.npz
+       (integer fields equal, positions within 1e-3 m, velocities within
+       1e-2 m/s, box counts equal), and forecast_occupancy of the JAX
+       package's final state, carried across, within 1e-5.
+    3. The seed-0 250-frame MOT replay (train/eval_tracking, PCA-aligned
+       poses) on the card and on the CPU: equal MOT metrics.
+    4. The fleet: N_RIGS rigs of the fleet pool, budget BUDGET, the tick
+       then the rig-batched update_tracks (capacity 32) for FLEET_TICKS
+       ticks in f32 and in bf16, bit-equal to N_RIGS single-rig calls on
+       the same outputs; a 3-horizon forecast of every rig every 5th tick
+       (the JAX package's "tracked + forecast at publish cadence").
+    5. The cost: host syncs in update_tracks (1 and N_RIGS rigs) and in the
+       fleet forecast under torch.cuda.set_sync_debug_mode("error") (any
+       fails the run); device ms and launches a tracker call (profiler),
+       at 1 and N_RIGS rigs, and of the fleet forecast; the tracked tick
+       against the untracked one, medians of TRACKED_PAIRS alternating
+       pairs; the fleet forecast's peak memory (over TRACKED_PEAK_GB
+       fails); the phase's seconds.
+
+    Returns the kernel launches of the f32 and bf16 tracked fleet runs and
+    of the tracked extension run."""
+    import numpy as np
+    from grid_vision_tpu_torch import pipeline
+    from grid_vision_tpu_torch.io.scene import SyntheticScene
+    from grid_vision_tpu_torch.ops import tracking
+    from grid_vision_tpu_torch.runtime.stream import obs_from_scene
+    from grid_vision_tpu_torch.train import eval_tracking
+    t_phase = time.perf_counter()
+    dt = 0.1
+    tcfg = tracking.TrackConfig()
+    plain_flags = dict(detector_stem_backend="xla",
+                       orientation_stem_backend="xla", grid_backend="xla",
+                       knn_backend="xla")
+    kern_cfg = dataclasses.replace(cfg, detector_stem_backend="pallas2",
+                                   grid_backend="pallas",
+                                   knn_backend="pallas")
+    scene = SyntheticScene(kern_cfg, seed=0)
+    scene.add_default_traffic()
+    obs_seq = [obs_from_scene(scene, i * dt, kern_cfg, dev)
+               for i in range(TRACKED_TICKS)]
+
+    def tracked_run(c, n):
+        eng = pipeline.Engine(c, extrinsics=extrinsics, params=nets,
+                              device=dev, base_dir=root)
+        state, tracks = eng.init_state(), eng.init_tracks(tcfg)
+        rows = []
+        for obs in obs_seq[:n]:
+            prev = tracks
+            state, tracks, out, stats = eng.call_tracked(state, tracks, obs,
+                                                         dt=dt, tcfg=tcfg)
+            rows.append((prev, tracks, out, stats))
+        torch.cuda.synchronize()
+        return rows
+
+    def same_tracks(what, c, rows, ref_rows):
+        """Integer track fields, confirmed() and TrackStats equal every
+        tick; returns the float fields' max |diff|."""
+        err = {}
+        for i, ((prev, a, out, sa), (_, b, _, sb)) in enumerate(
+                zip(rows, ref_rows)):
+            bad = [n for n in TRACK_INT_FIELDS
+                   if not torch.equal(getattr(a, n), getattr(b, n))]
+            bad += [n for n in TRACK_STATS
+                    if not torch.equal(getattr(sa, n), getattr(sb, n))]
+            if not torch.equal(a.confirmed(tcfg), b.confirmed(tcfg)):
+                bad.append("confirmed")
+            if bad:
+                margins = track_margins(torch, tracking, prev, out, dt, c,
+                                        tcfg)
+                fail(f"{what} tick {i}: {bad} differ from the plain path; "
+                     f"{margins}")
+            for f in dataclasses.fields(a):
+                if f.name not in TRACK_INT_FIELDS:
+                    d = (getattr(a, f.name) - getattr(b, f.name)).abs()
+                    err[f.name] = max(err.get(f.name, 0.0),
+                                      float(d.max()) if d.numel() else 0.0)
+        return err
+
+    res = dict(card=card, dt=dt, track_config=dataclasses.asdict(tcfg))
+    # 1. the single rig: kernels against plain, the PCA branch, extension
+    runs = {}
+    for mode, flags, n, want in (
+            ("compat", {}, TRACKED_TICKS,
+             ("detector_stem", "detector_csp", "grid_update",
+              "knn_median_depth")),
+            ("pca", dict(use_vision_orientation=False), TRACKED_PCA_TICKS,
+             ("detector_stem", "detector_csp", "grid_update",
+              "knn_median_depth")),
+            ("extension", dict(compat=False, raycast_free_space=True,
+                               vision_depth_refine=True,
+                               class_aware_nms=True), TRACKED_EXT_TICKS,
+             ("detector_stem", "detector_csp", "carve_update",
+              "knn_median_depth"))):
+        kc = dataclasses.replace(kern_cfg, **flags)
+        rows, launches = _counted(
+            modules, forms, lambda: tracked_run(kc, n),
+            {name: n for name in want}, f"tracked {mode} run")
+        ref_rows = tracked_run(dataclasses.replace(kc, **plain_flags), n)
+        err = same_tracks(f"tracked {mode}", kc, rows, ref_rows)
+        confirmed = [int(r[1].confirmed(tcfg).sum()) for r in rows]
+        runs[mode] = rows
+        res[mode] = dict(ticks=n, launches=launches,
+                         boxes_per_tick=[int(r[2].boxes.valid.sum())
+                                         for r in rows],
+                         confirmed_per_tick=confirmed,
+                         next_id=int(rows[-1][1].next_id),
+                         matched=sum(int(r[3].matched) for r in rows),
+                         max_abs_float_diff_vs_plain=err)
+        if mode == "compat" and not max(confirmed) > 0:
+            fail("the single-rig tracked run confirmed no track")
+        if mode == "extension":
+            ext_launches = launches
+
+    # 2. the kernel path against the JAX package's fixture
+    ref = np.load(os.path.join(root, "tests", "fixtures", "tracked_jax.npz"))
+    meta = json.loads(str(ref["meta"]))
+    if meta["dt"] != dt or meta["ticks"] > TRACKED_TICKS:
+        fail(f"the tracked fixture's dt / ticks {meta['dt']} / "
+             f"{meta['ticks']} do not fit this phase")
+    fx_err = {"position": 0.0, "velocity": 0.0}
+    for i in range(meta["ticks"]):
+        _, tr, out, stats = runs["compat"][i]
+        if int(out.boxes.valid.sum()) != int(ref[f"{i}/n_boxes"]):
+            fail(f"tracked fixture tick {i}: box count differs")
+        for name in meta["fields"]:
+            got = getattr(tr, name).cpu().numpy()
+            want = ref[f"{i}/tracks/{name}"]
+            if name in TRACK_INT_FIELDS:
+                if not np.array_equal(got, want):
+                    fail(f"tracked fixture tick {i}: {name} differs from "
+                         f"the JAX package")
+            else:
+                d = float(np.abs(got - want).max())
+                bar = 1e-2 if name == "velocity" else 1e-3
+                if name in fx_err:
+                    fx_err[name] = max(fx_err[name], d)
+                if d > bar:
+                    fail(f"tracked fixture tick {i}: {name} off by {d}")
+        for name in meta["stats"]:
+            if int(getattr(stats, name)) != int(ref[f"{i}/stats/{name}"]):
+                fail(f"tracked fixture tick {i}: TrackStats.{name} differs")
+    last = meta["ticks"] - 1
+    carried = tracking.track_state_from_numpy(
+        {name: ref[f"{last}/tracks/{name}"] for name in meta["fields"]},
+        dev)
+    fc = tracking.forecast_occupancy(carried, meta["horizons"], cfg, tcfg)
+    fc_err = float(np.abs(fc.cpu().numpy() - ref["forecast"]).max())
+    if fc_err > 1e-5:
+        fail(f"forecast of the JAX package's final state off by {fc_err}")
+    res["jax_fixture"] = dict(ticks=meta["ticks"], max_abs_diff=fx_err,
+                              forecast_max_abs_diff=fc_err)
+    del runs, obs_seq
+
+    # 3. the MOT replay on the card and on the CPU
+    pcfg = dataclasses.replace(cfg, use_vision_orientation=False)
+    frames = eval_tracking.simulate(
+        eval_tracking.make_crossing_scenario(0, 250), pcfg, 250, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snaps = eval_tracking.run_tracker(frames, pcfg, tcfg, device=dev)
+    replay_s = time.perf_counter() - t0
+    mot = eval_tracking.mot_metrics(frames, snaps)
+    mot_cpu = eval_tracking.mot_metrics(frames, eval_tracking.run_tracker(
+        frames, pcfg, tcfg, device="cpu"))
+    if mot != mot_cpu:
+        fail(f"MOT metrics on the card {mot} differ from the CPU's {mot_cpu}")
+    res["mot"] = dict({k: mot[k] for k in (
+        "mota", "idf1", "id_switches", "fp", "fn", "n_gt")},
+        frames=250, replay_ms_per_frame=replay_s * 1e3 / 250,
+        equals_cpu=True)
+
+    # 4. the fleet: tick, rig-batched tracker, forecast every 5th tick
+    fleets = {}
+    for dtype, want in (("f32", ("detector_stem", "detector_csp",
+                                 "orient_front", "grid_update",
+                                 "knn_median_depth")),
+                        ("bf16", ("detector_stem_bf16", "detector_csp_bf16",
+                                  "orient_front_bf16", "grid_update",
+                                  "knn_median_depth"))):
+        fc_cfg = (fleet_cfg if dtype == "f32" else dataclasses.replace(
+            fleet_cfg, compute_dtype="bfloat16"))
+        eng = pipeline.Engine(fc_cfg, extrinsics=extrinsics, params=nets,
+                              device=dev)
+        fobs = (fleet_obs if dtype == "f32" else [
+            dataclasses.replace(o, image=o.image.to(torch.bfloat16))
+            for o in fleet_obs])
+
+        def fleet_run():
+            states = eng.init_states(N_RIGS)
+            tracks = tracking.TrackState.create(tcfg, dev, rigs=N_RIGS)
+            rows, forecasts = [], 0
+            for i, obs in enumerate(fobs):
+                states, out = eng.fleet(states, obs, BUDGET)
+                prev = tracks
+                tracks, stats = tracking.update_tracks(tracks, out, dt,
+                                                       fc_cfg, tcfg)
+                if i % 5 == 0:
+                    tracking.forecast_occupancy(tracks, FORECAST_HORIZONS,
+                                                fc_cfg, tcfg)
+                    forecasts += 1
+                rows.append((prev, out, tracks, stats))
+            torch.cuda.synchronize()
+            return rows, forecasts
+
+        (rows, n_fc), launches = _counted(
+            modules, forms, fleet_run, {name: len(fobs) for name in want},
+            f"tracked fleet {dtype} run")
+        for i, (prev, out, tracks, stats) in enumerate(rows):
+            for r in range(N_RIGS):
+                one, one_stats = tracking.update_tracks(
+                    prev.select(r), out.select(r), dt, fc_cfg, tcfg)
+                for f in dataclasses.fields(one):
+                    if not torch.equal(getattr(tracks, f.name)[r],
+                                       getattr(one, f.name)):
+                        fail(f"tracked fleet {dtype} tick {i} rig {r}: "
+                             f"{f.name} of the batched tracker differs from "
+                             f"the single-rig call")
+                for n in TRACK_STATS:
+                    if not torch.equal(getattr(stats, n)[r],
+                                       getattr(one_stats, n)):
+                        fail(f"tracked fleet {dtype} tick {i} rig {r}: "
+                             f"TrackStats.{n} differs")
+        last = rows[-1][2]
+        fleets[dtype] = dict(ticks=len(fobs), launches=launches,
+                             forecasts=n_fc, batched_equals_per_rig=True,
+                             confirmed_last=int(last.confirmed(tcfg).sum()),
+                             tracks_last=int(last.valid.sum()),
+                             matched=sum(int(r[3].matched.sum())
+                                         for r in rows))
+        if dtype == "f32":
+            fleet_launches = launches
+            fleet_eng, fleet_rows = eng, rows
+        else:
+            bf_launches = launches
+        del rows
+    res["fleet"] = fleets
+
+    # 5. the cost: syncs, device time and launches, the tick, memory
+    _, out_f, tracks_f, _ = fleet_rows[-1]
+    eng1 = pipeline.Engine(kern_cfg, extrinsics=extrinsics, params=nets,
+                           device=dev, base_dir=root)
+    obs1 = obs_from_scene(scene, 0.0, kern_cfg, dev)
+    state1, tracks1 = eng1.init_state(), eng1.init_tracks(tcfg)
+    for i in range(3):
+        state1, tracks1, out1, _ = eng1.call_tracked(state1, tracks1,
+                                                     obs1, dt=dt, tcfg=tcfg)
+    calls = {
+        "update_tracks_1_rig": lambda: tracking.update_tracks(
+            tracks1, out1, dt, kern_cfg, tcfg),
+        f"update_tracks_{N_RIGS}_rigs": lambda: tracking.update_tracks(
+            tracks_f, out_f, dt, fleet_cfg, tcfg),
+        f"forecast_{N_RIGS}_rigs": lambda: tracking.forecast_occupancy(
+            tracks_f, FORECAST_HORIZONS, fleet_cfg, tcfg)}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        except RuntimeError as e:
+            torch.cuda.set_sync_debug_mode(0)
+            fail(f"{name} synchronizes with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    calls[f"forecast_{N_RIGS}_rigs"]()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    if peak > TRACKED_PEAK_GB * 2 ** 30:
+        fail(f"the fleet forecast peaks at {peak / 2 ** 30:.2f} GiB")
+    # the tracked tick against the untracked one, alternating pairs
+    plain_ms, tracked_ms = [], []
+    state_a, state_b, tracks_b = state1, state1, tracks1
+    for k in range(TRACKED_PAIRS):
+        order = ("plain", "tracked") if k % 2 == 0 else ("tracked", "plain")
+        for which in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if which == "plain":
+                state_a, _ = eng1(state_a, obs1)
+            else:
+                state_b, tracks_b, _, _ = eng1.call_tracked(
+                    state_b, tracks_b, obs1, dt=dt, tcfg=tcfg)
+            torch.cuda.synchronize()
+            (plain_ms if which == "plain" else tracked_ms).append(
+                (time.perf_counter() - t0) * 1e3)
+    host_ms = {}
+    for name, fn in calls.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        host_ms[name] = (time.perf_counter() - t0) * 1e3 / 5
+    # device time and launches, after every host-clock timing
+    profiled = {name: dict(zip(("device_ms", "device_launches"),
+                               device_profile(torch, fn, iters=3)),
+                           host_clock_ms=host_ms[name])
+                for name, fn in calls.items()}
+    res["cost"] = dict(
+        sync_debug_mode="error", host_syncs=0, calls=profiled,
+        untracked_tick_ms=plain_ms, tracked_tick_ms=tracked_ms,
+        untracked_median_tick_ms=statistics.median(plain_ms),
+        tracked_median_tick_ms=statistics.median(tracked_ms),
+        forecast_peak_memory_gib=peak / 2 ** 30,
+        forecast_horizons=list(FORECAST_HORIZONS))
+    res["seconds"] = time.perf_counter() - t_phase
+    phase("tracked", **res)
+    del fleet_eng, fleet_rows
+    torch.cuda.empty_cache()
+    return fleet_launches, bf_launches, ext_launches
+
+
 def kernel_phase(path: str, r: dict) -> None:
     phase("kernel", path=path,
           **{k: v for k, v in r.items() if k not in ("bound", "call")},
@@ -2178,6 +2551,12 @@ def main() -> None:
     stream_launches = stream_phases(torch, dev, root, cfg, nets,
                                     engine.extrinsics, modules, forms)
 
+    # the multi-object tracker behind the tick: single rig, the JAX
+    # fixture, the MOT replay, the fleet, the tracker's cost
+    tracked_launches = tracked_phases(
+        torch, dev, root, cfg, nets, engine.extrinsics, fleet_cfg, fleet_obs,
+        modules, forms, card)
+
     # 8. the kernels line, then the card, then the device JSON
     launches["carve_update"] = ext_launches["carve_update"]
     engine_launches["carve_update"] = ext_engine_launches["carve_update"]
@@ -2202,6 +2581,8 @@ def main() -> None:
         kernels[-1]["launches_stream"] = stream_launches[
             "bf16" if name in forms else "extension"
             if name == "carve_update" else "f32"][name]
+        kernels[-1]["launches_tracked"] = tracked_launches[
+            1 if name in forms else 2 if name == "carve_update" else 0][name]
         for key in ("bound_3xtf32_ms", "bound_old_bytes_ms", "gated_off",
                     "bit_equal_share", "toward_zero_share"):
             if key in r:

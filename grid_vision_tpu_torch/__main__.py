@@ -4,18 +4,21 @@
   run     stream a synthetic sequence through the engine over the packed
           wire (runtime/stream.replay) with a config YAML (the reference
           YAML works as-is); --timings logs the three stage timers;
-          --publish NAME exposes the session (runtime/session.py)
+          --publish NAME exposes the session (runtime/session.py); --track
+          adds the multi-object tracker (stable ids and base-frame
+          velocities from the shipped weights' detections, logged each
+          tick and published as track markers)
   record  record a packed-wire sensor drive to a .gvr file (the rosbag
           equivalent; the JAX package's format)
   play    re-drive the engine from a .gvr recording byte for byte
 
 Every command runs on the card; --cpu runs it on the CPU. Not ported yet:
-view, serve, demo, train, eval, eval-pose, bench (and run --track, which
-needs the tracker).
+view, serve, demo, train, eval, eval-pose, bench.
 
 Examples:
   python -m grid_vision_tpu_torch run --config config/grid_vision_cfg.yaml
   python -m grid_vision_tpu_torch run --cpu --steps 3
+  python -m grid_vision_tpu_torch run --track --steps 40
   python -m grid_vision_tpu_torch record --out drive.gvr --steps 100
   python -m grid_vision_tpu_torch play drive.gvr --chunk 8
 """
@@ -45,12 +48,10 @@ def _run(argv) -> None:
                     help="log per-stage latencies each tick (the "
                          "reference's detection/orientation timers)")
     ap.add_argument("--track", action="store_true",
-                    help="the multi-object tracker (not ported yet)")
+                    help="run the multi-object tracker (ops/tracking.py): "
+                         "stable ids and base-frame velocities, logged each "
+                         "tick and published as track markers")
     args = ap.parse_args(argv)
-    if args.track:
-        raise NotImplementedError(
-            "run --track needs the multi-object tracker (ops/tracking.py, "
-            "pipeline.step_tracked), which is not in the torch port yet")
 
     from .config import GridVisionConfig, load_config
     from .demo import default_extrinsics
@@ -62,6 +63,8 @@ def _run(argv) -> None:
     logging.basicConfig(level=logging.INFO)
     device = "cpu" if args.cpu else "cuda"
     cfg = load_config(args.config) if args.config else GridVisionConfig()
+    if args.track:
+        cfg = _with_shipped_weights(cfg)
     eng = Engine(cfg, extrinsics=default_extrinsics(device), device=device)
     scene = SyntheticScene(cfg, seed=0)
     scene.add_default_traffic()
@@ -79,7 +82,9 @@ def _run(argv) -> None:
             pub.publish(i, out, image=scene.image_at(i * period),
                         cloud_xyz=cloud_base)
         logger.info("publishing session %r", args.publish)
-    if args.timings:
+    if args.track:
+        _run_tracked(args, eng, scene, pub, period, device)
+    elif args.timings:
         from .runtime.timing import TimedEngine
         timed = TimedEngine(eng)
         state = eng.init_state()
@@ -101,6 +106,52 @@ def _run(argv) -> None:
                     res.n_steps, res.achieved_hz, res.wall_s)
     if pub is not None:
         pub.close()
+
+
+def _with_shipped_weights(cfg):
+    """The tracker needs real detections: the shipped checkpoints wherever
+    the config names none (the JAX CLI's rule)."""
+    import dataclasses
+    import os
+    w = {}
+    if not cfg.detection_weights_file and os.path.exists(
+            "weights/detector.npz"):
+        w["detection_weights_file"] = "weights/detector.npz"
+    if (cfg.use_vision_orientation and not cfg.vision_weights_file
+            and os.path.exists("weights/orientation.npz")):
+        w["vision_weights_file"] = "weights/orientation.npz"
+    return dataclasses.replace(cfg, **w) if w else cfg
+
+
+def _run_tracked(args, eng, scene, pub, period, device) -> None:
+    """run --track: Engine.call_tracked on each scene frame at
+    dt = 1 / hz, a log line a tick with the confirmed tracks."""
+    from .io.viz import track_markers
+    from .ops.tracking import TrackConfig
+    from .runtime.stream import obs_from_scene
+    from .utils.stats import logger
+
+    tcfg = TrackConfig()
+    state, tracks = eng.init_state(), eng.init_tracks(tcfg)
+    t0 = time.perf_counter()
+    for i in range(args.steps):
+        obs = obs_from_scene(scene, i * period, eng.cfg, device)
+        state, tracks, out, _ = eng.call_tracked(state, tracks, obs,
+                                                 dt=period, tcfg=tcfg)
+        tm = track_markers(tracks, tcfg)
+        cubes = [m for m in tm if m["ns"] == "track"]
+        logger.info(
+            "step %d: %d confirmed tracks  %s", i, len(cubes),
+            "  ".join(f"{m['label']} v={m['speed_mps']:.1f}m/s"
+                      if m["speed_mps"] is not None else m["label"]
+                      for m in cubes))
+        if pub is not None:
+            pub.publish(i, out, image=scene.image_at(i * period),
+                        extra_markers=tm)
+        if args.realtime:
+            sleep = (i + 1) * period - (time.perf_counter() - t0)
+            if sleep > 0:
+                time.sleep(sleep)
 
 
 def _record(argv) -> None:

@@ -1,5 +1,5 @@
 """Headless visualization, the RViz replacement (counterpart of
-grid_vision_tpu/io/viz.py; `track_markers` waits for the tracker port).
+grid_vision_tpu/io/viz.py).
 
 The reference publishes three visual surfaces (grid_vision_node.cpp:52-54):
 an annotated detection image (draw_bboxes, object_detection.cpp:213-224),
@@ -120,6 +120,49 @@ def markers_from_output(out: StepOutput) -> List[dict]:
         })
         mid += 1
     return markers
+
+
+def track_markers(tracks, tcfg) -> List[dict]:
+    """Marker dicts for the confirmed tracks (ops/tracking.py; no
+    reference counterpart: its markers are anonymous and regenerated every
+    tick). Each renders as a green cube "track" whose marker id is the
+    STABLE track id, plus a "track_velocity" arrow (base frame) where 3D
+    state is live and the ground speed exceeds 0.05 m/s."""
+    out: List[dict] = []
+    conf = _host(tracks.confirmed(tcfg))
+    pos = _host(tracks.position)
+    vel = _host(tracks.velocity)
+    hasp = _host(tracks.has_pose)
+    ids = _host(tracks.id)
+    labels = _host(tracks.label)
+    dims = np.stack([_host(tracks.length), _host(tracks.width),
+                     _host(tracks.height)], -1)
+    quat = _host(tracks.quat)
+    for i in range(conf.shape[0]):
+        if not conf[i]:
+            continue
+        tid = int(ids[i])
+        speed = float(np.linalg.norm(vel[i][:2]))
+        out.append({
+            "ns": "track", "id": tid, "type": "cube",
+            "position": pos[i].tolist(), "orientation": quat[i].tolist(),
+            "scale": [max(float(d), 0.2) for d in dims[i]],
+            "color": (0.1, 0.9, 0.2), "lifetime_s": 0.2,
+            "label": f"#{tid} {class_name(int(labels[i]))}",
+            "track_id": tid,
+            "velocity": vel[i].tolist() if hasp[i] else None,
+            "speed_mps": speed if hasp[i] else None,
+        })
+        if hasp[i] and speed > 0.05:
+            out.append({
+                "ns": "track_velocity", "id": tid, "type": "arrow",
+                "position": pos[i].tolist(),
+                "direction": vel[i].tolist(),
+                "scale": [float(np.linalg.norm(vel[i])), 0.1, 0.1],
+                "color": (1.0, 0.6, 0.0), "lifetime_s": 0.2,
+                "track_id": tid,
+            })
+    return out
 
 
 def write_ppm(path: str, image: np.ndarray) -> None:

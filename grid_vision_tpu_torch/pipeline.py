@@ -17,6 +17,10 @@ step(params, state, obs, extrinsics, cfg) -> (state', StepOutput):
      front of it, or the footprints follow the estimated yaw;
   7. the rng split (the JAX package's per-tick jax.random.split).
 
+step_tracked(params, state, tracks, obs, extrinsics, dt, cfg, tcfg) is step
+followed by the multi-object tracker (ops/tracking.update_tracks; the
+Engine's init_tracks / call_tracked).
+
 step_packed(params, state, packed, extrinsics, cfg) is step on the packed
 wire (types.Obs.unpack); the Engine's call_packed / call_packed_delta /
 call_packed_chunk take host buffers (runtime/stream.py, runtime/record.py).
@@ -63,7 +67,7 @@ from .geometry import (intrinsic_inverse, intrinsic_matrix, pixel_to_3d,
 from .models import orientation_net, weights, yolov4_tiny
 from .ops import (association, cuda_csp, cuda_grid, cuda_knn, cuda_orient,
                   cuda_raycast, cuda_stem, lshape, multibin, plane,
-                  preprocess, rasterize, raycast)
+                  preprocess, rasterize, raycast, tracking)
 from .ops.decode import extract_boxes, top_k
 from .taxonomy import is_dynamic
 from .types import (Boxes, Extrinsics, GridState, LShapePoses, Obs,
@@ -518,6 +522,20 @@ def step_packed(params: Dict[str, Any], state: GridState,
 
 
 @torch.no_grad()
+def step_tracked(params: Dict[str, Any], state: GridState,
+                 tracks: tracking.TrackState, obs: Obs,
+                 extrinsics: Extrinsics, dt, cfg: GridVisionConfig,
+                 tcfg: tracking.TrackConfig):
+    """step() + the multi-object tracker (ops/tracking.py). A pure-additive
+    extension: the tracker only consumes the StepOutput. dt is a Python
+    float or a 0-d tensor (variable frame spacing), never read back.
+    Returns (state', tracks', out, TrackStats)."""
+    new_state, out = step(params, state, obs, extrinsics, cfg)
+    new_tracks, tstats = tracking.update_tracks(tracks, out, dt, cfg, tcfg)
+    return new_state, new_tracks, out, tstats
+
+
+@torch.no_grad()
 def fuse(params: Dict[str, Any], state: GridState, obs: Obs, boxes: Boxes,
          extrinsics: Extrinsics, cfg: GridVisionConfig,
          poses_cam: LShapePoses | None = None,
@@ -644,8 +662,27 @@ class Engine:
         return GridState.create_batch(self.cfg, n_rigs, seed,
                                       device=self.device)
 
+    def init_tracks(self, tcfg: tracking.TrackConfig | None = None
+                    ) -> tracking.TrackState:
+        """A fresh tracker table for call_tracked, on this engine's
+        device."""
+        return tracking.TrackState.create(tcfg or tracking.TrackConfig(),
+                                          device=self.device)
+
     def __call__(self, state: GridState, obs: Obs):
         return step(self.params, state, obs, self.extrinsics, self.cfg)
+
+    def call_tracked(self, state: GridState, tracks: tracking.TrackState,
+                     obs: Obs, dt=0.05,
+                     tcfg: tracking.TrackConfig | None = None):
+        """step + the multi-object tracker (step_tracked). dt defaults to
+        the reference's 50 ms tick; pass the real frame spacing when the
+        pacing differs (a Python float or a 0-d tensor, moved to this
+        engine's device, never read back). Returns (state', tracks', out,
+        TrackStats)."""
+        return step_tracked(self.params, state, tracks, obs,
+                            self.extrinsics, dt, self.cfg,
+                            tcfg or tracking.TrackConfig())
 
     def fleet(self, states: GridState, obs_b: Obs,
               orientation_budget: int | None = None):
