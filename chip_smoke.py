@@ -19,7 +19,9 @@ device JSON follows. Phases, each printing one line:
    shapes (64 rigs, 320 orientation crops), then the carve kernel and the
    kNN kernel at the extension tick's shapes (a real scan's range profile;
    the depth refine queries all 64 box slots), 1 rig and 64, then the bf16
-   forms of the stem (1 frame and 64), CSP and orientation-front kernels on
+   forms of the stem (1 frame and 64; one launch, its wgmma product alone
+   against a plain product, >= 99.9 % of the elements bit-equal), CSP and
+   orientation-front kernels on
    8-bit frames (rtol = atol = 0.06, the share of bit-equal elements, and
    of the others the share the kernel holds nearer zero): max |error|,
    the kernel's time, the twin's time and a PyTorch library yardstick,
@@ -47,8 +49,10 @@ device JSON follows. Phases, each printing one line:
    same bf16 configuration on the plain backends (equal box counts on >=
    99 % of rig-ticks, occupancy_i8 >= 99 % on the mean, >= 97.5 % at the
    least); the bf16 forms must launch once a tick and the f32 forms never;
-   the bf16 tick beside the f32 one, a profile of three bf16 fleet ticks and
-   the cuDNN convs' device time a tick in f32 and bf16 (`library_convs`);
+   the bf16 tick beside the f32 one, a profile of three bf16 fleet ticks
+   (`stem_bf16_profile`: the bf16 stem's device time a launch and its
+   launches a tick), and the cuDNN convs' device time a tick in f32 and
+   bf16 (`library_convs`);
 7. the extension-mode tick (compat=False: raycast free-space carving,
    depth refine, class-aware NMS) at full width, the single-rig Engine for
    EXT_ENGINE_TICKS ticks and the fleet (64 rigs, budget 320; the refine
@@ -333,12 +337,23 @@ def frames_bf16(torch, dev, cfg, batch, seed):
 
 
 def check_stem_bf16(torch, dev, detector, cfg, batch):
-    """The stem's bf16 form on 8-bit frames against its twin; yardstick:
-    the same chain in bf16 library calls (bf16 resize einsums, cuDNN bf16
-    F.conv2d with the BN folded in, leaky)."""
+    """The stem's bf16 form (one launch, both convs on the tensor cores,
+    ConvBN_1 on wgmma) on 8-bit frames against its twin, with >= 99.9 % of
+    the elements bit-equal; its wgmma product alone against
+    bf16mma.matmul_bf16 (the B layout); yardstick: the same chain in bf16
+    library calls (bf16 resize einsums, cuDNN bf16 F.conv2d with the BN
+    folded in, leaky)."""
     import torch.nn.functional as F
     from grid_vision_tpu_torch.models.layers import same_pad
-    from grid_vision_tpu_torch.ops import cuda_stem, preprocess
+    from grid_vision_tpu_torch.ops import bf16mma, cuda_stem, preprocess
+    g = torch.Generator(device=dev).manual_seed(10)
+    a = torch.randn((128, 288), generator=g, device=dev)
+    b = torch.randn((288, 64), generator=g, device=dev)
+    prod = cuda_stem.wgmma_product_bf16_cuda(a, b)
+    torch.cuda.synchronize()
+    prod_err = (prod - bf16mma.matmul_bf16(a, b)).abs().max().item()
+    if prod_err > 1e-3:
+        fail(f"the bf16 stem's wgmma product is off by {prod_err}")
     img = frames_bf16(torch, dev, cfg, batch, 11)
     size = cfg.resize
     consts = cuda_stem.prepare_stem_constants(detector, torch.bfloat16)
@@ -346,6 +361,9 @@ def check_stem_bf16(torch, dev, detector, cfg, batch):
     torch.cuda.synchronize()
     ref = cuda_stem.detector_stem_plain(img, consts, size)
     err, equal, toward = bf16_agreement(torch, "stem", got, ref)
+    if equal < 0.999:
+        fail(f"the bf16 stem is bit-equal to its twin on only {equal:.5f} "
+             "of the elements (bar 0.999)")
     bf = torch.bfloat16
     wb = [(consts[f"w{i}_oihw"].float() * consts[f"s{i}"][:, None, None,
                                                            None]).to(bf)
@@ -371,15 +389,16 @@ def check_stem_bf16(torch, dev, detector, cfg, batch):
     ops = batch * (2 * h * size * 3 * tx.shape[1]
                    + 2 * size * size * 3 * ty.shape[1]
                    + 2 * s0 * s0 * 32 * 27 + 2 * s1 * s1 * 64 * 288)
-    n_bytes = (img.numel() + got.numel()) * 2 + (27 * 32 + 192) * 4 + \
-        288 * 64 * 2
+    n_bytes = (img.numel() + got.numel()) * 2 + 192 * 4 + \
+        (32 * 32 + 288 * 64) * 2
     t = timed(lambda: cuda_stem.detector_stem_cuda(img, consts, size),
               lambda: cuda_stem.detector_stem_plain(img, consts, size),
               library)
     return dict(
         call=lambda: cuda_stem.detector_stem_cuda(img, consts, size),
         name="detector_stem_bf16",
-        source="grid_vision_tpu_torch/csrc/cuda_stem.cu",
+        source="grid_vision_tpu_torch/csrc/cuda_stem_bf16.cu",
+        wgmma_product_max_abs_err=prod_err,
         replaces="grid_vision_tpu/ops/pallas_stem.py:359",
         shape=list(img.shape), max_abs_err=err, bit_equal_share=equal,
         toward_zero_share=toward,
@@ -2433,6 +2452,16 @@ def main() -> None:
             if prefix in row["name"])
         if not device_ms[kernel] > 0.0:
             fail(f"the profile shows no device time for {kernel}")
+    # the bf16 stem's device time a launch: it launches once a fleet tick
+    # (the wrappers' counts in fleet_bf16), and the profiler may drop an
+    # event of a run, so its device_ms is the time of a recorded launch
+    stem_rows = [row for row in profiles["kernels_bf16"]["port_kernels"]
+                 if "gv_stem_" in row["name"]]
+    recorded = sum(r["launches_per_tick"] for r in stem_rows)
+    device_ms["detector_stem_bf16"] /= recorded
+    phase("stem_bf16_profile", rows=stem_rows,
+          device_ms_per_call=device_ms["detector_stem_bf16"],
+          recorded_launches_per_tick=recorded)
     del bf_fleet, bf_fobs
     torch.cuda.empty_cache()
 

@@ -563,25 +563,6 @@ extern "C" int gv_detector_stem(
                               pad1, s1_size, out, stream);
 }
 
-// The bf16 form: img, mid, w1frag and out bf16; ryw / rxw and w0 rounded to
-// bf16 (held as f32); w1frag: ConvBN_1's (288, 64) matrix without the BN
-// scale, packed by bf16mma.pack_b_fragments; s1 / b1 its BN scale and
-// shift. wide is ignored (the frame rows are staged with plain loads).
-extern "C" int gv_detector_stem_bf16(
-    const void* img, int batch, int h, int w, const int32_t* ry0,
-    const float* ryw, int ty_n, const int32_t* rx0, const float* rxw,
-    int tx_n, int size, int fh_max, int fw_max, int band, const float* w0,
-    const float* s0, const float* b0, int pad0, int s0_size, void* mid,
-    const void* w1frag, const float* s1, const float* b1, int pad1,
-    int s1_size, void* out, cudaStream_t stream) {
-  using B = gv::bf16;
-  return detector_stem<B>(static_cast<const B*>(img), batch, h, w, ry0, ryw,
-                          ty_n, rx0, rxw, tx_n, size, fh_max, fw_max, band, 0,
-                          w0, s0, b0, pad0, s0_size, static_cast<B*>(mid),
-                          static_cast<const B*>(w1frag), s1, b1, pad1,
-                          s1_size, static_cast<B*>(out), stream);
-}
-
 // What the launch above gets (the build report prints it): {conv0's blocks
 // that fit one SM, conv1's, conv0's dynamic shared memory in bytes, conv1's}.
 extern "C" int gv_stem_blocks_per_sm(int fh_max, int fw_max, int band,

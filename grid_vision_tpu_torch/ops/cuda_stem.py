@@ -8,8 +8,10 @@ stem_external=True. On a CUDA tensor ``detector_stem_cuda`` launches the
 hand-written kernels of ``csrc/cuda_stem.cu`` (its note says what bounds
 them and how: the resize and ConvBN_0 from staged frame tiles, ConvBN_1 on
 the tensor cores in 3xTF32 from weights split and packed here once per
-model); on a CPU tensor it runs ``detector_stem_plain``: the resize
-matmuls, then F.conv2d with the BN folded to a scale and shift.
+model), or for the bf16 form the one launch of ``csrc/cuda_stem_bf16.cu``
+(both convs on the tensor cores, ConvBN_1 on wgmma, the conv0 activation
+kept on the SM); on a CPU tensor it runs ``detector_stem_plain``: the
+resize matmuls, then F.conv2d with the BN folded to a scale and shift.
 
 The bf16 form (constants from ``prepare_stem_constants(detector,
 torch.bfloat16)``, bf16 frames, a bf16 activation out) rounds where the
@@ -71,20 +73,22 @@ def prepare_stem_constants(detector, dtype=torch.float32
 
 
 def _bf16_constants(detector) -> Dict[str, torch.Tensor]:
-    """The bf16 form's constants: w0 (27, 32) rounded to bf16 (held in f32:
-    ConvBN_0 runs in FFMA), s0, b0; w1frag, ConvBN_1's (288, 64) matrix
-    without the BN scale packed by bf16mma.pack_b_fragments (18, 8, 32, 4),
-    s1, b1; bf16 OIHW copies for the twin; dtype."""
+    """The bf16 form's constants: w0frag, ConvBN_0's (27, 32) matrix in
+    (ty, tx, c) row order padded with zero rows to (32, 32), packed by
+    bf16mma.pack_b_fragments (2, 4, 32, 4); w1wg, ConvBN_1's (288, 64)
+    matrix packed by bf16mma.pack_wgmma_b (18, 8, 2, 8, 8); both without
+    the BN scale, whose s0, b0, s1, b1 stay f32; bf16 OIHW copies for the
+    twin; dtype."""
     with torch.no_grad():
         c0, c1 = detector.ConvBN_0, detector.ConvBN_1
         w0 = c0.Conv_0.weight.detach()
         w1 = c1.Conv_0.weight.detach()
         s0, b0 = fold_bn(c0.BatchNorm_0)
         s1, b1 = fold_bn(c1.BatchNorm_0)
+        w0mat = F.pad(w0.permute(2, 3, 1, 0).reshape(27, 32), (0, 0, 0, 5))
         return dict(
-            w0=bf16mma.round_bf16(w0.permute(2, 3, 1, 0).reshape(27, 32))
-            .contiguous(),
-            w1frag=bf16mma.pack_b_fragments(
+            w0frag=bf16mma.pack_b_fragments(w0mat),
+            w1wg=bf16mma.pack_wgmma_b(
                 w1.permute(2, 3, 1, 0).reshape(288, 64)),
             w0_oihw=w0.to(torch.bfloat16).contiguous(),
             w1_oihw=w1.to(torch.bfloat16).contiguous(),
@@ -213,9 +217,10 @@ def conv0_patch(h: int, w: int, size: int):
 
 
 def blocks_per_sm(h: int, w: int, size: int) -> Dict[str, int]:
-    """What the card gives the two stem kernels at h x w frames resized to
+    """What the card gives the stem kernels at h x w frames resized to
     `size` (for the build report): each kernel's dynamic shared memory and
-    the blocks of it that fit one SM."""
+    the blocks of it that fit one SM (the f32 form's two, the bf16 form's
+    one)."""
     fh, fw, band = conv0_patch(h, w, size)
     blocks = (ctypes.c_int * 4)()
     fn = cuda_build.load("cuda_stem").gv_stem_blocks_per_sm
@@ -226,27 +231,133 @@ def blocks_per_sm(h: int, w: int, size: int) -> Dict[str, int]:
     if blocks[2] != conv0_shared_bytes(fh, fw, band):
         raise RuntimeError("conv0_shared_bytes and csrc/cuda_stem.cu's "
                            "c0_smem_bytes disagree")
+    plan16 = stem_bf16_patch(h, w, size)
+    plan = (ctypes.c_int * 2)()
+    fn = cuda_build.load("cuda_stem_bf16").gv_stem_bf16_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    cuda_build.check(fn(*plan16, ctypes.addressof(plan)),
+                     "gv_stem_bf16_plan")
+    if plan[0] != stem_bf16_shared_bytes(*plan16):
+        raise RuntimeError("stem_bf16_shared_bytes and "
+                           "csrc/cuda_stem_bf16.cu's smem_bytes disagree")
     return dict(patch_rows=fh, patch_cols=fw, band=band,
                 conv0_shared_bytes=blocks[2], conv0_blocks_per_sm=blocks[0],
-                conv1_shared_bytes=blocks[3], conv1_blocks_per_sm=blocks[1])
+                conv1_shared_bytes=blocks[3], conv1_blocks_per_sm=blocks[1],
+                bf16_patch_rows=plan16[0], bf16_patch_cols=plan16[1],
+                bf16_band_steps=plan16[4],
+                bf16_shared_bytes=plan[0], bf16_blocks_per_sm=plan[1])
+
+
+# The bf16 kernel's tile of 8 x 16 conv1 outputs lies over 17 x 33 conv0
+# pixels and 35 x 67 resized pixels (csrc/cuda_stem_bf16.cu: kRH, kRW).
+_BF16_RESIZED_ROWS = 35
+_BF16_RESIZED_COLS = 67
+# the convs' weights, BN constants, two mbarriers, the next tile's
+# geometry, up to a 128-byte boundary
+_BF16_HEAD_BYTES = -(-(288 * 64 * 2 + 2048 + 192 * 4 + 32 + 64) // 128) * 128
+
+
+def stem_bf16_shared_bytes(fh_max: int, fw_max: int, xs: int, ys: int,
+                           kb: int) -> int:
+    """Dynamic shared memory of the bf16 kernel (csrc/cuda_stem_bf16.cu,
+    smem_bytes): the weights and BN constants; region P, the frame rows
+    under a tile (and 40 elements past them), then its resized pixels (3
+    planes of 48 x 72 + 16); region Q, the rows resampled along x (3 planes
+    of 72 x y_row, y_row = round16(fh_max) + 8) with the two passes' band
+    matrices (80 x (16 kb + 8) and 48 x y_row), then the 17 x 33 conv0
+    pixels, 40 bf16 each; region T, the tap tables' rows under a tile (67
+    of xs floats, 35 of ys)."""
+    def r16(n):
+        return -(-n // 16) * 16
+    row = (fw_max * 3 + 14) // 8 * 8
+    yrow = r16(fh_max) + 8
+    p = r16(max((fh_max * row + 40) * 2, 3 * (48 * 72 + 16) * 2))
+    q = r16(max(17 * 33 * 40 * 2,
+                (3 * 72 * yrow + 80 * (16 * kb + 8) + 48 * yrow) * 2))
+    t = r16((_BF16_RESIZED_COLS * xs + _BF16_RESIZED_ROWS * ys) * 4)
+    return _BF16_HEAD_BYTES + p + q + t
+
+
+def _band_steps(rx0: np.ndarray, taps: int, size: int) -> int:
+    """The most k steps of 16 frame columns that the windows of 16
+    consecutive resized columns of one tile span (csrc/cuda_stem_bf16.cu
+    x_gemm, band_k0): the x pass's band width."""
+    s0 = -(-size // 2)
+    s1 = -(-s0 // 2)
+    pad0 = same_pad(size, 3, 2)[0]
+    pad1 = same_pad(s0, 3, 2)[0]
+    kb = 1
+    for x0 in range(0, s1, 16):
+        s_lo = 2 * (2 * x0 - pad1) - pad0
+        sa, sb = max(s_lo, 0), min(s_lo + _BF16_RESIZED_COLS - 1, size - 1)
+        fx0 = int(rx0[sa])
+        for first in range(sa, sb + 1, 16):
+            last = min(first + 15, sb)
+            k0 = (int(rx0[first]) - fx0) // 16
+            k1 = (int(rx0[last]) + taps - fx0 + 15) // 16
+            kb = max(kb, k1 - k0)
+    return kb
+
+
+@functools.lru_cache(maxsize=None)
+def stem_bf16_patch(h: int, w: int, size: int):
+    """(fh_max, fw_max, xs, ys, kb): the frame rows and columns under a tile
+    of the bf16 kernel for h x w frames resized to `size`, the row length of
+    its column and row tap tables (a window start and the weights, padded
+    to a multiple of 4 floats) and its x band's k steps. Raises where the
+    plan does not fit one block's shared memory (frames far larger than the
+    resize, as the f32 form's tile plan refuses 4K)."""
+    ry0, ryw = resize_taps(h, size)
+    rx0, rxw = resize_taps(w, size)
+    fh = window_extent(ry0, ryw.shape[1], _BF16_RESIZED_ROWS)
+    fw = window_extent(rx0, rxw.shape[1], _BF16_RESIZED_COLS)
+    xs = (rxw.shape[1] + 4) // 4 * 4
+    ys = (ryw.shape[1] + 4) // 4 * 4
+    kb = _band_steps(rx0, rxw.shape[1], size)
+    need = stem_bf16_shared_bytes(fh, fw, xs, ys, kb)
+    if need > _MAX_SHARED_BYTES:
+        raise ValueError(
+            f"the {fh} x {fw} pixel frame patch under one tile of the bf16 "
+            f"stem kernel ({h}x{w} frames resized to {size}) needs {need} "
+            f"bytes of shared memory, more than the {_MAX_SHARED_BYTES} a "
+            "block can have")
+    return fh, fw, xs, ys, kb
+
+
+_device_tables: Dict[tuple, tuple] = {}
+
+
+def _tables_on(device, h: int, w: int, size: int):
+    """The bf16 kernel's tap tables on `device`: (ytab, xtab), a row per
+    resized row / column, [window start, its weights rounded to bf16
+    (xtab's times 1/255), zeros], f32, ys / xs floats a row."""
+    key = (str(device), h, w, size)
+    if key not in _device_tables:
+        _, _, xs, ys, _ = stem_bf16_patch(h, w, size)
+        tabs = []
+        for n_in, scale, width in ((h, 1.0, ys), (w, 1.0 / 255.0, xs)):
+            start, wt = resize_taps(n_in, size, scale)
+            tab = np.zeros((size, width), np.float32)
+            tab[:, 0] = start
+            tab[:, 1:1 + wt.shape[1]] = wt
+            tabs.append(bf16mma.round_bf16(torch.as_tensor(tab)))
+            tabs[-1][:, 0] = torch.as_tensor(start, dtype=torch.float32)
+        _device_tables[key] = tuple(t.to(device) for t in tabs)
+    return _device_tables[key]
 
 
 _device_taps: Dict[tuple, tuple] = {}
 
 
-def _taps_on(device, h: int, w: int, size: int, dtype=torch.float32):
-    """The tap tables on `device`; the bf16 form's weights rounded to
-    bf16 (held in f32)."""
-    key = (str(device), h, w, size, dtype)
+def _taps_on(device, h: int, w: int, size: int):
+    """The f32 form's tap tables on `device`."""
+    key = (str(device), h, w, size)
     if key not in _device_taps:
         ry0, ryw = resize_taps(h, size)
         rx0, rxw = resize_taps(w, size, 1.0 / 255.0)
-        taps = [torch.as_tensor(a, device=device)
-                for a in (ry0, ryw, rx0, rxw)]
-        if dtype == torch.bfloat16:
-            taps[1], taps[3] = (bf16mma.round_bf16(taps[1]),
-                                bf16mma.round_bf16(taps[3]))
-        _device_taps[key] = tuple(taps)
+        _device_taps[key] = tuple(torch.as_tensor(a, device=device)
+                                  for a in (ry0, ryw, rx0, rxw))
     return _device_taps[key]
 
 
@@ -254,51 +365,34 @@ def _taps_on(device, h: int, w: int, size: int, dtype=torch.float32):
 # form's (name -> (shape, dtype))
 _SHAPES = dict(w0=(27, 32), s0=(32,), b0=(32,), w1frag=(36, 8, 32, 4),
                b1=(64,))
-_SHAPES_BF16 = dict(w0=((27, 32), torch.float32),
+_SHAPES_BF16 = dict(w0frag=((2, 4, 32, 4), torch.bfloat16),
+                    w1wg=((18, 8, 2, 8, 8), torch.bfloat16),
                     s0=((32,), torch.float32), b0=((32,), torch.float32),
-                    w1frag=((18, 8, 32, 4), torch.bfloat16),
                     s1=((64,), torch.float32), b1=((64,), torch.float32))
 
 
 def _launch(images: torch.Tensor, consts, size: int) -> torch.Tensor:
-    global launches, launches_bf16
+    global launches
     dev = images.device
     dt = cuda_build.consts_dtype(consts)
     if (images.dtype != dt or images.dim() != 4
             or images.shape[-1] != 3 or not images.is_contiguous()):
         raise ValueError(f"images must be a contiguous (B, H, W, 3) {dt} "
                          "tensor (the form of the constants)")
-    cuda_build.check_constants(
-        consts, _SHAPES if dt == torch.float32 else _SHAPES_BF16, dev, "stem")
+    if dt == torch.bfloat16:
+        return _launch_bf16(images, consts, size)
+    cuda_build.check_constants(consts, _SHAPES, dev, "stem")
     b, h, w, _ = images.shape
     s0 = -(-size // 2)
     s1 = -(-s0 // 2)
     pad0 = same_pad(size, 3, 2)[0]
     pad1 = same_pad(s0, 3, 2)[0]
-    ry0, ryw, rx0, rxw = _taps_on(dev, h, w, size, dt)
+    ry0, ryw, rx0, rxw = _taps_on(dev, h, w, size)
     fh_max, fw_max, band = conv0_patch(h, w, size)
     mid = torch.empty((b, s0, s0, 32), dtype=dt, device=dev)
     out = torch.empty((b, s1, s1, 64), dtype=dt, device=dev)
-    lib = cuda_build.load("cuda_stem")
     P, I = ctypes.c_void_p, ctypes.c_int
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if dt == torch.bfloat16:
-        fn = lib.gv_detector_stem_bf16
-        fn.restype = ctypes.c_int
-        fn.argtypes = [P, I, I, I, P, P, I, P, P, I, I, I, I, I, P, P, P, I,
-                       I, P, P, P, P, I, I, P, P]
-        cuda_build.check(
-            fn(images.data_ptr(), b, h, w, ry0.data_ptr(), ryw.data_ptr(),
-               ryw.shape[1], rx0.data_ptr(), rxw.data_ptr(), rxw.shape[1],
-               size, fh_max, fw_max, band, consts["w0"].data_ptr(),
-               consts["s0"].data_ptr(), consts["b0"].data_ptr(), pad0, s0,
-               mid.data_ptr(), consts["w1frag"].data_ptr(),
-               consts["s1"].data_ptr(), consts["b1"].data_ptr(), pad1, s1,
-               out.data_ptr(), stream),
-            "gv_detector_stem_bf16")
-        launches_bf16 += 1
-        return out
-    fn = lib.gv_detector_stem
+    fn = cuda_build.load("cuda_stem").gv_detector_stem
     fn.restype = ctypes.c_int
     fn.argtypes = [P, I, I, I, P, P, I, P, P, I, I, I, I, I, I, P, P, P, I,
                    I, P, P, P, I, I, P, P]
@@ -310,10 +404,69 @@ def _launch(images: torch.Tensor, consts, size: int) -> torch.Tensor:
            consts["w0"].data_ptr(), consts["s0"].data_ptr(),
            consts["b0"].data_ptr(), pad0, s0, mid.data_ptr(),
            consts["w1frag"].data_ptr(), consts["b1"].data_ptr(), pad1, s1,
-           out.data_ptr(), stream),
+           out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
         "gv_detector_stem")
     launches += 1
     return out
+
+
+def _launch_bf16(images: torch.Tensor, consts, size: int) -> torch.Tensor:
+    """The bf16 form: one launch of csrc/cuda_stem_bf16.cu, no scratch."""
+    global launches_bf16
+    dev = images.device
+    cuda_build.check_constants(consts, _SHAPES_BF16, dev, "stem")
+    if images.data_ptr() % 16:
+        raise ValueError("bf16 frames must start at a 16-byte boundary (the "
+                         "kernel copies their rows 16 bytes at a time)")
+    b, h, w, _ = images.shape
+    fh_max, fw_max, xs, ys, kb = stem_bf16_patch(h, w, size)
+    s0 = -(-size // 2)
+    s1 = -(-s0 // 2)
+    ytab, xtab = _tables_on(dev, h, w, size)
+    out = torch.empty((b, s1, s1, 64), dtype=torch.bfloat16, device=dev)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = cuda_build.load("cuda_stem_bf16").gv_detector_stem_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = [P, I, I, I, P, I, I, P, I, I, I, I, I, I, P, P, P, P, P,
+                   P, I, I, I, I, P, P]
+    cuda_build.check(
+        fn(images.data_ptr(), b, h, w, ytab.data_ptr(), ys,
+           resize_taps(h, size)[1].shape[1], xtab.data_ptr(), xs,
+           resize_taps(w, size)[1].shape[1], size, fh_max, fw_max, kb,
+           consts["w0frag"].data_ptr(),
+           consts["w1wg"].data_ptr(), consts["s0"].data_ptr(),
+           consts["b0"].data_ptr(), consts["s1"].data_ptr(),
+           consts["b1"].data_ptr(), same_pad(size, 3, 2)[0], s0,
+           same_pad(s0, 3, 2)[0], s1, out.data_ptr(),
+           torch.cuda.current_stream(dev).cuda_stream),
+        "gv_detector_stem_bf16")
+    launches_bf16 += 1
+    return out
+
+
+def wgmma_product_bf16_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M, K) @ b (K, 64) on the card through the bf16 stem's wgmma path
+    (bf16 operands, f32 sums; B packed by bf16mma.pack_wgmma_b and brought
+    into shared memory by cp.async.bulk): the check of the wgmma layout
+    against bf16mma.matmul_bf16 (no path calls it). M % 64 == 0, K % 16 ==
+    0, K <= 288; the result is f32."""
+    if (a.device.type != "cuda" or b.device != a.device or a.dim() != 2
+            or b.shape != (a.shape[1], 64) or a.shape[0] % 64
+            or a.shape[1] % 16 or a.shape[1] > 288):
+        raise ValueError("a (M, K) and b (K, 64) must be CUDA matrices, "
+                         "M % 64 == 0, K % 16 == 0, K <= 288")
+    a16 = a.to(torch.bfloat16).contiguous()
+    bw = bf16mma.pack_wgmma_b(b)
+    c = torch.empty((a.shape[0], 64), dtype=torch.float32, device=a.device)
+    fn = cuda_build.load("cuda_stem_bf16").gv_wgmma_product_bf16
+    fn.restype = ctypes.c_int
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, I, I, P, P, P]
+    cuda_build.check(
+        fn(a16.data_ptr(), a.shape[0], a.shape[1], bw.data_ptr(),
+           c.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream),
+        "gv_wgmma_product_bf16")
+    return c
 
 
 def detector_stem_cuda(images: torch.Tensor, consts,

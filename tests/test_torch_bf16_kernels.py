@@ -15,7 +15,8 @@ jnp.sum over the kernel's phase-blocked crop, which reproduces them
 exactly) in place of its own.
 
 Also: bf16mma's fragment packing (round trip, the k and n permutations) and
-its emulated product; the wrappers' bf16 constants and their checks.
+its emulated product; the wrappers' bf16 constants and their checks (the
+wgmma packing of the bf16 stem: tests/test_torch_stem_bf16.py).
 """
 
 import jax
@@ -194,9 +195,13 @@ def test_bf16_constants_are_what_the_wrappers_check():
         assert cuda_build.consts_dtype(consts) == BF
         cuda_build.check_constants(consts, shapes, torch.device("cpu"), "x")
     # the packed weights are the plain twin's bf16 weights without the BN
-    # scale
+    # scale (the stem's conv0 padded with zero rows from K = 27 to 32)
+    w0 = bf16mma.unpack_b_fragments(stem["w0frag"])
+    assert torch.equal(w0[:27], stem["w0_oihw"].permute(2, 3, 1, 0).reshape(
+        27, 32))
+    assert not w0[27:].float().any()
     w1 = stem["w1_oihw"].permute(2, 3, 1, 0).reshape(288, 64)
-    assert torch.equal(bf16mma.unpack_b_fragments(stem["w1frag"]), w1)
+    assert torch.equal(bf16mma.unpack_wgmma_b(stem["w1wg"]), w1)
     w2 = csp["w2_oihw"].permute(2, 3, 1, 0).reshape(576, 64)
     assert torch.equal(bf16mma.unpack_b_fragments(csp["w2"]), w2)
     wo = bf16mma.unpack_b_fragments(orient["wfrag"]).reshape(12, 48, -1)
@@ -220,7 +225,7 @@ def test_bf16_constants_are_what_the_wrappers_check():
             model, orient, SIZE)
     # the kernels' own checks (the launch refuses what the card would
     # misread)
-    bad = dict(stem, w1frag=stem["w1frag"][:-1])
+    bad = dict(stem, w1wg=stem["w1wg"][:-1])
     with pytest.raises(ValueError, match="stem constant"):
         cuda_stem._launch(x.to(BF), bad, SIZE)
     with pytest.raises(ValueError, match="CSP constant"):

@@ -730,10 +730,14 @@ def _frames8(rng, shape, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch,h,w,size", [(1, 480, 640, 416),
                                             (64, 480, 640, 416),
-                                            (3, 200, 260, 148)])
+                                            (3, 200, 260, 148),
+                                            (3, 480, 640, 416),
+                                            (2, 120, 160, 150),
+                                            (2, 100, 130, 68)])
 def test_stem_bf16_kernel_matches_twin(cuda_device, batch, h, w, size):
-    """1 and 64 frames at the ticks' shapes, and unaligned sizes (ragged
-    conv0 and conv1 tiles)."""
+    """1, 3 and 64 frames at the ticks' shapes, and unaligned sizes: ragged
+    conv1 tiles, an odd conv0 output (ConvBN_1 pads (1, 1)), frame rows
+    that do not start on a 16-byte boundary (130 x 3 bf16)."""
     cfg = GridVisionConfig(detection_weights_file="weights/detector.npz")
     det = weights.load_all(cfg, device=cuda_device)["detector"]
     consts = cuda_stem.prepare_stem_constants(det, BF)
@@ -744,6 +748,49 @@ def test_stem_bf16_kernel_matches_twin(cuda_device, batch, h, w, size):
     torch.cuda.synchronize()
     assert cuda_stem.launches_bf16 == n0 + 1
     _bf16_hold(got, cuda_stem.detector_stem_plain(img, consts, size))
+
+
+@pytest.mark.cuda
+def test_stem_bf16_kernel_one_launch_and_batch_independent(cuda_device):
+    """One launch a call; a frame's result does not depend on its place in
+    the batch (the persistent blocks walk the tiles of every frame); a
+    frame patch too large for a block, and frames off a 16-byte boundary,
+    raise before anything runs."""
+    cfg = GridVisionConfig(detection_weights_file="weights/detector.npz")
+    det = weights.load_all(cfg, device=cuda_device)["detector"]
+    consts = cuda_stem.prepare_stem_constants(det, BF)
+    img = _frames8(np.random.default_rng(5), (5, 480, 640, 3), cuda_device)
+    n0 = cuda_stem.launches_bf16
+    got = cuda_stem.detector_stem_cuda(img, consts, 416)
+    one = cuda_stem.detector_stem_cuda(img[3:4].contiguous(), consts, 416)
+    torch.cuda.synchronize()
+    assert cuda_stem.launches_bf16 == n0 + 2
+    assert torch.equal(one[0], got[3])
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_stem.detector_stem_cuda(
+            torch.zeros((1, 2160, 3840, 3), dtype=BF, device=cuda_device),
+            consts, 416)
+    flat = torch.zeros(96 * 128 * 3 + 1, dtype=BF, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        cuda_stem.detector_stem_cuda(flat[1:].view(1, 96, 128, 3), consts,
+                                     64)
+    assert cuda_stem.launches_bf16 == n0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(64, 16), (128, 288), (192, 64)])
+def test_wgmma_product_matches_f32_matmul(cuda_device, m, k):
+    """The bf16 stem's wgmma path alone (B packed by pack_wgmma_b, brought
+    in by cp.async.bulk, A in registers) against torch.matmul in f32 of
+    the same bf16 operands: the products are exact, only the order of the
+    f32 sums differs."""
+    g = torch.Generator(device=cuda_device).manual_seed(m + k)
+    a = torch.randn((m, k), generator=g, device=cuda_device).to(BF).float()
+    b = torch.randn((k, 64), generator=g, device=cuda_device).to(BF).float()
+    got = cuda_stem.wgmma_product_bf16_cuda(a, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, torch.matmul(a, b), rtol=1e-5,
+                               atol=1e-5)
 
 
 @pytest.mark.cuda

@@ -3,11 +3,13 @@
 card (grid_vision_tpu_torch; imports nothing of JAX):
 
     python3 tools/torch_kernel_times.py            # from the repo's root
-    python3 tools/torch_kernel_times.py stem       # or: knn, grid, carve
+    python3 tools/torch_kernel_times.py stem       # or: stem_bf16, knn,
+                                                   # grid, carve
     python3 tools/torch_kernel_times.py carve --variant cuda_raycast:MACRO
 
 torch.profiler over a few calls at the ticks' shapes (64 frames of 480x640
-to 416; 64 rigs x 8192 points x 16 and 64 queries, one rig x 16384 x 64;
+to 416, f32 or, for stem_bf16, the bf16 form on bf16 frames of integers;
+64 rigs x 8192 points x 16 and 64 queries, one rig x 16384 x 64;
 the gated grid and carve updates at 64 rigs and one rig of 500x200, every
 fourth rig gated off); prints one JSON line per shape with the microseconds
 per call of every kernel of csrc/ (named gv_*). The quick look at where a
@@ -15,7 +17,10 @@ call's device time goes while a kernel is being worked on. `--variant
 SOURCE:MACRO[,MACRO...]` first builds csrc/SOURCE.cu with a -D for each
 MACRO (nvcc, the package's flags) into its own library, prints its ptxas
 lines, and times it in place of the source as it is: a design alternative
-kept behind a macro while it is measured.
+kept behind a macro while it is measured. `stem_bf16 --variant
+cuda_stem_bf16:GV_STEM_CLOCKS` also prints the bf16 stem's cycles a tile
+and block of each phase at 64 frames, thread 0's (barrier to barrier)
+and the mean warp's (to its arrival at the barrier).
 chip_smoke.py holds the kernels to their twins and times whole calls.
 """
 
@@ -77,6 +82,29 @@ def use_variant(spec: str) -> str:
         if entry is not None:
             entry.cache_clear()
     return spec
+
+
+def stem_bf16_clocks(img, consts, size, calls: int = 5):
+    """Cycles a tile and block by phase of the bf16 stem (a -DGV_STEM_CLOCKS
+    build): bands and frame wait, x pass, y pass, conv0, next copies,
+    conv1; thread 0's and the mean warp's."""
+    fn = cuda_build.load("cuda_stem_bf16").gv_stem_bf16_clocks
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p]
+    buf = (ctypes.c_ulonglong * 12)()
+    fn(ctypes.addressof(buf))                      # clear
+    for _ in range(calls):
+        cuda_stem.detector_stem_cuda(img, consts, size)
+    torch.cuda.synchronize()
+    cuda_build.check(fn(ctypes.addressof(buf)), "gv_stem_bf16_clocks")
+    s1 = -(-(-(-size // 2)) // 2)
+    tiles = calls * img.shape[0] * -(-s1 // 8) * -(-s1 // 16)
+    phases = ["bands_and_wait", "x_pass", "y_pass", "conv0", "next_copies",
+              "conv1"]
+    return dict(kernel="stem_bf16_clocks", cycles_per_tile_thread0={
+        p: buf[i] / tiles for i, p in enumerate(phases)},
+        cycles_per_tile_mean_warp={p: buf[6 + i] / tiles / 8
+                                   for i, p in enumerate(phases)})
 
 
 def grid_cases(dev, g):
@@ -143,6 +171,20 @@ def main() -> None:
                 kernel="stem", shape=list(img.shape),
                 us=kernel_us(lambda: cuda_stem.detector_stem_cuda(
                     img, consts, cfg.resize)))), flush=True)
+    if "stem_bf16" in which:
+        cfg = GridVisionConfig(detection_weights_file="weights/detector.npz")
+        det = weights.load_all(cfg, device=dev)["detector"]
+        consts = cuda_stem.prepare_stem_constants(det, torch.bfloat16)
+        for batch in (64, 1):
+            img = torch.randint(0, 256, (batch, 480, 640, 3), generator=g,
+                                device=dev).to(torch.bfloat16)
+            print(json.dumps(dict(
+                kernel="stem_bf16", variant=variant, shape=list(img.shape),
+                us=kernel_us(lambda: cuda_stem.detector_stem_cuda(
+                    img, consts, cfg.resize)))), flush=True)
+            if batch == 64 and variant and "GV_STEM_CLOCKS" in variant:
+                print(json.dumps(stem_bf16_clocks(img, consts, cfg.resize)),
+                      flush=True)
     for cfg, lo, prev, gate, box, ranges, cbin, cr in (
             grid_cases(dev, g) if which & {"grid", "carve"} else ()):
         calls = {}
