@@ -21,7 +21,9 @@ device JSON follows. Phases, each printing one line:
    the depth refine queries all 64 box slots), 1 rig and 64, then the bf16
    forms of the stem (1 frame and 64; one launch, its wgmma product alone
    against a plain product, >= 99.9 % of the elements bit-equal), CSP and
-   orientation-front kernels on
+   orientation front (5 crops over 1 frame and 320 over 64; one launch, a
+   thread-block cluster a crop, its wgmma product alone and its plan
+   against the wrapper's, >= 99 % bit-equal) on
    8-bit frames (rtol = atol = 0.06, the share of bit-equal elements, and
    of the others the share the kernel holds nearer zero): max |error|,
    the kernel's time, the twin's time and a PyTorch library yardstick,
@@ -50,9 +52,9 @@ device JSON follows. Phases, each printing one line:
    99 % of rig-ticks, occupancy_i8 >= 99 % on the mean, >= 97.5 % at the
    least); the bf16 forms must launch once a tick and the f32 forms never;
    the bf16 tick beside the f32 one, a profile of three bf16 fleet ticks
-   (`stem_bf16_profile`: the bf16 stem's device time a launch and its
-   launches a tick), and the cuDNN convs' device time a tick in f32 and
-   bf16 (`library_convs`);
+   (`stem_bf16_profile`, `orient_bf16_profile`: the bf16 stem's and
+   orientation front's device time a launch and launches a tick), and the
+   cuDNN convs' device time a tick in f32 and bf16 (`library_convs`);
 7. the extension-mode tick (compat=False: raycast free-space carving,
    depth refine, class-aware NMS) at full width, the single-rig Engine for
    EXT_ENGINE_TICKS ticks and the fleet (64 rigs, budget 320; the refine
@@ -193,6 +195,27 @@ def bound_bf16_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_BF16_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tapped_frame_bytes(torch, images, xyxy, valid, rig, size):
+    """The bytes of the frame pixels that the valid crops' bilinear taps of
+    nonzero weight read, each pixel once however many crops tap it: what
+    the orientation front must read of its frames."""
+    from grid_vision_tpu_torch.ops import preprocess
+    r, h, w, c = images.shape
+    keep = valid.nonzero().squeeze(1)
+    (ylo, yhi, fy), (xlo, xhi, fx) = preprocess.box_axis_samples(
+        xyxy[keep], h, w, size)
+
+    def hit(lo, hi, frac, length):
+        out = torch.zeros((lo.shape[0], length), device=lo.device)
+        out.scatter_(1, lo, 1.0)
+        return out.scatter_(1, torch.where(frac > 0, hi, lo), 1.0)
+
+    seen = torch.zeros((r, h, w), device=images.device)
+    seen.index_add_(0, rig[keep].long(), hit(ylo, yhi, fy, h)[:, :, None]
+                    * hit(xlo, xhi, fx, w)[:, None, :])
+    return int(seen.count_nonzero()) * c * images.element_size()
 
 
 def bf16_agreement(torch, what, got, ref):
@@ -345,11 +368,12 @@ def check_stem_bf16(torch, dev, detector, cfg, batch):
     folded in, leaky)."""
     import torch.nn.functional as F
     from grid_vision_tpu_torch.models.layers import same_pad
-    from grid_vision_tpu_torch.ops import bf16mma, cuda_stem, preprocess
+    from grid_vision_tpu_torch.ops import (bf16mma, cuda_orient, cuda_stem,
+                                           preprocess)
     g = torch.Generator(device=dev).manual_seed(10)
     a = torch.randn((128, 288), generator=g, device=dev)
     b = torch.randn((288, 64), generator=g, device=dev)
-    prod = cuda_stem.wgmma_product_bf16_cuda(a, b)
+    prod = cuda_orient.wgmma_product_bf16_cuda(a, b)
     torch.cuda.synchronize()
     prod_err = (prod - bf16mma.matmul_bf16(a, b)).abs().max().item()
     if prod_err > 1e-3:
@@ -469,15 +493,31 @@ def check_csp_bf16(torch, dev, detector, cfg, batch):
         bound=bound_bf16_ms(n_bytes, ops))
 
 
+# The bit-equal share the two-launch design (the crop through device
+# memory) reached at the fleet shapes on an H100, printed beside the
+# one-launch kernel's.
+ORIENT_BF16_PARENT_BIT_EQUAL = 0.99856
+
+
 def check_orient_bf16(torch, dev, net, cfg, rigs, n_crops):
-    """The orientation front's bf16 form: n_crops boxes over `rigs` 8-bit
-    frames (clamped, invalid and sliver boxes among them) against its twin;
-    yardstick: bf16 crop_resize einsums + the bf16 standardize + a cuDNN
-    bf16 F.conv2d with the BN folded in."""
+    """The orientation front's bf16 form (one launch of
+    csrc/cuda_orient_bf16.cu): n_crops boxes over `rigs` 8-bit frames
+    (clamped, invalid and sliver boxes among them) against its twin, >= 99 %
+    of the elements bit-equal; its wgmma product alone against a plain
+    product (the B layout, 128 channels a product); its plan against the
+    wrapper's mirror; yardstick: bf16 crop_resize einsums + the bf16
+    standardize + a cuDNN bf16 F.conv2d with the BN folded in."""
     import torch.nn.functional as F
     from grid_vision_tpu_torch.models.layers import same_pad
-    from grid_vision_tpu_torch.ops import cuda_orient, preprocess
+    from grid_vision_tpu_torch.ops import bf16mma, cuda_orient, preprocess
     g = torch.Generator(device=dev).manual_seed(14)
+    a = torch.randn((128, 432), generator=g, device=dev)
+    b = torch.randn((432, 128), generator=g, device=dev)
+    prod = cuda_orient.wgmma_product_bf16_cuda(a, b)
+    torch.cuda.synchronize()
+    prod_err = (prod - bf16mma.matmul_bf16(a, b)).abs().max().item()
+    if prod_err > 1e-3:
+        fail(f"the bf16 orientation wgmma product is off by {prod_err}")
     h, w, size = (cfg.camera_image_height, cfg.camera_image_width,
                   cfg.network_height)
     images = frames_bf16(torch, dev, cfg, rigs, 15)
@@ -506,7 +546,14 @@ def check_orient_bf16(torch, dev, net, cfg, rigs, n_crops):
     if not torch.isfinite(got.float()).all():
         fail("orientation-front bf16 output is not finite")
     err, equal, toward = bf16_agreement(torch, "orientation front", got[keep],
-                                ref[keep])
+                                        ref[keep])
+    if equal < 0.99:
+        fail(f"the bf16 orientation front is bit-equal to its twin on only "
+             f"{equal:.5f} of the elements (bar 0.99)")
+    plan = cuda_orient.bf16_plan_on_card(size, got.shape[3])
+    if plan[:6] != cuda_orient.orient_bf16_plan(size, got.shape[3]):
+        fail(f"the bf16 orientation kernel's plan {plan[:6]} is not the "
+             "wrapper's")
     bf = torch.bfloat16
     wt = (consts["w_oihw"].float() * consts["s"][:, None, None, None]).to(bf)
     bt = consts["t"].to(bf)
@@ -529,17 +576,24 @@ def check_orient_bf16(torch, dev, net, cfg, rigs, n_crops):
     n_valid = int(valid.sum())
     q, f = got.shape[1], got.shape[3]
     ops = n_valid * (2 * q * q * f * 12 * 12 * 3 + size * size * 3 * 10)
-    n_bytes = (images.numel() + got.numel() + 432 * f) * 2 + \
+    frame_bytes = tapped_frame_bytes(torch, images, xyxy, valid, rig, size)
+    n_bytes = frame_bytes + (got.numel() + 432 * f) * 2 + \
         xyxy.numel() * 4 + 2 * f * 4 + 2 * n_crops
     return dict(
         call=lambda: cuda_orient.orient_front_cuda(
             images, xyxy, valid, rig, net, consts, size),
         name="orient_front_bf16",
-        source="grid_vision_tpu_torch/csrc/cuda_orient.cu",
+        source="grid_vision_tpu_torch/csrc/cuda_orient_bf16.cu",
         replaces="grid_vision_tpu/ops/pallas_orient.py:288",
-        shape=[n_crops, size, size, 3], crops_valid=n_valid,
-        crops_flat_left_out=int(flat.sum()), max_abs_err=err,
-        bit_equal_share=equal, toward_zero_share=toward,
+        shape=[n_crops, size, size, 3], frames=rigs, crops_valid=n_valid,
+        frame_bytes_tapped=frame_bytes, crops_flat_left_out=int(flat.sum()),
+        max_abs_err=err,
+        bit_equal_share=equal,
+        parent_bit_equal_share_fleet=ORIENT_BF16_PARENT_BIT_EQUAL,
+        toward_zero_share=toward, wgmma_product_max_abs_err=prod_err,
+        plan=dict(zip(("cluster", "rows", "crop_rows", "stride",
+                       "buf_rows", "shared_bytes", "resident_clusters"),
+                      plan)),
         library_max_abs_err=lib_err, **t, bound=bound_bf16_ms(n_bytes, ops))
 
 
@@ -922,15 +976,16 @@ def check_orient(torch, dev, net, cfg, rigs, n_crops):
     n_valid = int(valid.sum())
     q, f = got.shape[1], got.shape[3]
     ops = n_valid * (2 * q * q * f * 12 * 12 * 3 + size * size * 3 * 10)
-    n_bytes = (images.numel() + xyxy.numel() + got.numel()
-               + wmat4.numel() + 2 * f) * 4 + 2 * n_crops
+    frame_bytes = tapped_frame_bytes(torch, images, xyxy, valid, rig, size)
+    n_bytes = frame_bytes + (xyxy.numel() + got.numel() + wmat4.numel()
+                             + 2 * f) * 4 + 2 * n_crops
     return dict(
         call=lambda: cuda_orient.orient_front_cuda(
             images, xyxy, valid, rig, net, consts, size),
         name="orient_front", source="grid_vision_tpu_torch/csrc/cuda_orient.cu",
         replaces="grid_vision_tpu/ops/pallas_orient.py:288",
         shape=[n_crops, size, size, 3], crops_valid=n_valid,
-        crops_flat_left_out=int(flat.sum()),
+        frame_bytes_tapped=frame_bytes, crops_flat_left_out=int(flat.sum()),
         max_abs_err=(got[keep] - ref[keep]).abs().max().item(),
         library_max_abs_err=(lib[keep] - ref[keep]).abs().max().item(), **t,
         bound=bound_ms(n_bytes, ops),
@@ -2222,6 +2277,7 @@ def main() -> None:
         ("engine", "stem_bf16", check_stem_bf16, (det, cfg, 1)),
         ("fleet", "stem_bf16", check_stem_bf16, (det, fleet_cfg, N_RIGS)),
         ("fleet", "csp_bf16", check_csp_bf16, (det, fleet_cfg, N_RIGS)),
+        ("engine", "orient_bf16", check_orient_bf16, (net, fleet_cfg, 1, 5)),
         ("fleet", "orient_bf16", check_orient_bf16,
          (net, fleet_cfg, N_RIGS, BUDGET))]
     for path, rigs, c, obs in (("extension", None, cfg, obs_seq[0]),
@@ -2462,6 +2518,16 @@ def main() -> None:
     phase("stem_bf16_profile", rows=stem_rows,
           device_ms_per_call=device_ms["detector_stem_bf16"],
           recorded_launches_per_tick=recorded)
+    # the same for the bf16 orientation front (one launch a fleet tick)
+    orient_rows = [row for row in profiles["kernels_bf16"]["port_kernels"]
+                   if "gv_orient_" in row["name"]]
+    recorded = sum(r["launches_per_tick"] for r in orient_rows)
+    phase("orient_bf16_profile", rows=orient_rows,
+          device_ms_per_tick=device_ms["orient_front_bf16"],
+          device_ms_per_call=device_ms["orient_front_bf16"] / recorded,
+          recorded_launches_per_tick=recorded,
+          wrapper_launches_per_tick=bf_launches["orient_front_bf16"]
+          / BF16_FLEET_TICKS)
     del bf_fleet, bf_fobs
     torch.cuda.empty_cache()
 

@@ -47,22 +47,16 @@
 // An invalid crop is an all-zero standardized input: it gets exactly
 // relu(t) and costs no product, and launch 1 skips it.
 //
-// The bf16 form (compute_dtype="bfloat16", both kernels templated on the
-// type T of frames, crops and output) rounds where pallas_orient.py's
-// kernel rounds in bf16: the interpolation weights and each resampling
-// pass's sum are rounded to bf16 (the crop is stored bf16), the statistics
-// are single-pass f32 moments of that crop (var = max(E[x^2] - E[x]^2, 0)),
-// the standardized values (x - mean) * inv are rounded to bf16 as they are
-// staged (4 at a time: a bf16 row run starts at any multiple of 4 values),
-// a run of 36 is padded to 48 (three k steps of 16) with zero weights, the
-// product is bf16 mma.sync.m16n8k16 with the whole K on the tensor core, and
-// relu(acc * s + t) (no FMA) is rounded once at the store.
-
-#include <type_traits>
+// The bf16 form (compute_dtype="bfloat16") is cuda_orient_bf16.cu. The
+// crop geometry both forms share is gv_orient.cuh.
 
 #include "gv_mma.cuh"
+#include "gv_orient.cuh"
 
 namespace {
+
+using gv::fill_tables;
+using gv::lerp_weight_pair;
 
 constexpr int kStridePx = 8;                  // conv stride in pixels
 constexpr int kTapRows = 12;                  // 12 x 12 kernel
@@ -107,84 +101,12 @@ __device__ __forceinline__ void block_sum3(float v[3]) {
   __syncthreads();                            // part is reused by a caller
 }
 
-__device__ __forceinline__ float lerp_weight_pair(float frac, bool same,
-                                                  float* w_hi) {
-  // (1 - frac) at lo and frac at hi, merged onto one tap when lo == hi
-  // (the plain twin's interpolation-weight matrices sum both there).
-  const float w_lo = 1.0f - frac;
-  if (same) {
-    *w_hi = 0.0f;
-    return w_lo + frac;
-  }
-  *w_hi = frac;
-  return w_lo;
-}
-
-// preprocess._bilinear_sample_axis for output index i: the half-pixel
-// position start + (i + 0.5) * (extent / n_out) - 0.5 clamped to the crop,
-// every operation rounded on its own as torch's elementwise ops are (the
-// compiler would contract the multiply-add and move a position by an ulp
-// across a pixel edge).
-__device__ __forceinline__ void axis_sample(int length, float start,
-                                            float extent, int n_out, int i,
-                                            int* lo, int* hi, float* frac) {
-  const float step = __fdiv_rn(extent, (float)n_out);
-  float pos = __fsub_rn(
-      __fadd_rn(start, __fmul_rn(__fadd_rn((float)i, 0.5f), step)), 0.5f);
-  pos = fminf(fmaxf(pos, start), __fsub_rn(__fadd_rn(start, extent), 1.0f));
-  const float fl = floorf(pos);
-  *frac = __fsub_rn(pos, fl);
-  const int l = min(max((int)fl, 0), length - 1);
-  *lo = l;
-  *hi = min(l + 1, length - 1);
-}
-
-// preprocess.box_axis_samples for one box: corners truncated toward zero
-// and clamped to the image, the max column excluded, extents >= 1.
-struct BoxAxes {
-  float x_start, x_extent, y_start, y_extent;
-};
-
-__device__ __forceinline__ BoxAxes box_axes(const float* __restrict__ box,
-                                            int h, int w) {
-  const int xmin = max(__float2int_rz(box[0]), 0);
-  const int ymin = max(__float2int_rz(box[1]), 0);
-  const int xmax = min(__float2int_rz(box[2]), w - 1);
-  const int ymax = min(__float2int_rz(box[3]), h - 1);
-  BoxAxes a;
-  a.x_start = (float)xmin;
-  a.y_start = (float)ymin;
-  a.x_extent = (float)max(xmax - xmin, 1);
-  a.y_extent = (float)max(ymax - ymin, 1);
-  return a;
-}
-
-// The (lo, hi, frac) tables of one box, `size` entries an axis, into
-// ylo | yhi | xlo | xhi (int) and yfr | xfr (float).
-__device__ __forceinline__ void fill_tables(const float* __restrict__ box,
-                                            int h, int w, int size, int* ylo,
-                                            int* yhi, float* yfr, int* xlo,
-                                            int* xhi, float* xfr) {
-  const BoxAxes a = box_axes(box, h, w);
-  for (int i = threadIdx.x; i < size; i += blockDim.x) {
-    axis_sample(h, a.y_start, a.y_extent, size, i, ylo + i, yhi + i,
-                yfr + i);
-    axis_sample(w, a.x_start, a.x_extent, size, i, xlo + i, xhi + i,
-                xfr + i);
-  }
-}
-
-// f32: the twin's crop and two-pass statistics. bf16 (the Pallas kernel's
-// bf16 arithmetic): the frame and the four interpolation weights rounded to
-// bf16, each resampling pass's sum rounded to bf16 (the bf16 crop), and
-// single-pass f32 moments of the bf16 crop: var = max(E[x^2] - E[x]^2, 0).
-template <typename T>
+// The twin's crop and two-pass statistics.
 __global__ void __launch_bounds__(kCropThreads) gv_orient_crop_kernel(
-    const T* __restrict__ images, int h, int w,
+    const float* __restrict__ images, int h, int w,
     const void* __restrict__ rig, int rig_is_i64,
     const uint8_t* __restrict__ valid, const float* __restrict__ xyxy,
-    int size, T* __restrict__ crops, float* __restrict__ stats) {
-  constexpr bool kBf16 = !std::is_same<T, float>::value;
+    int size, float* __restrict__ crops, float* __restrict__ stats) {
   extern __shared__ __align__(16) float smem[];
   const int n = blockIdx.x;
   if (!valid[n]) return;                      // uniform over the block
@@ -198,72 +120,45 @@ __global__ void __launch_bounds__(kCropThreads) gv_orient_crop_kernel(
   __syncthreads();
   const int64_t r = rig_is_i64 ? static_cast<const int64_t*>(rig)[n]
                                : static_cast<const int32_t*>(rig)[n];
-  const T* frame = images + r * h * w * 3;
-  T* crop = crops + (int64_t)n * size * size * 3;
+  const float* frame = images + r * h * w * 3;
+  float* crop = crops + (int64_t)n * size * size * 3;
   const int npix = size * size;
-  auto rnd = [](float v) { return kBf16 ? gv::round_bf16(v) : v; };
-  auto px = [](const T* p) {
-    if constexpr (kBf16) {
-      return __bfloat162float(*p);
-    } else {
-      return *p;
-    }
-  };
 
   float sum[3] = {0.0f, 0.0f, 0.0f};
-  float sum2[3] = {0.0f, 0.0f, 0.0f};
   for (int p = threadIdx.x; p < npix; p += blockDim.x) {
     const int i = p / size;
     const int j = p - i * size;
     const int y0 = ylo[i], y1 = yhi[i];
     const int x0 = xlo[j], x1 = xhi[j];
     float wy1, wx1;
-    const float wy0 = rnd(lerp_weight_pair(yfr[i], y0 == y1, &wy1));
-    const float wx0 = rnd(lerp_weight_pair(xfr[j], x0 == x1, &wx1));
-    wy1 = rnd(wy1);
-    wx1 = rnd(wx1);
-    const T* r0 = frame + (int64_t)y0 * w * 3;
-    const T* r1 = frame + (int64_t)y1 * w * 3;
+    const float wy0 = lerp_weight_pair(yfr[i], y0 == y1, &wy1);
+    const float wx0 = lerp_weight_pair(xfr[j], x0 == x1, &wx1);
+    const float* r0 = frame + (int64_t)y0 * w * 3;
+    const float* r1 = frame + (int64_t)y1 * w * 3;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       // along x first, then y: the order of the twin's einsums
-      const float t0 =
-          rnd(wx0 * px(r0 + x0 * 3 + c) + wx1 * px(r0 + x1 * 3 + c));
-      const float t1 =
-          rnd(wx0 * px(r1 + x0 * 3 + c) + wx1 * px(r1 + x1 * 3 + c));
-      const float v = rnd(wy0 * t0 + wy1 * t1);
-      if constexpr (kBf16) {
-        crop[p * 3 + c] = __float2bfloat16_rn(v);
-        sum2[c] += v * v;
-      } else {
-        crop[p * 3 + c] = v;
-      }
+      const float t0 = wx0 * r0[x0 * 3 + c] + wx1 * r0[x1 * 3 + c];
+      const float t1 = wx0 * r1[x0 * 3 + c] + wx1 * r1[x1 * 3 + c];
+      const float v = wy0 * t0 + wy1 * t1;
+      crop[p * 3 + c] = v;
       sum[c] += v;
     }
   }
   block_sum3(sum);
   const float mean[3] = {sum[0] / npix, sum[1] / npix, sum[2] / npix};
   float var[3];
-  if constexpr (kBf16) {
-    block_sum3(sum2);
+  float sq[3] = {0.0f, 0.0f, 0.0f};
+  for (int p = threadIdx.x; p < npix; p += blockDim.x) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      var[c] = fmaxf(__fsub_rn(sum2[c] / npix, __fmul_rn(mean[c], mean[c])),
-                     0.0f);
+      const float d = crop[p * 3 + c] - mean[c];  // this thread's writes
+      sq[c] += d * d;
     }
-  } else {
-    float sq[3] = {0.0f, 0.0f, 0.0f};
-    for (int p = threadIdx.x; p < npix; p += blockDim.x) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float d = crop[p * 3 + c] - mean[c];  // this thread's writes
-        sq[c] += d * d;
-      }
-    }
-    block_sum3(sq);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) var[c] = sq[c] / npix;
   }
+  block_sum3(sq);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) var[c] = sq[c] / npix;
   if (threadIdx.x < 3) {
     const int c = threadIdx.x;
     stats[n * 6 + c] = mean[c];
@@ -281,58 +176,46 @@ __global__ void gv_orient_samples_kernel(const float* __restrict__ xyxy,
               xlo + o, xhi + o, xfr + o);
 }
 
-// The conv's layout in operand type T. f32: an input row run of 12 px x 3
-// ch padded to 40 (5 mma k steps of 8); bf16: padded to 48 (3 k steps of
-// 16); the band's rows are staged standardized, 4 values a piece.
-template <typename T>
+// The conv's layout: an input row run of 12 px x 3 ch padded to 40 (5 mma
+// k steps of 8); the band's rows are staged standardized, 4 values a piece.
 struct OrientCfg {
-  static constexpr int kRun = std::is_same<T, float>::value ? kRunF32 : 48;
-  static constexpr int kSteps = kRun / gv::Op<T>::kK;
+  static constexpr int kRun = kRunF32;
+  static constexpr int kSteps = kRun / gv::Op<float>::kK;
   static constexpr int kRowElems = (kBandCols - 1) * kStridePx * 3 + kRun;
   static constexpr int kBandElems = kInRows * kRowElems;
   static_assert(kRowElems % 4 == 0, "4-value staging pieces");
 };
 
-template <typename T>
 int conv_smem_bytes(int f) {
-  using C = OrientCfg<T>;
+  using C = OrientCfg;
   const int chunk = C::kSteps * (f / 8) * 32 * 4;
-  return (C::kBandElems + 2 * chunk) * (int)sizeof(T) + (2 * kMaxF + 8) * 4;
+  return (C::kBandElems + 2 * chunk + kMaxF + 8) * (int)sizeof(float);
 }
 
 // crops: (n, size, size, 3) raw; stats: (n, 6) mean | 1 / std; wfrag: the
 // (12 * kRun, f) matrix (rows uy * kRun + ux * 3 + c, rows 36.. of a run
-// zero; f32: BN scale folded in, packed by tf32x3.pack_b_fragments; bf16:
-// packed by bf16mma.pack_b_fragments, scale the BN scale); out: (n, q, q,
-// f). bf16: the standardized values are rounded to bf16 on the way in, and
-// relu(acc * scale + shift) is computed in f32 (no FMA) and rounded once.
-template <typename T>
+// zero; BN scale folded in, packed by tf32x3.pack_b_fragments); out: (n,
+// q, q, f).
 __global__ void __launch_bounds__(kConvThreads)
-gv_orient_conv_kernel(const T* __restrict__ crops,
+gv_orient_conv_kernel(const float* __restrict__ crops,
                       const float* __restrict__ stats,
                       const uint8_t* __restrict__ valid, int size, int q,
-                      int pad, const T* __restrict__ wfrag, int f,
-                      const float* __restrict__ scale,
-                      const float* __restrict__ shift, T* __restrict__ out) {
-  using C = OrientCfg<T>;
-  using O = gv::Op<T>;
-  using Frag = typename O::Frag;
-  constexpr bool kBf16 = !std::is_same<T, float>::value;
+                      int pad, const float* __restrict__ wfrag, int f,
+                      const float* __restrict__ shift,
+                      float* __restrict__ out) {
+  using C = OrientCfg;
+  using O = gv::Op<float>;
+  using Frag = O::Frag;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int chunk_elems = C::kSteps * (f / 8) * 32 * 4;
-  T* band = reinterpret_cast<T*>(smem_raw);
-  T* wbuf = band + C::kBandElems;
-  float* sscale = reinterpret_cast<float*>(wbuf + 2 * chunk_elems);
-  float* sshift = sscale + kMaxF;
+  float* band = reinterpret_cast<float*>(smem_raw);
+  float* wbuf = band + C::kBandElems;
+  float* sshift = wbuf + 2 * chunk_elems;
   float* sstat = sshift + kMaxF;
   const int tid = threadIdx.x;
   const int n = blockIdx.x;
   const int oy0 = blockIdx.y * kBandRows;
   const int ox0 = blockIdx.z * kBandCols;
-  auto bn_relu = [](float a, float s, float t) {
-    return kBf16 ? fmaxf(__fadd_rn(__fmul_rn(a, s), t), 0.0f)
-                 : fmaxf(a + t, 0.0f);
-  };
 
   if (!valid[n]) {                            // uniform over the block
     const int vecs = f / 4;
@@ -351,26 +234,23 @@ gv_orient_conv_kernel(const T* __restrict__ crops,
     return;
   }
 
-  constexpr int kPer = 16 / (int)sizeof(T);   // elements a 16-byte piece
+  constexpr int kPer = 4;                     // elements a 16-byte piece
   auto load_chunk = [&](int chunk) {
-    const T* s = wfrag + (int64_t)chunk * chunk_elems;
-    T* d = wbuf + (chunk & 1) * chunk_elems;
+    const float* s = wfrag + (int64_t)chunk * chunk_elems;
+    float* d = wbuf + (chunk & 1) * chunk_elems;
     for (int i = tid; i < chunk_elems / kPer; i += kConvThreads) {
       gv::cp_async16(d + kPer * i, s + kPer * i, true);
     }
     gv::cp_async_commit();
   };
   load_chunk(0);
-  if (tid < f) {
-    sshift[tid] = shift[tid];
-    sscale[tid] = kBf16 ? scale[tid] : 1.0f;
-  }
+  if (tid < f) sshift[tid] = shift[tid];
   if (tid < 6) sstat[tid] = stats[n * 6 + tid];
   __syncthreads();
 
   // stage the band's input rows, standardized; zero outside the crop
   {
-    const T* crop = crops + (int64_t)n * size * size * 3;
+    const float* crop = crops + (int64_t)n * size * size * 3;
     const int row_len = size * 3;
     const int r0 = oy0 * kStridePx - pad;
     const int col0 = (ox0 * kStridePx - pad) * 3;  // a multiple of 12
@@ -382,24 +262,12 @@ gv_orient_conv_kernel(const T* __restrict__ crops,
       const int cs = col0 + 4 * v;
       float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       if (r >= 0 && r < size && cs >= 0 && cs < row_len) {
-        const T* src = crop + (int64_t)r * row_len + cs;
-        if constexpr (kBf16) {
-          const uint2 raw = __ldg(reinterpret_cast<const uint2*>(src));
-          const __nv_bfloat162 lo =
-              *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-          const __nv_bfloat162 hi =
-              *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-          x[0] = __low2float(lo);
-          x[1] = __high2float(lo);
-          x[2] = __low2float(hi);
-          x[3] = __high2float(hi);
-        } else {
-          const float4 raw = __ldg(reinterpret_cast<const float4*>(src));
-          x[0] = raw.x;
-          x[1] = raw.y;
-          x[2] = raw.z;
-          x[3] = raw.w;
-        }
+        const float4 raw = __ldg(reinterpret_cast<const float4*>(
+            crop + (int64_t)r * row_len + cs));
+        x[0] = raw.x;
+        x[1] = raw.y;
+        x[2] = raw.z;
+        x[3] = raw.w;
         int c = v % 3;                        // channel of x[0]: cs % 3
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -450,7 +318,7 @@ gv_orient_conv_kernel(const T* __restrict__ crops,
     __syncthreads();                          // chunk uy (and the band) landed
     const Frag* wb =
         reinterpret_cast<const Frag*>(wbuf + (uy & 1) * chunk_elems);
-    const T* arow = band + uy * C::kRowElems;
+    const float* arow = band + uy * C::kRowElems;
 #pragma unroll
     for (int ks = 0; ks < C::kSteps; ++ks) {
       Frag b[4];
@@ -462,14 +330,10 @@ gv_orient_conv_kernel(const T* __restrict__ crops,
 #pragma unroll
       for (int mt = 0; mt < kWarpMTiles; ++mt) {
         if (mt0 + mt < kMTiles) {             // uniform over the warp
-          const T* a = arow + ks * O::kK;
-          if constexpr (O::kSplitChains) {
-            float d[4][4];                    // a chain of one k step
-            O::step(d, true, a + a_off[mt][0], a + a_off[mt][1], b);
-            gv::add_chain(acc[mt], d);
-          } else {
-            O::step(acc[mt], false, a + a_off[mt][0], a + a_off[mt][1], b);
-          }
+          const float* a = arow + ks * O::kK;
+          float d[4][4];                      // a chain of one k step
+          O::step(d, true, a + a_off[mt][0], a + a_off[mt][1], b);
+          gv::add_chain(acc[mt], d);
         }
       }
     }
@@ -484,60 +348,23 @@ gv_orient_conv_kernel(const T* __restrict__ crops,
       const int oy = oy0 + p / kBandCols;
       const int ox = ox0 + p % kBandCols;
       if (mt0 + mt < kMTiles && oy < q && ox < q) {
-        T* dst = out + (((int64_t)n * q + oy) * q + ox) * f;
+        float* dst = out + (((int64_t)n * q + oy) * q + ox) * f;
 #pragma unroll
         for (int pp = 0; pp < 2; ++pp) {
           const int ch = 32 * wq + 16 * pp + 4 * t;
           if (ch < f) {
-            const float* ss = sscale + ch;
             const float* sh = sshift + ch;
             gv::store4(dst + ch,
-                       bn_relu(acc[mt][2 * pp][2 * half], ss[0], sh[0]),
-                       bn_relu(acc[mt][2 * pp][2 * half + 1], ss[1], sh[1]),
-                       bn_relu(acc[mt][2 * pp + 1][2 * half], ss[2], sh[2]),
-                       bn_relu(acc[mt][2 * pp + 1][2 * half + 1], ss[3],
-                               sh[3]));
+                       fmaxf(acc[mt][2 * pp][2 * half] + sh[0], 0.0f),
+                       fmaxf(acc[mt][2 * pp][2 * half + 1] + sh[1], 0.0f),
+                       fmaxf(acc[mt][2 * pp + 1][2 * half] + sh[2], 0.0f),
+                       fmaxf(acc[mt][2 * pp + 1][2 * half + 1] + sh[3],
+                             0.0f));
           }
         }
       }
     }
   }
-}
-
-template <typename T>
-int orient_front(const T* images, int h, int w, const void* rig,
-                 int rig_is_i64, const uint8_t* valid, const float* xyxy,
-                 int n, int size, int q, int pad, const T* wfrag, int f,
-                 const float* scale, const float* shift, T* crops,
-                 float* stats, T* out, cudaStream_t stream) {
-  if (f <= 0 || f % 16 != 0 || f > kMaxF || size <= 0 || size % 8 != 0 ||
-      pad % 4 != 0 || q <= 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (n <= 0) return 0;
-  const int band_rows = (q + kBandRows - 1) / kBandRows;
-  const int band_cols = (q + kBandCols - 1) / kBandCols;
-  if (band_rows > 65535 || band_cols > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int crop_smem = 6 * size * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      gv_orient_crop_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      crop_smem);
-  if (err != cudaSuccess) return (int)err;
-  gv_orient_crop_kernel<T><<<n, kCropThreads, crop_smem, stream>>>(
-      images, h, w, rig, rig_is_i64, valid, xyxy, size, crops, stats);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int conv_smem = conv_smem_bytes<T>(f);
-  err = cudaFuncSetAttribute(gv_orient_conv_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             conv_smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n, band_rows, band_cols);
-  gv_orient_conv_kernel<T><<<grid, kConvThreads, conv_smem, stream>>>(
-      crops, stats, valid, size, q, pad, wfrag, f, scale, shift, out);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -553,28 +380,34 @@ extern "C" int gv_orient_front(const float* images, int h, int w,
                                int f, const float* shift, float* crops,
                                float* stats, float* out,
                                cudaStream_t stream) {
-  return orient_front<float>(images, h, w, rig, rig_is_i64, valid, xyxy, n,
-                             size, q, pad, wfrag, f, nullptr, shift, crops,
-                             stats, out, stream);
-}
-
-// The bf16 form: images, crops, wfrag and out bf16; wfrag: the packed
-// (576, f) weights without the BN scale (runs padded to 48); scale / shift:
-// the BN's (f32).
-extern "C" int gv_orient_front_bf16(const void* images, int h, int w,
-                                    const void* rig, int rig_is_i64,
-                                    const uint8_t* valid, const float* xyxy,
-                                    int n, int size, int q, int pad,
-                                    const void* wfrag, int f,
-                                    const float* scale, const float* shift,
-                                    void* crops, float* stats, void* out,
-                                    cudaStream_t stream) {
-  using B = gv::bf16;
-  return orient_front<B>(static_cast<const B*>(images), h, w, rig,
-                         rig_is_i64, valid, xyxy, n, size, q, pad,
-                         static_cast<const B*>(wfrag), f, scale, shift,
-                         static_cast<B*>(crops), stats, static_cast<B*>(out),
-                         stream);
+  if (f <= 0 || f % 16 != 0 || f > kMaxF || size <= 0 || size % 8 != 0 ||
+      pad % 4 != 0 || q <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n <= 0) return 0;
+  const int band_rows = (q + kBandRows - 1) / kBandRows;
+  const int band_cols = (q + kBandCols - 1) / kBandCols;
+  if (band_rows > 65535 || band_cols > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int crop_smem = 6 * size * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      gv_orient_crop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      crop_smem);
+  if (err != cudaSuccess) return (int)err;
+  gv_orient_crop_kernel<<<n, kCropThreads, crop_smem, stream>>>(
+      images, h, w, rig, rig_is_i64, valid, xyxy, size, crops, stats);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int conv_smem = conv_smem_bytes(f);
+  err = cudaFuncSetAttribute(gv_orient_conv_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             conv_smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(n, band_rows, band_cols);
+  gv_orient_conv_kernel<<<grid, kConvThreads, conv_smem, stream>>>(
+      crops, stats, valid, size, q, pad, wfrag, f, shift, out);
+  return (int)cudaGetLastError();
 }
 
 // The (n, size) sample tables the crop kernel computes from the boxes

@@ -59,11 +59,24 @@
 
 #include <cstring>
 
-#include "gv_mma.cuh"
+#include "gv_hopper.cuh"
 
 namespace {
 
+using gv::b_desc;
 using gv::bf16;
+using gv::bulk_copy;
+using gv::fence_acc;
+using gv::fence_proxy_async;
+using gv::mbar_expect_tx;
+using gv::mbar_init;
+using gv::mbar_wait;
+using gv::smem_u32;
+using gv::store8;
+using gv::wgmma_commit;
+using gv::wgmma_fence;
+using gv::wgmma_m64n64k16;
+using gv::wgmma_wait0;
 
 constexpr int kThreads = 256;                 // two warpgroups
 constexpr int kWarps = kThreads / 32;
@@ -146,126 +159,6 @@ __host__ __device__ constexpr int smem_bytes(int fh, int fw, int xs, int ys,
          region_t(xs, ys);
 }
 
-// ---- mbarrier, bulk copies, wgmma ----------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// `bytes` (a multiple of 16) global -> shared by the copy engine,
-// completing on `bar`; dst and src 16-byte aligned.
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          int bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// The shared-memory descriptor of one k step of a B packed by
-// bf16mma.pack_wgmma_b (K-major, no swizzle): 8 x 8 core matrices of 128
-// contiguous bytes (8 channels x 16 bytes of k), the two k halves 128 bytes
-// apart (leading byte offset), the eight channel groups 256 apart (stride
-// byte offset).
-__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
-         ((uint64_t)(256 >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keeps the compiler from moving accesses of the accumulators across the
-// asynchronous product.
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (+)= a * b, m64n64k16, bf16 operands, f32 sums: a the warp's A
-// fragment of its 16 rows (the mma.sync m16n8k16 layout), b in shared
-// memory. With scale_d == 0 d is overwritten. The thread's d[4j + e]:
-// row g (e < 2) or g + 8, column 8j + 2t + (e & 1) of the warp's rows.
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
-                                                const uint32_t (&a)[4],
-                                                uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-        "r"(scale_d));
-}
-
-// The output channel of accumulator column n (pack_wgmma_b's order): a
-// thread's d[4j + e], j = 4h .. 4h + 3, e = 0, 1 of one row are the eight
-// channels 32h + 8t .. 32h + 8t + 7, one 16-byte store.
-__host__ __device__ constexpr int acc_channel(int j, int t, int e) {
-  return 32 * (j / 4) + 8 * t + 2 * (j % 4) + e;
-}
-
-// Eight outputs to global memory as bf16, one 16-byte store.
-__device__ __forceinline__ void store8(bf16* dst, const float (&v)[8]) {
-  uint4 u;
-  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 p = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    w[i] = *reinterpret_cast<const uint32_t*>(&p);
-  }
-  *reinterpret_cast<uint4*>(dst) = u;
-}
-
 // Two bf16 of shared memory as one mma operand register (lo in the low
 // half).
 __device__ __forceinline__ uint32_t pack2(const bf16* lo, const bf16* hi) {
@@ -280,12 +173,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
                "[%4];"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
-}
-
-// Orders this thread's earlier shared-memory accesses before later ones of
-// the copy engine (a bulk copy into a buffer just read).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // ---- the tile's geometry ------------------------------------------------
@@ -902,58 +789,6 @@ gv_stem_bf16_kernel(Geo g, const __grid_constant__ CUtensorMap fmap,
 #endif
 }
 
-// ---- a bare wgmma product, for the card tests ----------------------------
-
-// out (M, 64) f32 = a (M, K) bf16 row-major @ the (K, 64) matrix packed by
-// pack_wgmma_b into b: one warpgroup a 64-row block, B by cp.async.bulk
-// into shared memory, A fragments from global memory in pack_wgmma_b's k
-// order, the product on the stem's wgmma path.
-__global__ void __launch_bounds__(128)
-gv_wgmma_product_kernel(const bf16* __restrict__ a, int k,
-                        const bf16* __restrict__ b, float* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int steps = k / 16;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + steps * kStepBytes);
-  const uint32_t wb = smem_u32(smem);
-  const uint32_t mbar = smem_u32(bar);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int gq = lane >> 2;
-  const int t = lane & 3;
-  if (threadIdx.x == 0) mbar_init(mbar, 1);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    mbar_expect_tx(mbar, steps * kStepBytes);
-    bulk_copy(wb, b, steps * kStepBytes, mbar);
-  }
-  mbar_wait(mbar, 0);
-  const int row = blockIdx.x * 64 + 16 * warp + gq;
-  const bf16* a0 = a + (int64_t)row * k + 4 * t;
-  const bf16* a1 = a0 + (int64_t)8 * k;
-  float d[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) d[i] = 0.0f;
-  for (int s = 0; s < steps; ++s) {
-    const uint2 lo = *reinterpret_cast<const uint2*>(a0 + 16 * s);
-    const uint2 hi = *reinterpret_cast<const uint2*>(a1 + 16 * s);
-    const uint32_t f[4] = {lo.x, hi.x, lo.y, hi.y};
-    fence_acc(d);
-    wgmma_fence();
-    wgmma_m64n64k16(d, f, b_desc(wb + s * kStepBytes), s > 0);
-    wgmma_commit();
-    wgmma_wait0();
-    fence_acc(d);
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = row + 8 * (e >> 1);
-      out[(int64_t)r * 64 + acc_channel(j, t, e & 1)] = d[4 * j + e];
-    }
-  }
-}
-
 int set_smem(const void* fn, int bytes) {
   return (int)cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -1062,22 +897,6 @@ extern "C" int gv_stem_bf16_plan(int fh_max, int fw_max, int xs, int ys,
   if (err) return err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &plan[1], gv_stem_bf16_kernel, kThreads, plan[0]);
-}
-
-// out (m, 64) f32 = a (m, k) bf16 @ b, the (k, 64) matrix packed by
-// pack_wgmma_b; m % 64 == 0, k % 16 == 0, k <= 288.
-extern "C" int gv_wgmma_product_bf16(const void* a, int m, int k,
-                                     const void* b, float* out,
-                                     cudaStream_t stream) {
-  if (m <= 0 || m % 64 || k <= 0 || k % 16 || k > 288) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int smem = k / 16 * kStepBytes + 16;
-  const int err = set_smem((const void*)gv_wgmma_product_kernel, smem);
-  if (err) return err;
-  gv_wgmma_product_kernel<<<m / 64, 128, smem, stream>>>(
-      static_cast<const bf16*>(a), k, static_cast<const bf16*>(b), out);
-  return (int)cudaGetLastError();
 }
 
 #ifdef GV_STEM_CLOCKS

@@ -1,0 +1,208 @@
+// Hopper (sm_90a) building blocks shared by the bf16 kernels of csrc/
+// (cuda_stem_bf16.cu, cuda_orient_bf16.cu): mbarriers, bulk copies by the
+// copy engine, the wgmma.m64n64k16 / m64n128k16 products with B in shared
+// memory and A from registers, and the thread-block cluster's barrier and
+// distributed shared memory.
+//
+// B of a wgmma comes from shared memory in the layout that
+// ops/bf16mma.pack_wgmma_b writes: K-major, no swizzle, one k step of 16
+// after another (2048 bytes each at N = 64; pack_wgmma_b_halves: 4096 at N
+// = 128), 8 x 8 core matrices of 128 contiguous bytes (8 accumulator
+// columns x 8 k), the two k halves of a step 128 bytes apart (the
+// descriptor's leading byte offset) and the channel groups of 8 256 apart
+// (its stride byte offset). A's fragment is the
+// mma.sync m16n8k16 one, with pack_b_fragments' k order: a thread's
+// registers a0, a2 hold the four neighbouring logical k 4t .. 4t + 3 of
+// row g, a1, a3 the same of row g + 8, so one 8-byte load gives each pair.
+
+#pragma once
+
+#include "gv_mma.cuh"
+
+namespace gv {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) global -> shared by the copy engine,
+// completing on `bar`; dst and src 16-byte aligned.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Orders this thread's earlier shared-memory accesses before later ones of
+// the copy engine (a bulk copy into a buffer just read).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// The shared-memory descriptor of one k step of a B packed by
+// bf16mma.pack_wgmma_b: the two k halves 128 bytes apart (leading byte
+// offset), the eight channel groups 256 apart (stride byte offset).
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(256 >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keeps the compiler from moving accesses of the accumulators across the
+// asynchronous product.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= a * b, m64n64k16, bf16 operands, f32 sums: a the warp's A
+// fragment of its 16 rows (the mma.sync m16n8k16 layout), b in shared
+// memory. With scale_d == 0 d is overwritten. The thread's d[4j + e]:
+// row g (e < 2) or g + 8, column 8j + 2t + (e & 1) of the warp's rows.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+// The same at m64n128k16: d[4j + e], j < 16, column 8j + 2t + (e & 1).
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+// The output channel of accumulator column n (pack_wgmma_b's order): a
+// thread's d[4j + e], j = 4h .. 4h + 3, e = 0, 1 of one row are the eight
+// channels 32h + 8t .. 32h + 8t + 7, one 16-byte store.
+__host__ __device__ constexpr int acc_channel(int j, int t, int e) {
+  return 32 * (j / 4) + 8 * t + 2 * (j % 4) + e;
+}
+
+// Eight outputs to global memory as bf16, one 16-byte store.
+__device__ __forceinline__ void store8(bf16* dst, const float (&v)[8]) {
+  uint4 u;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&p);
+  }
+  *reinterpret_cast<uint4*>(dst) = u;
+}
+
+// ---- thread-block clusters ----------------------------------------------
+
+// Every thread of every block of the cluster arrives (releasing its
+// earlier writes to shared memory) / waits for all of them (acquiring
+// theirs). Between an arrive and its wait a thread may go on working.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// A float of block `rank`'s shared memory at the place `p` has in this
+// block's (distributed shared memory).
+__device__ __forceinline__ float ld_cluster(const float* p, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote)
+               : "r"(smem_u32(p)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];"
+               : "=f"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+}  // namespace gv

@@ -14,7 +14,9 @@ a weight matrix out in the order the warps read their m16n8k16 B fragments
 (``prepare_stem_constants``, ``prepare_csp_constants`` and
 ``prepare_orient_constants`` call it once per model for the bf16 forms);
 ``pack_wgmma_b`` lays one out in shared-memory order for the bf16 stem's
-``wgmma.m64n64k16`` (``csrc/cuda_stem_bf16.cu``).
+``wgmma.m64n64k16`` (``csrc/cuda_stem_bf16.cu``), ``pack_wgmma_b_halves``
+a wider one, 64 channels a product, for the bf16 orientation front
+(``csrc/cuda_orient_bf16.cu``).
 """
 
 from __future__ import annotations
@@ -116,6 +118,29 @@ def unpack_wgmma_b(packed: torch.Tensor) -> torch.Tensor:
     w = torch.zeros((k, 64), dtype=torch.bfloat16, device=packed.device)
     w[rows, cols] = packed
     return w
+
+
+def pack_wgmma_b_halves(w: torch.Tensor) -> torch.Tensor:
+    """(K, N) weights, K % 16 == 0, N % 16 == 0, N <= 128 -> (K / 16,
+    ceil(N / 64), 8, 2, 8, 8) bf16: B of wgmma.m64n128k16 (two halves of 64
+    columns) or m64n64k16 (one), K-major without swizzle, the last half
+    padded with zero columns. A k step's halves are pack_wgmma_b's steps
+    side by side, so its 16 groups of 8 columns lie 256 bytes apart, as the
+    descriptor's stride byte offset has them."""
+    k, n = w.shape
+    if k % 16 or n % 16 or n > 128:
+        raise ValueError(f"cannot pack a ({k}, {n}) matrix for wgmma: "
+                         "K % 16 and N % 16 must be 0, N <= 128")
+    halves = -(-n // 64)
+    wide = torch.cat([w, w.new_zeros((k, 64 * halves - n))], dim=1)
+    return torch.stack([pack_wgmma_b(wide[:, 64 * h:64 * h + 64])
+                        for h in range(halves)], dim=1).contiguous()
+
+
+def unpack_wgmma_b_halves(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """The inverse of pack_wgmma_b_halves: the (K, n) bf16 matrix."""
+    return torch.cat([unpack_wgmma_b(packed[:, h])
+                      for h in range(packed.shape[1])], dim=1)[:, :n]
 
 
 def matmul_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

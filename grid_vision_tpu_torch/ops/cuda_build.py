@@ -33,7 +33,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "grid_vision_tpu_torch"
 SOURCES = ("cuda_csp", "cuda_grid", "cuda_knn", "cuda_orient",
-           "cuda_raycast", "cuda_stem", "cuda_stem_bf16")
+           "cuda_orient_bf16", "cuda_raycast", "cuda_stem", "cuda_stem_bf16")
 
 # No --use_fast_math: the grid and carve kernels' log-odds must be bit-equal
 # to their plain torch twins (IEEE expf / division, explicit _rn intrinsics).

@@ -23,7 +23,9 @@ single-pass f32 moments of that crop, the standardized crop
 ((x - mean) * inv in f32) is rounded to bf16, the conv weights are bf16
 without the BN scale, the sums f32, BN and relu f32 rounded once. Its twin
 computes the same with the bf16 crop_resize, single_pass_stats and F.conv2d
-on the bf16-rounded operands.
+on the bf16-rounded operands. On the card it is one launch of
+``csrc/cuda_orient_bf16.cu`` (a thread-block cluster a crop, the crop kept
+in shared memory, the conv on wgmma), planned by ``orient_bf16_plan``.
 """
 
 from __future__ import annotations
@@ -42,12 +44,23 @@ from .preprocess import _standardize, crop_resize, single_pass_stats
 
 S2D_BLOCK = 4           # the net's s2d_fold block (ConvBN_0, block=4)
 RUN = 40                # one kernel row on a crop row: 12 px x 3 ch, padded
-RUN_BF16 = 48           # ... padded to the bf16 mma's k = 16
+TAPS = 12 * 12 * 3      # the folded conv's K, unpadded in the bf16 form
 MAX_F = 128             # the channels a conv block of the kernel holds
-# Kernel calls made by orient_front_cuda (one per call; a call is two
-# launches of csrc/cuda_orient.cu), of the f32 form and of the bf16 form.
+# Kernel calls made by orient_front_cuda (one per call): of the f32 form
+# (two launches of csrc/cuda_orient.cu) and of the bf16 form (one launch of
+# csrc/cuda_orient_bf16.cu).
 launches = 0
 launches_bf16 = 0
+
+# csrc/cuda_orient_bf16.cu's plan (make_plan): B of wgmma a 64-channel half
+# (27 k steps of 2048 bytes), the BN constants and the barrier / partial
+# sums, one block's shared memory, the m64 tiles of its four warpgroups,
+# the rows of the x pass's buffer.
+_HALF_BYTES = TAPS // 16 * 2048
+_HEAD_BYTES = 2 * MAX_F * 4 + 512
+_MAX_SHARED_BYTES = 232448
+_MAX_TILES = 4
+_BUF_ROWS = (4, 16)
 
 
 def prepare_orient_constants(model, dtype=torch.float32
@@ -59,22 +72,20 @@ def prepare_orient_constants(model, dtype=torch.float32
     split into TF32 hi and lo and packed in mma fragment order
     (tf32x3.pack_b_fragments); and the BN shift t (F,).
 
-    dtype=torch.bfloat16, the bf16 form: wfrag (36, F / 8, 32, 4) bf16, the
-    kernel as a (12 * 48, F) matrix (each run of 36 padded to 48) without
-    the BN scale, packed by bf16mma.pack_b_fragments; the BN scale s and
-    shift t; w_oihw, the folded 12x12 kernel in bf16 for the twin; dtype."""
+    dtype=torch.bfloat16, the bf16 form: wwg (27, ceil(F / 64), 8, 2, 8, 8)
+    bf16, the kernel as a (432, F) matrix (row uy * 36 + ux * 3 + c, no
+    padding) without the BN scale, laid out for wgmma by
+    bf16mma.pack_wgmma_b_halves; the BN scale s and shift t; w_oihw, the
+    folded 12x12 kernel in bf16 for the twin; dtype."""
     if dtype == torch.bfloat16:
         with torch.no_grad():
             conv = model.ConvBN_0
             w = conv.conv_weight().detach()                  # (F, 3, 12, 12)
             f = w.shape[0]
             scale, shift = fold_bn(conv.BatchNorm_0)
-            rows = w.permute(2, 3, 1, 0).reshape(12, 36, f)
-            padded = torch.cat([rows, rows.new_zeros((12, RUN_BF16 - 36, f))],
-                               dim=1)
-            return dict(wfrag=bf16mma.pack_b_fragments(
-                padded.reshape(12 * RUN_BF16, f)), s=scale.contiguous(),
-                t=shift.contiguous(),
+            return dict(wwg=bf16mma.pack_wgmma_b_halves(
+                w.permute(2, 3, 1, 0).reshape(TAPS, f)),
+                s=scale.contiguous(), t=shift.contiguous(),
                 w_oihw=w.to(torch.bfloat16).contiguous(),
                 dtype=torch.bfloat16)
     with torch.no_grad():
@@ -85,6 +96,53 @@ def prepare_orient_constants(model, dtype=torch.float32
         return dict(wfrag=tf32x3.pack_b_fragments(padded.reshape(12 * RUN,
                                                                  f)),
                     t=t.contiguous())
+
+
+def orient_bf16_plan(size: int, f: int):
+    """(cluster, rows, crop_rows, stride, buf_rows, shared_bytes): how the
+    bf16 kernel (csrc/cuda_orient_bf16.cu, make_plan) takes crops of `size`
+    at width f. A cluster of `cluster` blocks a crop, block b owning output
+    rows [rows b, rows b + rows) of the size / 8 and holding the 8 rows + 4
+    crop rows they read, each `stride` bf16 long (size + 4 pixels: the
+    right SAME padding is 4 zero pixels); the x pass's buffer holds
+    buf_rows frame rows; a block's dynamic shared memory. The smallest
+    cluster whose block fits: its pixels in four m64 tiles, its shared
+    memory (B, the constants, the tap tables, the buffer of at least 4
+    rows, the crop rows) in one block's. Raises where none does."""
+    if size <= 0 or size % 8 or f <= 0 or f % 16 or f > MAX_F:
+        raise ValueError(f"the bf16 orientation kernel takes size % 8 == 0 "
+                         f"and F % 16 == 0, F <= {MAX_F} (size {size}, "
+                         f"F {f})")
+    q = size // 8
+    for cluster in (1, 2, 4, 8):
+        rows = -(-q // cluster)
+        if -(-(rows * q) // 64) > _MAX_TILES:
+            continue
+        crop_rows = 8 * rows + 4
+        stride = 3 * size + 12
+        fixed = (-(-f // 64) * _HALF_BYTES + _HEAD_BYTES
+                 + 16 * (size + crop_rows) + 2 * crop_rows * stride)
+        buf = min(_BUF_ROWS[1], (_MAX_SHARED_BYTES - fixed) // (8 * size))
+        if buf >= _BUF_ROWS[0]:
+            return cluster, rows, crop_rows, stride, buf, fixed + 8 * size * buf
+    raise ValueError(
+        f"{size} x {size} crops do not fit the bf16 orientation kernel: a "
+        f"block of a cluster of 8 needs more than {_MAX_SHARED_BYTES} bytes "
+        "of shared memory or four m64 tiles")
+
+
+def bf16_plan_on_card(size: int, f: int):
+    """The bf16 kernel's own plan (gv_orient_bf16_plan) and the clusters of
+    it resident on the card at once: (cluster, rows, crop_rows, stride,
+    buf_rows, shared_bytes, resident_clusters): the check of
+    orient_bf16_plan (a check, not a path)."""
+    plan = (ctypes.c_int * 7)()
+    fn = cuda_build.load("cuda_orient_bf16").gv_orient_bf16_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    cuda_build.check(fn(size, f, ctypes.addressof(plan)),
+                     "gv_orient_bf16_plan")
+    return tuple(plan)
 
 
 def _pad_lo(size: int) -> int:
@@ -165,9 +223,23 @@ def _launch(images: torch.Tensor, xyxy: torch.Tensor, valid: torch.Tensor,
     if size % (2 * S2D_BLOCK):
         raise ValueError(f"size {size} must be a multiple of "
                          f"{2 * S2D_BLOCK}")
-    wfrag, t = consts["wfrag"], consts["t"]
+    _, h, w, _ = images.shape
+    t = consts["t"]
     f = t.shape[0]
-    if dt == torch.float32:
+    if dt == torch.bfloat16:
+        orient_bf16_plan(size, f)                   # raises what it refuses
+        cuda_build.check_constants(consts, dict(
+            wwg=((TAPS // 16, -(-f // 64), 8, 2, 8, 8), torch.bfloat16),
+            s=((f,), torch.float32), t=((f,), torch.float32)), dev,
+            "orientation")
+        if images.data_ptr() % 4:
+            raise ValueError("bf16 frames must start at a 4-byte boundary "
+                             "(the kernel reads them 4 bytes at a time)")
+        if any(x.data_ptr() % 16 for x in (consts["wwg"], consts["s"], t)):
+            raise ValueError("the bf16 constants must start at a 16-byte "
+                             "boundary (the kernel copies them in bulk)")
+    else:
+        wfrag = consts["wfrag"]
         if (f % 16 or f > MAX_F
                 or wfrag.shape != (12 * RUN // 8, f // 8, 32, 4)
                 or any(a.device != dev or a.dtype != torch.float32
@@ -176,40 +248,65 @@ def _launch(images: torch.Tensor, xyxy: torch.Tensor, valid: torch.Tensor,
                 "orientation constants must be contiguous float32 wfrag "
                 f"({12 * RUN // 8}, F / 8, 32, 4) and t (F,) with F % 16 == 0"
                 f" and F <= {MAX_F}, on the frames' device")
-    else:
-        if f % 16 or f > MAX_F:
-            raise ValueError(f"F = {f} must be a multiple of 16, <= {MAX_F}")
-        cuda_build.check_constants(consts, dict(
-            wfrag=((12 * RUN_BF16 // 16, f // 8, 32, 4), torch.bfloat16),
-            s=((f,), torch.float32), t=((f,), torch.float32)), dev,
-            "orientation")
-    _, h, w, _ = images.shape
     q = -(-(size // S2D_BLOCK) // 2)
-    crops = torch.empty((n, size, size, 3), dtype=dt, device=dev)
-    stats = torch.empty((n, 6), dtype=torch.float32, device=dev)
     out = torch.empty((n, q, q, f), dtype=dt, device=dev)
-    lib = cuda_build.load("cuda_orient")
     P, I = ctypes.c_void_p, ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
-    head = (images.data_ptr(), h, w, rig.data_ptr(),
-            int(rig.dtype == torch.int64), valid.data_ptr(), xyxy.data_ptr(),
-            n, size, q, _pad_lo(size), wfrag.data_ptr(), f)
-    tail = (crops.data_ptr(), stats.data_ptr(), out.data_ptr(), stream)
-    if dt == torch.float32:
-        fn = lib.gv_orient_front
+    head = (h, w, rig.data_ptr(), int(rig.dtype == torch.int64),
+            valid.data_ptr(), xyxy.data_ptr(), n, size)
+    if dt == torch.bfloat16:
+        fn = cuda_build.load("cuda_orient_bf16").gv_orient_front_bf16
         fn.restype = ctypes.c_int
-        fn.argtypes = [P, I, I, P, I, P, P, I, I, I, I, P, I, P, P, P, P, P]
-        cuda_build.check(fn(*head, t.data_ptr(), *tail), "gv_orient_front")
-        launches += 1
-    else:
-        fn = lib.gv_orient_front_bf16
-        fn.restype = ctypes.c_int
-        fn.argtypes = [P, I, I, P, I, P, P, I, I, I, I, P, I, P, P, P, P, P,
-                       P]
-        cuda_build.check(fn(*head, consts["s"].data_ptr(), t.data_ptr(),
-                            *tail), "gv_orient_front_bf16")
+        fn.argtypes = [P, I, I, I, P, I, P, P, I, I, P, I, P, P, P, P]
+        cuda_build.check(fn(images.data_ptr(), images.shape[0], *head,
+                            consts["wwg"].data_ptr(), f,
+                            consts["s"].data_ptr(), t.data_ptr(),
+                            out.data_ptr(), stream), "gv_orient_front_bf16")
         launches_bf16 += 1
+        return out
+    crops = torch.empty((n, size, size, 3), dtype=dt, device=dev)
+    stats = torch.empty((n, 6), dtype=torch.float32, device=dev)
+    fn = cuda_build.load("cuda_orient").gv_orient_front
+    fn.restype = ctypes.c_int
+    fn.argtypes = [P, I, I, P, I, P, P, I, I, I, I, P, I, P, P, P, P, P]
+    cuda_build.check(fn(images.data_ptr(), *head, q, _pad_lo(size),
+                        consts["wfrag"].data_ptr(), f, t.data_ptr(),
+                        crops.data_ptr(), stats.data_ptr(), out.data_ptr(),
+                        stream), "gv_orient_front")
+    launches += 1
     return out
+
+
+def wgmma_product_bf16_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M, K) @ b (K, N) on the card through the wgmma path of the bf16
+    kernels (bf16 operands, f32 sums; B laid out by
+    bf16mma.pack_wgmma_b_halves, which at N <= 64 is pack_wgmma_b's layout,
+    and brought into shared memory by cp.async.bulk, A from registers in
+    its k order): the check of the layout that the bf16 stem's conv1 and
+    the bf16 orientation conv give wgmma, against a plain product (no path
+    calls it). M % 64 == 0, K % 16
+    == 0, K <= 432, N % 16 == 0, N <= 128; the result is f32."""
+    k = a.shape[1] if a.dim() == 2 else 0
+    if (a.device.type != "cuda" or b.device != a.device or a.dim() != 2
+            or b.dim() != 2 or b.shape[0] != k or a.shape[0] % 64
+            or k % 16 or k > TAPS or b.shape[1] % 16 or b.shape[1] > MAX_F):
+        raise ValueError(f"a (M, K) and b (K, N) must be CUDA matrices, "
+                         f"M % 64 == 0, K % 16 == 0, K <= {TAPS}, N % 16 "
+                         f"== 0, N <= {MAX_F}")
+    n = b.shape[1]
+    a16 = a.to(torch.bfloat16).contiguous()
+    bw = bf16mma.pack_wgmma_b_halves(b)
+    c = torch.empty((a.shape[0], 64 * bw.shape[1]), dtype=torch.float32,
+                    device=a.device)
+    fn = cuda_build.load("cuda_orient_bf16").gv_wgmma_product_bf16
+    fn.restype = ctypes.c_int
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, I, I, P, I, P, P]
+    cuda_build.check(
+        fn(a16.data_ptr(), a.shape[0], k, bw.data_ptr(), bw.shape[1],
+           c.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream),
+        "gv_wgmma_product_bf16")
+    return c[:, :n]
 
 
 def box_axis_samples_cuda(xyxy: torch.Tensor, h: int, w: int, size: int):

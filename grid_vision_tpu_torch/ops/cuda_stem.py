@@ -444,31 +444,6 @@ def _launch_bf16(images: torch.Tensor, consts, size: int) -> torch.Tensor:
     return out
 
 
-def wgmma_product_bf16_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a (M, K) @ b (K, 64) on the card through the bf16 stem's wgmma path
-    (bf16 operands, f32 sums; B packed by bf16mma.pack_wgmma_b and brought
-    into shared memory by cp.async.bulk): the check of the wgmma layout
-    against bf16mma.matmul_bf16 (no path calls it). M % 64 == 0, K % 16 ==
-    0, K <= 288; the result is f32."""
-    if (a.device.type != "cuda" or b.device != a.device or a.dim() != 2
-            or b.shape != (a.shape[1], 64) or a.shape[0] % 64
-            or a.shape[1] % 16 or a.shape[1] > 288):
-        raise ValueError("a (M, K) and b (K, 64) must be CUDA matrices, "
-                         "M % 64 == 0, K % 16 == 0, K <= 288")
-    a16 = a.to(torch.bfloat16).contiguous()
-    bw = bf16mma.pack_wgmma_b(b)
-    c = torch.empty((a.shape[0], 64), dtype=torch.float32, device=a.device)
-    fn = cuda_build.load("cuda_stem_bf16").gv_wgmma_product_bf16
-    fn.restype = ctypes.c_int
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, I, I, P, P, P]
-    cuda_build.check(
-        fn(a16.data_ptr(), a.shape[0], a.shape[1], bw.data_ptr(),
-           c.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream),
-        "gv_wgmma_product_bf16")
-    return c
-
-
 def detector_stem_cuda(images: torch.Tensor, consts,
                        size: int) -> torch.Tensor:
     """(B, H, W, 3) [0, 255] frames -> (B, S/4, S/4, 64) post-ConvBN_1

@@ -204,10 +204,12 @@ def test_bf16_constants_are_what_the_wrappers_check():
     assert torch.equal(bf16mma.unpack_wgmma_b(stem["w1wg"]), w1)
     w2 = csp["w2_oihw"].permute(2, 3, 1, 0).reshape(576, 64)
     assert torch.equal(bf16mma.unpack_b_fragments(csp["w2"]), w2)
-    wo = bf16mma.unpack_b_fragments(orient["wfrag"]).reshape(12, 48, -1)
-    assert torch.equal(wo[:, :36], orient["w_oihw"].permute(
-        2, 3, 1, 0).reshape(12, 36, -1))
-    assert not wo[:, 36:].float().any()
+    f = orient["t"].shape[0]
+    wo = bf16mma.unpack_wgmma_b_halves(orient["wwg"], f)
+    assert torch.equal(wo, orient["w_oihw"].permute(2, 3, 1, 0).reshape(
+        432, f))
+    assert not bf16mma.unpack_wgmma_b_halves(
+        orient["wwg"], 64 * orient["wwg"].shape[1])[:, f:].float().any()
     # an f32 activation into a bf16 form raises, and the other way round
     x = torch.zeros((1, 96, 128, 3))
     with pytest.raises(ValueError, match="bfloat16"):

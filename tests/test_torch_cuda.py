@@ -778,19 +778,23 @@ def test_stem_bf16_kernel_one_launch_and_batch_independent(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k", [(64, 16), (128, 288), (192, 64)])
-def test_wgmma_product_matches_f32_matmul(cuda_device, m, k):
-    """The bf16 stem's wgmma path alone (B packed by pack_wgmma_b, brought
-    in by cp.async.bulk, A in registers) against torch.matmul in f32 of
-    the same bf16 operands: the products are exact, only the order of the
-    f32 sums differs."""
-    g = torch.Generator(device=cuda_device).manual_seed(m + k)
+@pytest.mark.parametrize("m,k,n,atol", [
+    (64, 16, 64, 1e-5), (128, 288, 64, 1e-5), (192, 64, 64, 1e-5),
+    (64, 432, 128, 1e-4), (128, 432, 32, 1e-4), (192, 48, 96, 1e-4)])
+def test_wgmma_product_matches_f32_matmul(cuda_device, m, k, n, atol):
+    """The bf16 kernels' wgmma path alone (B laid out by
+    pack_wgmma_b_halves, at N = 64 pack_wgmma_b's layout as the stem's
+    conv1 has it, 64 channels a product, brought in by cp.async.bulk; A
+    from registers in its k order) against torch.matmul in f32 of the same
+    bf16 operands: the products are exact, only the order of the f32 sums
+    differs."""
+    g = torch.Generator(device=cuda_device).manual_seed(m + k + n)
     a = torch.randn((m, k), generator=g, device=cuda_device).to(BF).float()
-    b = torch.randn((k, 64), generator=g, device=cuda_device).to(BF).float()
-    got = cuda_stem.wgmma_product_bf16_cuda(a, b)
+    b = torch.randn((k, n), generator=g, device=cuda_device).to(BF).float()
+    got = cuda_orient.wgmma_product_bf16_cuda(a, b)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, torch.matmul(a, b), rtol=1e-5,
-                               atol=1e-5)
+                               atol=atol)
 
 
 @pytest.mark.cuda
@@ -841,6 +845,113 @@ def test_orient_bf16_kernel_matches_twin(cuda_device, rigs, n):
     _bf16_hold(got, ref)
     assert torch.equal(got[0], torch.relu(consts["t"]).to(BF).expand(
         28, 28, 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [64, 96, 224])
+@pytest.mark.parametrize("f", [32, 64, 128])
+def test_orient_bf16_plan_is_the_kernels(cuda_device, size, f):
+    """orient_bf16_plan (the wrapper's refusal) is the kernel's own plan,
+    and at least one cluster of it is resident on the card."""
+    plan = cuda_orient.bf16_plan_on_card(size, f)
+    assert plan[:6] == cuda_orient.orient_bf16_plan(size, f)
+    assert plan[6] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,width,h,w", [(64, 8, 96, 128),
+                                            (96, 16, 120, 160),
+                                            (224, 32, 480, 640),
+                                            (224, 16, 480, 640),
+                                            (64, 32, 50, 60),
+                                            (64, 8, 61, 83),
+                                            (224, 8, 300, 401)])
+@pytest.mark.parametrize("rig_dtype", [torch.int32, torch.int64])
+def test_orient_bf16_kernel_other_sizes_and_widths(cuda_device, size, width,
+                                                   h, w, rig_dtype):
+    """Sizes 64, 96 and 224 (clusters of 1 and 4 blocks) at F = 32, 64
+    and 128 on a randomly initialized net with non-trivial BN; clamped,
+    sliver and invalid boxes, frames of an odd width, and 3 frames of odd
+    height and width (the last pixel of the last frame, which boxes 4 and
+    5 tap, ends at an even element); int32 and int64 rigs; one launch a
+    call; an all-invalid batch gives relu(t)."""
+    torch.manual_seed(size + width)
+    net = orientation_net.OrientationNetS2D(orientation_net.OrientationConfig(
+        input_size=size, width=width)).eval()
+    bn = net.ConvBN_0.BatchNorm_0
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5)
+        bn.bias.normal_(0, 0.5)
+        bn.running_mean.normal_(0, 0.3)
+        bn.running_var.uniform_(0.5, 2.0)
+    net = net.to(cuda_device)
+    consts = cuda_orient.prepare_orient_constants(net, BF)
+    rng = np.random.default_rng(size + width)
+    images = _frames8(rng, (3, h, w, 3), cuda_device)
+    xyxy = torch.tensor([[-10.0, -6, 50, 40], [20, 10, 48, 45],
+                         [20.2, 20.7, 26.4, 25.1], [5, 5, 30, 30],
+                         [w - 30.0, h - 20, w + 40, h + 30],
+                         [0, 0, w, h], [7, 9, 7.3, 9.4]],
+                        device=cuda_device)
+    valid = torch.tensor([True, True, True, False, True, True, True],
+                         device=cuda_device)
+    rig = torch.tensor([0, 1, 1, 0, 2, 2, 1], dtype=rig_dtype,
+                       device=cuda_device)
+    n0 = cuda_orient.launches_bf16
+    with torch.no_grad():
+        got = cuda_orient.orient_front_cuda(images, xyxy, valid, rig, net,
+                                            consts, size)
+        torch.cuda.synchronize()
+        ref = cuda_orient.orient_front_plain(images, xyxy, valid, rig, net,
+                                             size, consts)
+        none = cuda_orient.orient_front_cuda(
+            images, xyxy, torch.zeros_like(valid), rig, net, consts, size)
+        torch.cuda.synchronize()
+    assert cuda_orient.launches_bf16 == n0 + 2
+    q = size // 8
+    assert got.shape == (7, q, q, 4 * width)
+    # the sliver (row 6) is a flat crop: held to finiteness
+    _bf16_hold(got[:6], ref[:6])
+    assert torch.isfinite(got[6].float()).all()
+    relu_t = torch.relu(consts["t"]).to(BF).expand(q, q, 4 * width)
+    assert torch.equal(got[3], relu_t)
+    assert torch.equal(none, relu_t.expand_as(none))
+
+
+@pytest.mark.cuda
+def test_orient_bf16_kernel_frames_off_a_16_byte_boundary(cuda_device):
+    """bf16 frames need only start at a 4-byte boundary: the second of two
+    375 x 1242 frames (4 bytes past one) gives what its copy gives, bit for
+    bit, and agrees with the twin at the JAX package's bf16 bar; frames 2
+    bytes past a boundary are refused. (The >= 99 % bit-equal share is held
+    where there are enough crops for it to be a share of many: at two
+    crops it is one crop's moments rounding as the twin's or not.)"""
+    cfg = GridVisionConfig(vision_weights_file="weights/orientation.npz")
+    net = weights.load_all(cfg, device=cuda_device)["orientation"]
+    consts = cuda_orient.prepare_orient_constants(net, BF)
+    images = _frames8(np.random.default_rng(3), (2, 375, 1242, 3),
+                      cuda_device)
+    view = images[1:]
+    assert view.data_ptr() % 16 == 4
+    xyxy = torch.tensor([[100.0, 50, 400, 300], [900, 200, 1300, 400]],
+                        device=cuda_device)
+    valid = torch.ones(2, dtype=torch.bool, device=cuda_device)
+    rig = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    with torch.no_grad():
+        got = cuda_orient.orient_front_cuda(view, xyxy, valid, rig, net,
+                                            consts, 224)
+        want = cuda_orient.orient_front_cuda(view.clone(), xyxy, valid, rig,
+                                             net, consts, 224)
+        ref = cuda_orient.orient_front_plain(view, xyxy, valid, rig, net,
+                                             224, consts)
+        torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0.06,
+                               atol=0.06)
+    odd = images.view(-1)[1:1 + 375 * 1242 * 3].view(1, 375, 1242, 3)
+    with pytest.raises(ValueError, match="4-byte"):
+        cuda_orient.orient_front_cuda(odd, xyxy, valid, rig, net, consts,
+                                      224)
 
 
 @pytest.mark.cuda

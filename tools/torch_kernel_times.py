@@ -4,14 +4,15 @@ card (grid_vision_tpu_torch; imports nothing of JAX):
 
     python3 tools/torch_kernel_times.py            # from the repo's root
     python3 tools/torch_kernel_times.py stem       # or: stem_bf16, knn,
-                                                   # grid, carve
+                                                   # grid, carve, orient_bf16
     python3 tools/torch_kernel_times.py carve --variant cuda_raycast:MACRO
 
 torch.profiler over a few calls at the ticks' shapes (64 frames of 480x640
 to 416, f32 or, for stem_bf16, the bf16 form on bf16 frames of integers;
 64 rigs x 8192 points x 16 and 64 queries, one rig x 16384 x 64;
 the gated grid and carve updates at 64 rigs and one rig of 500x200, every
-fourth rig gated off); prints one JSON line per shape with the microseconds
+fourth rig gated off; the orientation front's bf16 form at 320 crops over
+64 bf16 frames and 5 crops over one, shipped weights); prints one JSON line per shape with the microseconds
 per call of every kernel of csrc/ (named gv_*). The quick look at where a
 call's device time goes while a kernel is being worked on. `--variant
 SOURCE:MACRO[,MACRO...]` first builds csrc/SOURCE.cu with a -D for each
@@ -20,7 +21,9 @@ lines, and times it in place of the source as it is: a design alternative
 kept behind a macro while it is measured. `stem_bf16 --variant
 cuda_stem_bf16:GV_STEM_CLOCKS` also prints the bf16 stem's cycles a tile
 and block of each phase at 64 frames, thread 0's (barrier to barrier)
-and the mean warp's (to its arrival at the barrier).
+and the mean warp's (to its arrival at the barrier); `orient_bf16
+--variant cuda_orient_bf16:GV_ORIENT_CLOCKS` the bf16 orientation front's
+cycles a block of each phase (thread 0's).
 chip_smoke.py holds the kernels to their twins and times whole calls.
 """
 
@@ -38,8 +41,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from grid_vision_tpu_torch import GridVisionConfig  # noqa: E402
 from grid_vision_tpu_torch.models import weights  # noqa: E402
 from grid_vision_tpu_torch.ops import (cuda_build, cuda_grid,  # noqa: E402
-                                       cuda_knn, cuda_raycast, cuda_stem,
-                                       rasterize)
+                                       cuda_knn, cuda_orient, cuda_raycast,
+                                       cuda_stem, rasterize)
 
 
 def kernel_us(fn, iters: int = 10):
@@ -107,6 +110,27 @@ def stem_bf16_clocks(img, consts, size, calls: int = 5):
                                    for i, p in enumerate(phases)})
 
 
+def orient_bf16_clocks(call, calls: int = 5):
+    """Cycles a block by phase of the bf16 orientation front (a
+    -DGV_ORIENT_CLOCKS build), thread 0's view, over the valid crops'
+    blocks: tap tables, x passes, y passes, moments and exchange,
+    standardize, weights wait, conv, its epilogue, last cluster wait."""
+    fn = cuda_build.load("cuda_orient_bf16").gv_orient_bf16_clocks
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p]
+    buf = (ctypes.c_ulonglong * 10)()
+    fn(ctypes.addressof(buf))                      # clear
+    for _ in range(calls):
+        call()
+    torch.cuda.synchronize()
+    cuda_build.check(fn(ctypes.addressof(buf)), "gv_orient_bf16_clocks")
+    phases = ["tables", "x_pass", "y_pass", "moments", "standardize",
+              "weights_wait", "conv", "epilogue", "cluster_wait"]
+    return dict(kernel="orient_bf16_clocks", blocks=buf[9] // calls,
+                cycles_per_block={p: buf[i] / max(buf[9], 1)
+                                  for i, p in enumerate(phases)})
+
+
 def grid_cases(dev, g):
     """Gated grid and carve inputs at 64 rigs and one rig: random log-odds,
     8 footprints a rig, every fourth rig gated off, the profile of a random
@@ -131,6 +155,25 @@ def grid_cases(dev, g):
         ranges = raycast.range_profile(origin, pts, valid)
         cbin, cr = raycast.cell_polar_maps(origin, cfg)
         yield cfg, lo, prev, gate, box, ranges, cbin, cr
+
+
+def orient_cases(dev, g, cfg):
+    """bf16 frames of integers and random boxes (clamped, sliver and about
+    10 % invalid ones among them, rigs sorted as the fleet compacts them):
+    320 crops over 64 frames, 5 over one."""
+    h, w = cfg.camera_image_height, cfg.camera_image_width
+    for rigs, n in ((64, 320), (1, 5)):
+        images = torch.randint(0, 256, (rigs, h, w, 3), generator=g,
+                               device=dev).to(torch.bfloat16)
+        u = torch.rand((n, 4), generator=g, device=dev)
+        x0 = u[:, 0] * (w + 60) - 40
+        y0 = u[:, 1] * (h + 60) - 40
+        xyxy = torch.stack([x0, y0, x0 + 8 + u[:, 2] * 300,
+                            y0 + 8 + u[:, 3] * 250], dim=-1)
+        valid = torch.rand((n,), generator=g, device=dev) > 0.1
+        rig = torch.sort(torch.randint(0, rigs, (n,), generator=g,
+                                       device=dev)).values
+        yield images, xyxy, valid, rig
 
 
 def main() -> None:
@@ -185,6 +228,24 @@ def main() -> None:
             if batch == 64 and variant and "GV_STEM_CLOCKS" in variant:
                 print(json.dumps(stem_bf16_clocks(img, consts, cfg.resize)),
                       flush=True)
+    if "orient_bf16" in which:
+        cfg = GridVisionConfig(vision_weights_file="weights/orientation.npz")
+        net = weights.load_all(cfg, device=dev)["orientation"]
+        consts = cuda_orient.prepare_orient_constants(net, torch.bfloat16)
+        size = cfg.network_height
+        for images, xyxy, valid, rig in orient_cases(dev, g, cfg):
+            with torch.no_grad():
+                us = kernel_us(lambda: cuda_orient.orient_front_cuda(
+                    images, xyxy, valid, rig, net, consts, size))
+            print(json.dumps(dict(
+                kernel="orient_bf16", variant=variant,
+                shape=[int(xyxy.shape[0]), int(images.shape[0])],
+                crops_valid=int(valid.sum()), us=us)), flush=True)
+            if variant and "GV_ORIENT_CLOCKS" in variant:
+                print(json.dumps(orient_bf16_clocks(
+                    lambda: cuda_orient.orient_front_cuda(
+                        images, xyxy, valid, rig, net, consts, size))),
+                    flush=True)
     for cfg, lo, prev, gate, box, ranges, cbin, cr in (
             grid_cases(dev, g) if which & {"grid", "carve"} else ()):
         calls = {}
