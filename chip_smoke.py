@@ -20,8 +20,12 @@ device JSON follows. Phases, each printing one line:
    kNN kernel at the extension tick's shapes (a real scan's range profile;
    the depth refine queries all 64 box slots), 1 rig and 64, then the bf16
    forms of the stem (1 frame and 64; one launch, its wgmma product alone
-   against a plain product, >= 99.9 % of the elements bit-equal), CSP and
-   orientation front (5 crops over 1 frame and 320 over 64; one launch, a
+   against a plain product, >= 99.9 % of the elements bit-equal), CSP
+   (1 frame and 64 of the bf16 stem's output; one launch, strips of a
+   frame through rings of rows, its wgmma products at N = 96 and 64 alone,
+   its plan against the wrapper's, its phase clocks from a -DGV_CSP_CLOCKS
+   build, >= 99 % bit-equal beside the parent's share) and orientation
+   front (5 crops over 1 frame and 320 over 64; one launch, a
    thread-block cluster a crop, its wgmma product alone and its plan
    against the wrapper's, >= 99 % bit-equal) on
    8-bit frames (rtol = atol = 0.06, the share of bit-equal elements, and
@@ -52,8 +56,9 @@ device JSON follows. Phases, each printing one line:
    99 % of rig-ticks, occupancy_i8 >= 99 % on the mean, >= 97.5 % at the
    least); the bf16 forms must launch once a tick and the f32 forms never;
    the bf16 tick beside the f32 one, a profile of three bf16 fleet ticks
-   (`stem_bf16_profile`, `orient_bf16_profile`: the bf16 stem's and
-   orientation front's device time a launch and launches a tick), and the
+   (`stem_bf16_profile`, `orient_bf16_profile`, `csp_bf16_profile`: the
+   bf16 stem's, orientation front's and CSP stage's device time a launch
+   and launches a tick; the CSP's also its cycles a step by phase), and the
    cuDNN convs' device time a tick in f32 and bf16 (`library_convs`);
 7. the extension-mode tick (compat=False: raycast free-space carving,
    depth refine, class-aware NMS) at full width, the single-rig Engine for
@@ -429,21 +434,53 @@ def check_stem_bf16(torch, dev, detector, cfg, batch):
         library_max_abs_err=lib_err, **t, bound=bound_bf16_ms(n_bytes, ops))
 
 
+# The bit-equal share the four-launch design (y and concat[x2, x1] through
+# device memory, mma.sync) reached at 64 frames on an H100, printed beside
+# the one-launch kernel's.
+CSP_BF16_PARENT_BIT_EQUAL = 0.99357
+CSP_CLOCKS = ("cuda_csp_bf16", ("GV_CSP_CLOCKS",))
+
+
+def csp_design_macs(cuda_csp, plan, ho) -> int:
+    """The multiply-adds the bf16 CSP kernel computes: every unit's steps
+    at all 64 positions of two rows (junk columns and lead rows included:
+    ConvBN_2 and conv a every step, conv b from the second, the 1x1 from
+    the third; conv a and b take a row against its three dy taps, K = 96,
+    N = 96)."""
+    total = 0
+    for u in range(plan.units):
+        _, _, s0, s1 = cuda_csp.csp_bf16_unit(plan, u, ho)
+        steps = s1 - s0 + cuda_csp.LEAD_STEPS
+        total += 2 * cuda_csp.PITCH * (
+            steps * (576 * 64 + 96 * 96) + (steps - 1) * 96 * 96
+            + (steps - 2) * 64 * 64)
+    return total
+
+
 def check_csp_bf16(torch, dev, detector, cfg, batch):
-    """The CSP stage's bf16 form on the bf16 stem's output of 8-bit frames
-    against its twin; yardstick: the same chain of cuDNN bf16 F.conv2d
-    calls (BN folded in), leaky, concats, max_pool2d. Also the bf16 tile
-    product against bf16mma.matmul_bf16 (the fragment layout)."""
+    """The CSP stage's bf16 form (one launch of csrc/cuda_csp_bf16.cu) on
+    the bf16 stem's output of 8-bit frames against its twin, >= 99 % of
+    the elements bit-equal (the parent's share beside); its wgmma products
+    alone at N = 96 and 64 against a plain product; its plan against the
+    wrapper's; the phase clocks of a -DGV_CSP_CLOCKS build; yardstick: the
+    same chain of cuDNN bf16 F.conv2d calls (BN folded in), leaky,
+    concats, max_pool2d. The bound counts the useful operations and the
+    compulsory bytes; the operations the design computes (junk columns,
+    lead rows) stand beside it."""
     import torch.nn.functional as F
-    from grid_vision_tpu_torch.ops import bf16mma, cuda_csp, cuda_stem
+    from grid_vision_tpu_torch.ops import (bf16mma, cuda_build, cuda_csp,
+                                           cuda_orient, cuda_stem)
     g = torch.Generator(device=dev).manual_seed(12)
-    a = torch.randn((128, 288), generator=g, device=dev)
-    b = torch.randn((288, 64), generator=g, device=dev)
-    prod = cuda_csp.mma_product_bf16_cuda(a, b)
-    torch.cuda.synchronize()
-    prod_err = (prod - bf16mma.matmul_bf16(a, b)).abs().max().item()
+    prod_err = 0.0
+    for k, n in ((96, 96), (576, 64)):
+        a = torch.randn((128, k), generator=g, device=dev)
+        b = torch.randn((k, n), generator=g, device=dev)
+        prod = cuda_orient.wgmma_product_bf16_cuda(a, b)
+        torch.cuda.synchronize()
+        prod_err = max(prod_err, (prod - bf16mma.matmul_bf16(a, b)).abs()
+                       .max().item())
     if prod_err > 1e-3:
-        fail(f"the bf16 tile product is off by {prod_err}")
+        fail(f"the bf16 CSP's wgmma product is off by {prod_err}")
     img = frames_bf16(torch, dev, cfg, batch, 13)
     x = cuda_stem.detector_stem_cuda(
         img, cuda_stem.prepare_stem_constants(detector, torch.bfloat16),
@@ -454,6 +491,15 @@ def check_csp_bf16(torch, dev, detector, cfg, batch):
     torch.cuda.synchronize()
     ref = cuda_csp.detector_csp_plain(x, detector, consts)
     err, equal, toward = bf16_agreement(torch, "CSP", got, ref)
+    if equal < 0.99:
+        fail(f"the bf16 CSP stage is bit-equal to its twin on only "
+             f"{equal:.5f} of the elements (bar 0.99)")
+    _, h, w, _ = x.shape
+    sms, on_card = cuda_csp.bf16_plan_on_card(batch, h, w)
+    plan = cuda_csp.csp_bf16_plan(batch, h, w, sms)
+    if on_card[:4] != tuple(plan) or on_card[5] < 1:
+        fail(f"the bf16 CSP kernel's plan {on_card} is not the wrapper's "
+             f"{tuple(plan)} or is not resident")
     bf = torch.bfloat16
     wt = {k: (consts[f"w{k}_oihw"].float()
               * consts[f"s{k}"][:, None, None, None]).to(bf)
@@ -473,24 +519,43 @@ def check_csp_bf16(torch, dev, detector, cfg, batch):
     with torch.no_grad():
         lib_err = (library().permute(0, 2, 3, 1).float()
                    - ref.float()).abs().max().item()
-    _, h, w, _ = x.shape
-    ops = batch * 2 * h * w * (64 * 576 + 2 * 32 * 288 + 64 * 64)
+    macs = h * w * (64 * 576 + 2 * 32 * 288 + 64 * 64)
+    ops = batch * 2 * macs
+    design_ops = 2 * csp_design_macs(cuda_csp, plan, h // 2)
     n_bytes = (x.numel() + got.numel()) * 2 + \
         (576 * 64 + 2 * 288 * 32 + 64 * 64) * 2 + 2 * 2 * 192 * 4
+
+    def call():
+        return cuda_csp.detector_csp_cuda(x, detector, consts)
+
     with torch.no_grad():
-        t = timed(lambda: cuda_csp.detector_csp_cuda(x, detector, consts),
+        t = timed(call,
                   lambda: cuda_csp.detector_csp_plain(x, detector, consts),
                   library, iters=20)
+        # the phase clocks: the -DGV_CSP_CLOCKS build in the plain one's
+        # place for a few calls
+        key = (CSP_CLOCKS[0], ())
+        plain_lib = cuda_build.load(CSP_CLOCKS[0])
+        cuda_build._libs[key] = cuda_build.load(*CSP_CLOCKS)
+        cuda_csp._entry_bf16.cache_clear()
+        try:
+            clocks = cuda_csp.csp_bf16_clocks(cuda_build._libs[key], call)
+        finally:
+            cuda_build._libs[key] = plain_lib
+            cuda_csp._entry_bf16.cache_clear()
     return dict(
-        call=lambda: cuda_csp.detector_csp_cuda(x, detector, consts),
-        name="detector_csp_bf16",
-        source="grid_vision_tpu_torch/csrc/cuda_csp.cu",
+        call=call, name="detector_csp_bf16",
+        source="grid_vision_tpu_torch/csrc/cuda_csp_bf16.cu",
         replaces="grid_vision_tpu/ops/pallas_csp.py:404",
         also_replaces="grid_vision_tpu/ops/pallas_csp.py:343",
         shape=list(x.shape), max_abs_err=err, bit_equal_share=equal,
-        toward_zero_share=toward,
-        mma_product_max_abs_err=prod_err, library_max_abs_err=lib_err, **t,
-        bound=bound_bf16_ms(n_bytes, ops))
+        parent_bit_equal_share_fleet=CSP_BF16_PARENT_BIT_EQUAL,
+        toward_zero_share=toward, wgmma_product_max_abs_err=prod_err,
+        plan=dict(zip(("strips", "bands", "rows", "units", "shared_bytes",
+                       "blocks_per_sm"), on_card), sms=sms),
+        design_gflop=design_ops / 1e9, useful_gflop=ops / 1e9,
+        design_junk_share=1.0 - ops / design_ops, clocks=clocks,
+        library_max_abs_err=lib_err, **t, bound=bound_bf16_ms(n_bytes, ops))
 
 
 # The bit-equal share the two-launch design (the crop through device
@@ -2225,7 +2290,7 @@ def main() -> None:
 
     # 2. build every kernel, one nvcc per source, all started together
     t0 = time.perf_counter()
-    cuda_build.build_all()
+    cuda_build.build_all(variants=[CSP_CLOCKS])
     regs = {n: ptxas_summary(log) for n, log in cuda_build.ptxas_log.items()}
     phase("build", seconds=round(time.perf_counter() - t0, 3), ptxas=regs)
 
@@ -2276,6 +2341,7 @@ def main() -> None:
         ("fleet", "knn", check_knn, (fleet_cfg, fleet_obs[0].cloud)),
         ("engine", "stem_bf16", check_stem_bf16, (det, cfg, 1)),
         ("fleet", "stem_bf16", check_stem_bf16, (det, fleet_cfg, N_RIGS)),
+        ("engine", "csp_bf16", check_csp_bf16, (det, fleet_cfg, 1)),
         ("fleet", "csp_bf16", check_csp_bf16, (det, fleet_cfg, N_RIGS)),
         ("engine", "orient_bf16", check_orient_bf16, (net, fleet_cfg, 1, 5)),
         ("fleet", "orient_bf16", check_orient_bf16,
@@ -2528,6 +2594,18 @@ def main() -> None:
           recorded_launches_per_tick=recorded,
           wrapper_launches_per_tick=bf_launches["orient_front_bf16"]
           / BF16_FLEET_TICKS)
+    # the same for the bf16 CSP stage, with its phase clocks (cycles a step
+    # by phase, thread 0's, from the kernel check at 64 frames)
+    csp_rows = [row for row in profiles["kernels_bf16"]["port_kernels"]
+                if "gv_csp_" in row["name"]]
+    recorded = sum(r["launches_per_tick"] for r in csp_rows)
+    phase("csp_bf16_profile", rows=csp_rows,
+          device_ms_per_tick=device_ms["detector_csp_bf16"],
+          device_ms_per_call=device_ms["detector_csp_bf16"] / recorded,
+          recorded_launches_per_tick=recorded,
+          wrapper_launches_per_tick=bf_launches["detector_csp_bf16"]
+          / BF16_FLEET_TICKS,
+          clocks=checked["fleet", "detector_csp_bf16"]["clocks"])
     del bf_fleet, bf_fobs
     torch.cuda.empty_cache()
 

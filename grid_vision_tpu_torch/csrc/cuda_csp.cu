@@ -43,15 +43,9 @@
 // The pool block owns 8 x 16 pixels: a warp's two rows pool in registers
 // (vertical) and with one shuffle (horizontal).
 //
-// The bf16 form (compute_dtype="bfloat16": the kernels templated on the
-// operand type, gv::Op<bf16>) rounds where pallas_csp.py's kernels round in
-// bf16: bf16 weights without the BN scale (bf16mma.pack_b_fragments), one
-// mma.sync.m16n8k16 per tile and k step with the whole K chain on the tensor
-// core, BN (x * s + b, no FMA) and leaky in f32, every conv's output (the
-// Pallas kernels' scratch: y, x1, x2, x3) rounded to bf16. Its operations
-// bound it at the bf16 rate, 989 TFLOP/s (a sixth of the 3xTF32 bound); a
-// staged pixel is C_in + 16 bf16 (8 or 24 banks apart), and every tensor it
-// moves is half the f32 form's bytes.
+// The bf16 form (compute_dtype="bfloat16") is cuda_csp_bf16.cu. The kernels
+// stay templated on the operand type (gv::Op<T>, instantiated for f32
+// only), as the stem's f32 form is.
 
 #include <type_traits>
 
@@ -247,33 +241,13 @@ struct PoolCfg {
       (kTileElems + kWElems) * (int)sizeof(T) + 2 * 64 * 4;
 };
 
-// The elementwise max of four 16-byte pieces (4 floats or 8 bf16).
+// The elementwise max of four 16-byte pieces.
 __device__ __forceinline__ float4 max4(float4 a, float4 b, float4 c,
                                        float4 d) {
   return make_float4(fmaxf(fmaxf(a.x, b.x), fmaxf(c.x, d.x)),
                      fmaxf(fmaxf(a.y, b.y), fmaxf(c.y, d.y)),
                      fmaxf(fmaxf(a.z, b.z), fmaxf(c.z, d.z)),
                      fmaxf(fmaxf(a.w, b.w), fmaxf(c.w, d.w)));
-}
-
-__device__ __forceinline__ uint4 max8_bf16(uint4 a, uint4 b, uint4 c,
-                                           uint4 d) {
-  uint4 r;
-  const uint32_t* pa = reinterpret_cast<const uint32_t*>(&a);
-  const uint32_t* pb = reinterpret_cast<const uint32_t*>(&b);
-  const uint32_t* pc = reinterpret_cast<const uint32_t*>(&c);
-  const uint32_t* pd = reinterpret_cast<const uint32_t*>(&d);
-  uint32_t* pr = reinterpret_cast<uint32_t*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 m = __hmax2(
-        __hmax2(*reinterpret_cast<const __nv_bfloat162*>(pa + i),
-                *reinterpret_cast<const __nv_bfloat162*>(pb + i)),
-        __hmax2(*reinterpret_cast<const __nv_bfloat162*>(pc + i),
-                *reinterpret_cast<const __nv_bfloat162*>(pd + i)));
-    pr[i] = *reinterpret_cast<const uint32_t*>(&m);
-  }
-  return r;
 }
 
 // 1x1 conv (64 -> 64) on xcat = concat[x2, x1] + BN + leaky = x3, then the
@@ -337,19 +311,11 @@ gv_csp_pool_kernel(const T* __restrict__ y, const T* __restrict__ xcat,
                    kPer * v;
       T* d = out + (((int64_t)blockIdx.z * ho + py) * wo + px) * 128 +
              kPer * v;
-      if constexpr (std::is_same<T, float>::value) {
-        *reinterpret_cast<float4*>(d) = max4(
-            __ldg(reinterpret_cast<const float4*>(s)),
-            __ldg(reinterpret_cast<const float4*>(s + 64)),
-            __ldg(reinterpret_cast<const float4*>(s + (int64_t)w * 64)),
-            __ldg(reinterpret_cast<const float4*>(s + (int64_t)w * 64 + 64)));
-      } else {
-        *reinterpret_cast<uint4*>(d) = max8_bf16(
-            __ldg(reinterpret_cast<const uint4*>(s)),
-            __ldg(reinterpret_cast<const uint4*>(s + 64)),
-            __ldg(reinterpret_cast<const uint4*>(s + (int64_t)w * 64)),
-            __ldg(reinterpret_cast<const uint4*>(s + (int64_t)w * 64 + 64)));
-      }
+      *reinterpret_cast<float4*>(d) = max4(
+          __ldg(reinterpret_cast<const float4*>(s)),
+          __ldg(reinterpret_cast<const float4*>(s + 64)),
+          __ldg(reinterpret_cast<const float4*>(s + (int64_t)w * 64)),
+          __ldg(reinterpret_cast<const float4*>(s + (int64_t)w * 64 + 64)));
     }
   }
   gv::cp_async_wait<0>();
@@ -408,9 +374,7 @@ gv_csp_pool_kernel(const T* __restrict__ y, const T* __restrict__ xcat,
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
           const float a = acc[mt][nt >> 2][nt & 3][c];
-          r[mt] = std::is_same<T, float>::value
-                      ? bn_leaky<T>(a, ss[e], sh[e])
-                      : gv::round_bf16(bn_leaky<T>(a, ss[e], sh[e]));
+          r[mt] = bn_leaky<T>(a, ss[e], sh[e]);
         }
         const float v = fmaxf(r[0], r[1]);
         m[half][e] = fmaxf(v, __shfl_xor_sync(0xFFFFFFFFu, v, 4));
@@ -508,34 +472,6 @@ int detector_csp(const T* x, int batch, int h, int w, const T* w2,
   return (int)cudaGetLastError();
 }
 
-// One warp per 16 x 8 tile of c = a @ b with bf16 operands and f32 sums
-// (the check of the bf16 fragment layout against a library product). a:
-// (m, k) row-major bf16; bfrag: (k, n) packed by bf16mma.pack_b_fragments;
-// c: (m, n) row-major f32.
-__global__ void gv_mma_product_bf16_kernel(const gv::bf16* __restrict__ a,
-                                           const gv::bf16* __restrict__ bfrag,
-                                           float* __restrict__ c, int n,
-                                           int k) {
-  const int lane = threadIdx.x;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int nt = blockIdx.x;
-  const int m0 = blockIdx.y * 16;
-  const uint2* wb = reinterpret_cast<const uint2*>(bfrag);
-  float acc[1][4] = {{0.0f, 0.0f, 0.0f, 0.0f}};
-  for (int ks = 0; ks < k / 16; ++ks) {
-    const gv::bf16* row = a + (int64_t)(m0 + g) * k + ks * 16 + 4 * t;
-    const uint2 b[1] = {wb[((int64_t)ks * (n / 8) + nt) * 32 + lane]};
-    gv::Op<gv::bf16>::step(acc, false, row, row + (int64_t)8 * k, b);
-  }
-  const int ch = 16 * (nt / 2) + 4 * t + 2 * (nt % 2);
-  float* dst = c + (int64_t)(m0 + g) * n + ch;
-  dst[0] = acc[0][0];
-  dst[1] = acc[0][1];
-  dst[(int64_t)8 * n] = acc[0][2];
-  dst[(int64_t)8 * n + 1] = acc[0][3];
-}
-
 }  // namespace
 
 // x: (B, h, w, 64); y, xcat: (B, h, w, 64) scratch; out: (B, h/2, w/2, 128).
@@ -553,23 +489,6 @@ extern "C" int gv_detector_csp(const float* x, int batch, int h, int w,
                              out, stream);
 }
 
-// The bf16 form: every tensor bf16 but the BN scales s* and shifts b* (f32);
-// w*: the same matrices without the BN scale, packed by
-// bf16mma.pack_b_fragments.
-extern "C" int gv_detector_csp_bf16(
-    const void* x, int batch, int h, int w, const void* w2, const float* s2,
-    const float* b2, const void* wa, const float* sa, const float* ba,
-    const void* wb, const float* sb, const float* bb, const void* wc,
-    const float* sc, const float* bc, void* y, void* xcat, void* out,
-    cudaStream_t stream) {
-  using B = gv::bf16;
-  return detector_csp<B>(
-      static_cast<const B*>(x), batch, h, w, static_cast<const B*>(w2), s2,
-      b2, static_cast<const B*>(wa), sa, ba, static_cast<const B*>(wb), sb,
-      bb, static_cast<const B*>(wc), sc, bc, static_cast<B*>(y),
-      static_cast<B*>(xcat), static_cast<B*>(out), stream);
-}
-
 // c (m, n) = a (m, k) @ b in 3xTF32, b packed; m % 16 == n % 16 == k % 8 == 0.
 extern "C" int gv_mma_product(const float* a, const float* bfrag, float* c,
                               int m, int n, int k, cudaStream_t stream) {
@@ -579,20 +498,5 @@ extern "C" int gv_mma_product(const float* a, const float* bfrag, float* c,
   }
   gv_mma_product_kernel<<<dim3(n / 8, m / 16), 32, 0, stream>>>(a, bfrag, c,
                                                                  n, k);
-  return (int)cudaGetLastError();
-}
-
-// c (m, n) = a (m, k) @ b in bf16 with f32 sums, b packed; m % 16 == n % 16
-// == k % 16 == 0.
-extern "C" int gv_mma_product_bf16(const void* a, const void* bfrag,
-                                   float* c, int m, int n, int k,
-                                   cudaStream_t stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || m % 16 || n % 16 || k % 16 ||
-      m / 16 > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  gv_mma_product_bf16_kernel<<<dim3(n / 8, m / 16), 32, 0, stream>>>(
-      static_cast<const gv::bf16*>(a), static_cast<const gv::bf16*>(bfrag), c,
-      n, k);
   return (int)cudaGetLastError();
 }

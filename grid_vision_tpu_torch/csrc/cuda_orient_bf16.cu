@@ -675,20 +675,22 @@ gv_orient_bf16_kernel(const Args a) {
 
 // ---- a bare wgmma product, for the card tests ----------------------------
 
-// out (M, 64 halves) f32 = a (M, K) bf16 row-major @ the (K, 64 halves)
-// matrix packed by pack_wgmma_b_halves into b (at one half, pack_wgmma_b's
-// layout): one warpgroup a 64-row block, B by cp.async.bulk into shared
-// memory, A fragments from global memory in pack_wgmma_b's k order, the
-// product on this kernel's path. The check of the B layout and A k order
-// that both bf16 kernels give gv_hopper.cuh's wgmma (the stem's conv1 at
-// one half, this kernel's conv at one or two).
+// out (M, N) f32 = a (M, K) bf16 row-major @ the (K, N) matrix packed into
+// b: N = 64 halves by pack_wgmma_b_halves (at one half pack_wgmma_b's
+// layout), or N = 32 or 96 by pack_wgmma_b; one warpgroup a 64-row block,
+// B by cp.async.bulk into shared memory, A fragments from global memory in
+// pack_wgmma_b's k order, the product on this kernel's path (at N = 32 or
+// 96, one m64n32k16 / m64n96k16 a step). The check of the B layout and A
+// k order that the bf16 kernels give gv_hopper.cuh's wgmma (the stem's
+// conv1 at one half, this kernel's conv at one or two, the CSP stage's
+// convs at N = 64 and 96).
 __global__ void __launch_bounds__(128)
 gv_wgmma_product_kernel(const bf16* __restrict__ a, int k,
-                               const bf16* __restrict__ b, int halves,
+                               const bf16* __restrict__ b, int n,
                                float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int steps = k / 16;
-  const int b_bytes = steps * halves * kStepBytes;
+  const int b_bytes = steps * n * 32;
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem + b_bytes);
   const uint32_t wb = smem_u32(smem);
   const uint32_t mbar = smem_u32(bar);
@@ -714,20 +716,48 @@ gv_wgmma_product_kernel(const bf16* __restrict__ a, int k,
     fr[2] = lo.y;
     fr[3] = hi.y;
   };
+  auto store = [&](const auto& d) {
+    constexpr int nd = sizeof(d) / sizeof(float);
+#pragma unroll
+    for (int j = 0; j < nd / 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        out[(int64_t)(row + 8 * (e >> 1)) * n + acc_channel(j, t, e & 1)] =
+            d[4 * j + e];
+      }
+    }
+  };
   auto run = [&](auto hc) {
     constexpr int H = decltype(hc)::value;
     float d[32 * H];
     product<H, 1>(d, steps, wb, load);
-#pragma unroll
-    for (int j = 0; j < 8 * H; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        out[(int64_t)(row + 8 * (e >> 1)) * 64 * H +
-            acc_channel(j, t, e & 1)] = d[4 * j + e];
-      }
-    }
+    store(d);
   };
-  if (halves > 1) {
+  // pack_wgmma_b's layout on one instruction of width N (32 or 96)
+  auto narrow = [&](auto& d, auto mma) {
+#pragma unroll
+    for (int i = 0; i < (int)(sizeof(d) / sizeof(float)); ++i) d[i] = 0.0f;
+    for (int s = 0; s < steps; ++s) {
+      uint32_t fr[4];
+      load(s, fr);
+      fence_acc(d);
+      wgmma_fence();
+      mma(d, fr, b_desc(wb + s * n * 32), s > 0);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_acc(d);
+    }
+    store(d);
+  };
+  if (n == 32) {
+    float d[16];
+    narrow(d, [](float(&dd)[16], const uint32_t(&fr)[4], uint64_t desc,
+                 int sc) { gv::wgmma_m64n32k16(dd, fr, desc, sc); });
+  } else if (n == 96) {
+    float d[48];
+    narrow(d, [](float(&dd)[48], const uint32_t(&fr)[4], uint64_t desc,
+                 int sc) { gv::wgmma_m64n96k16(dd, fr, desc, sc); });
+  } else if (n == 128) {
     run(std::integral_constant<int, 2>());
   } else {
     run(std::integral_constant<int, 1>());
@@ -812,22 +842,21 @@ extern "C" int gv_orient_bf16_plan(int size, int f, int* plan) {
       &plan[6], (const void*)gv_orient_bf16_kernel, &cfg);
 }
 
-// out (m, 64 halves) f32 = a (m, k) bf16 @ b, the (k, 64 halves) matrix
-// packed by pack_wgmma_b_halves; m % 64 == 0, k % 16 == 0, k <= 432,
-// halves 1 or 2.
+// out (m, n) f32 = a (m, k) bf16 @ b, the (k, n) matrix packed by
+// pack_wgmma_b_halves (n = 64 or 128) or pack_wgmma_b (n = 32 or 96); m %
+// 64 == 0, k % 16 == 0, k <= 576.
 extern "C" int gv_wgmma_product_bf16(const void* a, int m, int k,
-                                     const void* b, int halves, float* out,
+                                     const void* b, int n, float* out,
                                      cudaStream_t stream) {
-  if (m <= 0 || m % 64 || k <= 0 || k % 16 || k > kTaps || halves < 1 ||
-      halves > 2) {
+  if (m <= 0 || m % 64 || k <= 0 || k % 16 || k > 576 ||
+      (n != 32 && n != 64 && n != 96 && n != 128)) {
     return (int)cudaErrorInvalidValue;
   }
-  const int smem = halves * (k / 16) * kStepBytes + 16;
+  const int smem = (k / 16) * n * 32 + 16;
   const int err = set_smem((const void*)gv_wgmma_product_kernel, smem);
   if (err) return err;
   gv_wgmma_product_kernel<<<m / 64, 128, smem, stream>>>(
-      static_cast<const bf16*>(a), k, static_cast<const bf16*>(b), halves,
-      out);
+      static_cast<const bf16*>(a), k, static_cast<const bf16*>(b), n, out);
   return (int)cudaGetLastError();
 }
 

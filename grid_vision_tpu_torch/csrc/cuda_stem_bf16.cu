@@ -796,40 +796,15 @@ int set_smem(const void* fn, int bytes) {
 
 // The frames (B * h rows of w * 3 / 2 four-byte pairs) as a tensor map for
 // the frame rows' copy: a box of fh_max rows of prow / 2 pairs, zero past
-// the frames. cuTensorMapEncodeTiled comes from the driver through the
-// runtime, so the library needs no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-int frame_map(CUtensorMap* map, const void* img, int batch, int h, int w,
-              int prow, int fh_max) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return (int)err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) {
-      return (int)cudaErrorNotSupported;
-    }
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
+// the frames.
+int stem_frame_map(CUtensorMap* map, const void* img, int batch, int h,
+                   int w, int prow, int fh_max) {
   const cuuint64_t dims[2] = {(cuuint64_t)w * 3 / 2,
                               (cuuint64_t)batch * h};
   const cuuint64_t strides[1] = {(cuuint64_t)w * 3 * 2};
   const cuuint32_t box[2] = {(cuuint32_t)prow / 2, (cuuint32_t)fh_max};
-  const cuuint32_t steps[2] = {1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 2, const_cast<void*>(img), dims,
-      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return gv::frame_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 2, img, dims,
+                       strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 }  // namespace
@@ -874,7 +849,8 @@ extern "C" int gv_detector_stem_bf16(
   if (tiles > (1 << 30)) return (int)cudaErrorInvalidValue;
   CUtensorMap fmap;
   std::memset(&fmap, 0, sizeof(fmap));
-  if (tma && (err = frame_map(&fmap, img, batch, h, w, prow, fh_max))) {
+  if (tma &&
+      (err = stem_frame_map(&fmap, img, batch, h, w, prow, fh_max))) {
     return err;
   }
   const int64_t slots = (int64_t)sms * per_sm;

@@ -1,13 +1,15 @@
 // Hopper (sm_90a) building blocks shared by the bf16 kernels of csrc/
-// (cuda_stem_bf16.cu, cuda_orient_bf16.cu): mbarriers, bulk copies by the
-// copy engine, the wgmma.m64n64k16 / m64n128k16 products with B in shared
-// memory and A from registers, and the thread-block cluster's barrier and
-// distributed shared memory.
+// (cuda_stem_bf16.cu, cuda_orient_bf16.cu, cuda_csp_bf16.cu): mbarriers,
+// bulk and tensor (TMA) copies by the copy engine and the host's tensor
+// maps for them, the wgmma.m64n32k16 / m64n64k16 / m64n96k16 / m64n128k16
+// products with B in shared memory and A from registers, and the
+// thread-block cluster's barrier and distributed shared memory.
 //
 // B of a wgmma comes from shared memory in the layout that
 // ops/bf16mma.pack_wgmma_b writes: K-major, no swizzle, one k step of 16
-// after another (2048 bytes each at N = 64; pack_wgmma_b_halves: 4096 at N
-// = 128), 8 x 8 core matrices of 128 contiguous bytes (8 accumulator
+// after another (32 N bytes each at N = 32, 64, 96;
+// pack_wgmma_b_halves: 4096 at N = 128), 8 x 8 core matrices of 128
+// contiguous bytes (8 accumulator
 // columns x 8 k), the two k halves of a step 128 bytes apart (the
 // descriptor's leading byte offset) and the channel groups of 8 256 apart
 // (its stride byte offset). A's fragment is the
@@ -17,12 +19,37 @@
 
 #pragma once
 
+#include <cuda.h>
+
 #include "gv_mma.cuh"
 
 namespace gv {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Shared-memory loads and stores by address (8 and 16 bytes, aligned).
+__device__ __forceinline__ uint2 lds64(uint32_t addr) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];"
+               : "=r"(v.x), "=r"(v.y)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -64,6 +91,20 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
       : "memory");
 }
 
+// The box of a 4-D tensor map at coordinates (c0 innermost .. c3) into
+// shared memory at dst by the copy engine, completing on `bar`; elements
+// outside the tensor (negative coordinates included) are written as zero.
+__device__ __forceinline__ void tensor_copy_4d(uint32_t dst,
+                                               const CUtensorMap* map, int c0,
+                                               int c1, int c2, int c3,
+                                               uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
 // Orders this thread's earlier shared-memory accesses before later ones of
 // the copy engine (a bulk copy into a buffer just read).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -90,12 +131,40 @@ __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
 
+// Wait until at most N of the warpgroup's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
 // Keeps the compiler from moving accesses of the accumulators across the
 // asynchronous product.
 template <int N>
 __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= a * b, m64n32k16, bf16 operands, f32 sums (see m64n64k16): the
+// thread's d[4j + e], j < 4, row g (e < 2) or g + 8, column 8j + 2t + (e &
+// 1).
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
 }
 
 // d (+)= a * b, m64n64k16, bf16 operands, f32 sums: a the warp's A
@@ -121,6 +190,35 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+// The same at m64n96k16: d[4j + e], j < 12, column 8j + 2t + (e & 1).
+__device__ __forceinline__ void wgmma_m64n96k16(float (&d)[48],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
         "r"(scale_d));
 }
@@ -175,6 +273,45 @@ __device__ __forceinline__ void store8(bf16* dst, const float (&v)[8]) {
     w[i] = *reinterpret_cast<const uint32_t*>(&p);
   }
   *reinterpret_cast<uint4*>(dst) = u;
+}
+
+// ---- tensor maps (host) ----------------------------------------------------
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so that a
+// library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// A tiled tensor map of `rank` dimensions over the frames at `base`: dims
+// innermost first, strides (bytes) of dims 1 .. rank - 1, box the tile a
+// tensor copy brings; elements outside the tensor arrive as zero. Nonzero:
+// a CUDA error.
+inline int frame_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                     const void* base, const cuuint64_t* dims,
+                     const cuuint64_t* strides, const cuuint32_t* box,
+                     CUtensorMapSwizzle swizzle) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) {
+      return (int)cudaErrorNotSupported;
+    }
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint32_t steps[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(
+      map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides,
+      box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // ---- thread-block clusters ----------------------------------------------

@@ -42,9 +42,10 @@
 // {b0_hi, b1_hi, b0_lo, b1_lo}: one 16-byte shared-memory load per lane
 // and n-tile.
 //
-// bf16 (the kernels' bf16 forms). One mma.sync.m16n8k16.bf16 per tile and
-// k step of 16: a bf16 product is exact and the tensor core sums in f32, so
-// the whole K chain stays on the tensor core (gv::Op<bf16>). Its fragments,
+// bf16 (the bf16 stem's resize passes and conv0). One
+// mma.sync.m16n8k16.bf16 per tile and k step of 16: a bf16 product is exact
+// and the tensor core sums in f32, so the whole K chain stays on the tensor
+// core. Its fragments,
 // each register two bf16 (the lower k in the low half):
 //   A (16 x 16): a0 (g, 2t..2t+1)  a1 (g+8, 2t..2t+1)  a2 (g, 2t+8..2t+9)
 //                a3 (g+8, 2t+8..2t+9)
@@ -176,20 +177,6 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// A thread's bf16 A fragment of one k step from row-major shared memory:
-// row_g points at logical k = 4t of row g, row_g8 at the same k of row
-// g + 8 (both 8-byte aligned).
-__device__ __forceinline__ void load_a_bf16(const bf16* row_g,
-                                            const bf16* row_g8,
-                                            uint32_t (&a)[4]) {
-  const uint2 r0 = *reinterpret_cast<const uint2*>(row_g);
-  const uint2 r1 = *reinterpret_cast<const uint2*>(row_g8);
-  a[0] = r0.x;
-  a[1] = r1.x;
-  a[2] = r0.y;
-  a[3] = r1.y;
-}
-
 // d += a * b, one m16n8k16 bf16 mma, f32 accumulators.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint2 b) {
@@ -200,15 +187,15 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // The tensor-core product of one operand type, for kernels templated on
-// it: Op<float> is 3xTF32, Op<bf16> bf16. kK: k of one mma step; kPad:
+// it: Op<float> is 3xTF32 (the f32 forms; the bf16 forms are cuda_*_bf16.cu).
+// kK: k of one mma step; kPad:
 // the padding (elements) of a staged pixel of C channels, C a multiple of
 // 32, so that the 8-byte A loads of a half-warp from four consecutive
 // pixels fall in 32 different banks (the pixels lie 8 or 24 words apart);
 // kThreadK: the logical k of a thread's first A value in a step (times t);
 // Frag: a lane's B fragment of one k step and n-tile; kSplitChains: the
-// chains are summed outside the tensor core (3xTF32) rather than kept on
-// it (bf16). step(): d[n] (+)= a * b[n] for the N n-tiles that share the A
-// rows row_g, row_g8.
+// chains are summed outside the tensor core (3xTF32). step(): d[n] (+)=
+// a * b[n] for the N n-tiles that share the A rows row_g, row_g8.
 template <typename T>
 struct Op;
 
@@ -227,31 +214,6 @@ struct Op<float> {
     uint32_t ah[4], al[4];
     load_a(row_g, row_g8, ah, al);
     mma_3xtf32_chain(d, first, ah, al, b);
-  }
-};
-
-template <>
-struct Op<bf16> {
-  static constexpr int kK = 16;
-  static constexpr int kPad = 16;
-  static constexpr int kThreadK = 4;
-  static constexpr bool kSplitChains = false;
-  using Frag = uint2;
-  template <int N>
-  __device__ __forceinline__ static void step(float (&d)[N][4], bool first,
-                                              const bf16* row_g,
-                                              const bf16* row_g8,
-                                              const Frag (&b)[N]) {
-    uint32_t a[4];
-    load_a_bf16(row_g, row_g8, a);
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      if (first) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) d[n][e] = 0.0f;
-      }
-      mma_bf16(d[n], a, b[n]);
-    }
   }
 };
 
@@ -282,13 +244,6 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
                "l"(src), "r"(n)
                : "memory");
-}
-
-// The same for bf16 data (16 bytes = 8 values).
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
-                                           bool ok) {
-  cp_async16(reinterpret_cast<float*>(dst),
-             reinterpret_cast<const float*>(src), ok);
 }
 
 __device__ __forceinline__ void cp_async_commit() {

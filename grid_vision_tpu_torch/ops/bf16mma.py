@@ -1,6 +1,6 @@
 """bf16 tensor-core products, the arithmetic of the kernels' bf16 forms
-(``csrc/gv_mma.cuh``: ``mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32``), in
-plain torch.
+(``csrc/gv_mma.cuh``: ``mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32``;
+``csrc/gv_hopper.cuh``: ``wgmma``), in plain torch.
 
 A product of two bf16 values (8 significant bits each) is exact in f32, and
 the kernels accumulate in f32. So the plain form of a bf16 product is an
@@ -11,11 +11,12 @@ tensor core's truncating accumulator), not the products.
 
 What the kernels need on the host lives here too: ``pack_b_fragments`` lays
 a weight matrix out in the order the warps read their m16n8k16 B fragments
-(``prepare_stem_constants``, ``prepare_csp_constants`` and
-``prepare_orient_constants`` call it once per model for the bf16 forms);
-``pack_wgmma_b`` lays one out in shared-memory order for the bf16 stem's
-``wgmma.m64n64k16`` (``csrc/cuda_stem_bf16.cu``), ``pack_wgmma_b_halves``
-a wider one, 64 channels a product, for the bf16 orientation front
+(``prepare_stem_constants`` calls it once per model for the bf16 stem's
+conv0); ``pack_wgmma_b`` lays one out in shared-memory order for
+``wgmma.m64n64k16`` / ``m64n32k16`` / ``m64n96k16`` (the bf16 stem's conv1,
+``csrc/cuda_stem_bf16.cu``; the bf16 CSP stage's four convs,
+``csrc/cuda_csp_bf16.cu``), ``pack_wgmma_b_halves`` a wider one, 64
+channels a product, for the bf16 orientation front
 (``csrc/cuda_orient_bf16.cu``).
 """
 
@@ -36,7 +37,7 @@ def _fragment_index(k: int, n: int, dev):
     that lane 4g + t of k step ks and n-tile nt holds in slot j. The mma's
     k columns (2t, 2t + 1) carry logical k 4t, 4t + 1 and its columns
     (2t + 8, 2t + 9) logical k 4t + 2, 4t + 3, so a thread's four A values
-    of a row are neighbours (one 8-byte load, gv::load_a_bf16), and so are
+    of a row are neighbours (one 8-byte load), and so are
     its four B values: w[16 ks + 4t + j, ch], ch = fragment_channel(nt, g),
     the output channel order of the 3xTF32 form (one store of four
     neighbouring channels)."""
@@ -74,48 +75,49 @@ def unpack_b_fragments(frag: torch.Tensor) -> torch.Tensor:
     return w
 
 
-def _wgmma_index(k: int, dev):
-    """(rows, cols), each (K / 16, 8, 2, 8, 8): the weight w[rows, cols] at
-    [step, channel group, k half, row, column] of pack_wgmma_b's layout.
+def _wgmma_index(k: int, n: int, dev):
+    """(rows, cols), each (K / 16, N / 8, 2, 8, 8): the weight w[rows, cols]
+    at [step, channel group, k half, row, column] of pack_wgmma_b's layout.
     The k order within a step is pack_b_fragments': mma k column 2t + e (e
     = 0, 1) holds logical k 4t + e, column 8 + 2t + e logical 4t + 2 + e,
     so that a thread's A values are four neighbouring channels of a pixel.
-    Accumulator column n = 8j + 2t + e (j = n / 8) holds output channel
+    Accumulator column c = 8j + 2t + e (j = c / 8) holds output channel
     32 (j / 4) + 8t + 2 (j % 4) + e, so that a thread's eight values of a
     row for j = 4h .. 4h + 3 are eight neighbouring channels."""
     s = torch.arange(k // 16, device=dev)[:, None, None, None, None]
-    grp = torch.arange(8, device=dev)[None, :, None, None, None]
+    grp = torch.arange(n // 8, device=dev)[None, :, None, None, None]
     half = torch.arange(2, device=dev)[None, None, :, None, None]
     row = torch.arange(8, device=dev)[None, None, None, :, None]
     col = torch.arange(8, device=dev)[None, None, None, None, :]
     t, e = col // 2, col % 2
     rows = 16 * s + 4 * t + 2 * half + e
-    n = 8 * grp + row
-    t_n, e_n, j = (n % 8) // 2, n % 2, n // 8
+    c = 8 * grp + row
+    t_n, e_n, j = (c % 8) // 2, c % 2, c // 8
     cols = 32 * (j // 4) + 8 * t_n + 2 * (j % 4) + e_n
-    shape = (k // 16, 8, 2, 8, 8)
+    shape = (k // 16, n // 8, 2, 8, 8)
     return rows.expand(shape), cols.expand(shape)
 
 
 def pack_wgmma_b(w: torch.Tensor) -> torch.Tensor:
-    """(K, 64) weights, K % 16 == 0 -> the (K / 16, 8, 2, 8, 8) bf16 layout
-    of B for wgmma.m64n64k16 from shared memory (K-major, no swizzle), one
-    k step of 16 after another (2048 bytes each): the 8 x 8 core matrices
-    (8 accumulator columns x 8 k, 128 contiguous bytes) by channel group
-    (256 bytes apart) and k half (128 bytes apart)."""
+    """(K, N) weights, K % 16 == 0, N 32, 64 or 96 -> the (K / 16, N / 8,
+    2, 8, 8) bf16 layout of B for wgmma.m64n32k16 / m64n64k16 / m64n96k16
+    from shared memory (K-major, no swizzle), one k step of 16 after
+    another (32 N bytes each): the 8 x 8 core matrices (8 accumulator
+    columns x 8 k, 128 contiguous bytes) by channel group (256 bytes apart)
+    and k half (128 bytes apart)."""
     k, n = w.shape
-    if k % 16 or n != 64:
+    if k % 16 or n not in (32, 64, 96):
         raise ValueError(f"cannot pack a ({k}, {n}) matrix for wgmma: "
-                         "K % 16 must be 0 and N 64")
-    rows, cols = _wgmma_index(k, w.device)
+                         "K % 16 must be 0 and N 32, 64 or 96")
+    rows, cols = _wgmma_index(k, n, w.device)
     return w.to(torch.bfloat16)[rows, cols].contiguous()
 
 
 def unpack_wgmma_b(packed: torch.Tensor) -> torch.Tensor:
-    """The inverse of pack_wgmma_b: the (K, 64) bf16 matrix."""
-    k = 16 * packed.shape[0]
-    rows, cols = _wgmma_index(k, packed.device)
-    w = torch.zeros((k, 64), dtype=torch.bfloat16, device=packed.device)
+    """The inverse of pack_wgmma_b: the (K, N) bf16 matrix."""
+    k, n = 16 * packed.shape[0], 8 * packed.shape[1]
+    rows, cols = _wgmma_index(k, n, packed.device)
+    w = torch.zeros((k, n), dtype=torch.bfloat16, device=packed.device)
     w[rows, cols] = packed
     return w
 

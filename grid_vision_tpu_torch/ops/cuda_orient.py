@@ -279,31 +279,37 @@ def _launch(images: torch.Tensor, xyxy: torch.Tensor, valid: torch.Tensor,
 
 def wgmma_product_bf16_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a (M, K) @ b (K, N) on the card through the wgmma path of the bf16
-    kernels (bf16 operands, f32 sums; B laid out by
-    bf16mma.pack_wgmma_b_halves, which at N <= 64 is pack_wgmma_b's layout,
-    and brought into shared memory by cp.async.bulk, A from registers in
-    its k order): the check of the layout that the bf16 stem's conv1 and
-    the bf16 orientation conv give wgmma, against a plain product (no path
-    calls it). M % 64 == 0, K % 16
-    == 0, K <= 432, N % 16 == 0, N <= 128; the result is f32."""
+    kernels (bf16 operands, f32 sums; B laid out by bf16mma.pack_wgmma_b at
+    N = 32 and 96 (m64n32k16, m64n96k16: the CSP stage's conv a and conv b
+    take N = 96), else by
+    pack_wgmma_b_halves, which at N <= 64 is pack_wgmma_b's layout, and
+    brought into shared memory by cp.async.bulk, A from registers in its k
+    order): the check of the layout that the bf16 stem's conv1, the bf16
+    orientation conv and the bf16 CSP stage's convs give wgmma, against a
+    plain product (no path calls it). M % 64 == 0, K % 16 == 0, K <= 576,
+    N % 16 == 0, N <= 128; the result is f32."""
     k = a.shape[1] if a.dim() == 2 else 0
     if (a.device.type != "cuda" or b.device != a.device or a.dim() != 2
             or b.dim() != 2 or b.shape[0] != k or a.shape[0] % 64
-            or k % 16 or k > TAPS or b.shape[1] % 16 or b.shape[1] > MAX_F):
+            or k % 16 or k > 576 or b.shape[1] % 16 or b.shape[1] > MAX_F):
         raise ValueError(f"a (M, K) and b (K, N) must be CUDA matrices, "
-                         f"M % 64 == 0, K % 16 == 0, K <= {TAPS}, N % 16 "
+                         f"M % 64 == 0, K % 16 == 0, K <= 576, N % 16 "
                          f"== 0, N <= {MAX_F}")
     n = b.shape[1]
     a16 = a.to(torch.bfloat16).contiguous()
-    bw = bf16mma.pack_wgmma_b_halves(b)
-    c = torch.empty((a.shape[0], 64 * bw.shape[1]), dtype=torch.float32,
+    if n in (32, 96):
+        bw, width = bf16mma.pack_wgmma_b(b), n
+    else:
+        bw = bf16mma.pack_wgmma_b_halves(b)
+        width = 64 * bw.shape[1]
+    c = torch.empty((a.shape[0], width), dtype=torch.float32,
                     device=a.device)
     fn = cuda_build.load("cuda_orient_bf16").gv_wgmma_product_bf16
     fn.restype = ctypes.c_int
     P, I = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [P, I, I, P, I, P, P]
     cuda_build.check(
-        fn(a16.data_ptr(), a.shape[0], k, bw.data_ptr(), bw.shape[1],
+        fn(a16.data_ptr(), a.shape[0], k, bw.data_ptr(), width,
            c.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream),
         "gv_wgmma_product_bf16")
     return c[:, :n]

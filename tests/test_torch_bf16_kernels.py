@@ -203,7 +203,8 @@ def test_bf16_constants_are_what_the_wrappers_check():
     w1 = stem["w1_oihw"].permute(2, 3, 1, 0).reshape(288, 64)
     assert torch.equal(bf16mma.unpack_wgmma_b(stem["w1wg"]), w1)
     w2 = csp["w2_oihw"].permute(2, 3, 1, 0).reshape(576, 64)
-    assert torch.equal(bf16mma.unpack_b_fragments(csp["w2"]), w2)
+    assert torch.equal(bf16mma.unpack_wgmma_b(csp["w2"]),
+                       w2[cuda_csp.k_pair_order(576)])
     f = orient["t"].shape[0]
     wo = bf16mma.unpack_wgmma_b_halves(orient["wwg"], f)
     assert torch.equal(wo, orient["w_oihw"].permute(2, 3, 1, 0).reshape(

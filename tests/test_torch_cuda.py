@@ -780,13 +780,18 @@ def test_stem_bf16_kernel_one_launch_and_batch_independent(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n,atol", [
     (64, 16, 64, 1e-5), (128, 288, 64, 1e-5), (192, 64, 64, 1e-5),
-    (64, 432, 128, 1e-4), (128, 432, 32, 1e-4), (192, 48, 96, 1e-4)])
+    (64, 432, 128, 1e-4), (128, 432, 32, 1e-4), (192, 48, 96, 1e-4),
+    (64, 16, 32, 1e-5), (128, 288, 32, 1e-5), (64, 576, 64, 1e-4),
+    (128, 96, 96, 1e-5), (64, 576, 96, 1e-4)])
 def test_wgmma_product_matches_f32_matmul(cuda_device, m, k, n, atol):
     """The bf16 kernels' wgmma path alone (B laid out by
     pack_wgmma_b_halves, at N = 64 pack_wgmma_b's layout as the stem's
-    conv1 has it, 64 channels a product, brought in by cp.async.bulk; A
-    from registers in its k order) against torch.matmul in f32 of the same
-    bf16 operands: the products are exact, only the order of the f32 sums
+    conv1 and the CSP stage's ConvBN_2 and 1x1 have it, 64 channels a
+    product; at N = 32 and 96 pack_wgmma_b's layout on m64n32k16 /
+    m64n96k16, the latter as the CSP stage's conv a and conv b have it;
+    brought in by cp.async.bulk; A from
+    registers in its k order) against torch.matmul in f32 of the same bf16
+    operands: the products are exact, only the order of the f32 sums
     differs."""
     g = torch.Generator(device=cuda_device).manual_seed(m + k + n)
     a = torch.randn((m, k), generator=g, device=cuda_device).to(BF).float()
@@ -798,13 +803,20 @@ def test_wgmma_product_matches_f32_matmul(cuda_device, m, k, n, atol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,hw", [(1, 104), (64, 104), (2, 38)])
-def test_csp_bf16_kernel_matches_twin(cuda_device, batch, hw):
+@pytest.mark.parametrize("batch,h,w", [(1, 104, 104), (64, 104, 104),
+                                       (2, 38, 38), (3, 37, 53),
+                                       (2, 18, 22), (1, 105, 31),
+                                       (5, 104, 104)])
+def test_csp_bf16_kernel_matches_twin(cuda_device, batch, h, w):
+    """The tick's shapes (1 and 64 frames: bands of one pooled row, one
+    band a strip), the tests' 38 x 38, odd and non-square frames (pool by
+    floor; a last strip narrower than 52 columns), a few-frame band plan;
+    one launch a call."""
     cfg = GridVisionConfig(detection_weights_file="weights/detector.npz")
     det = weights.load_all(cfg, device=cuda_device)["detector"]
     consts = cuda_csp.prepare_csp_constants(det, BF)
     g = torch.Generator(device=cuda_device).manual_seed(batch)
-    x = (torch.rand((batch, hw, hw, 64), generator=g, device=cuda_device)
+    x = (torch.rand((batch, h, w, 64), generator=g, device=cuda_device)
          * 4).to(BF)
     n0 = cuda_csp.launches_bf16
     with torch.no_grad():
@@ -812,8 +824,74 @@ def test_csp_bf16_kernel_matches_twin(cuda_device, batch, hw):
         torch.cuda.synchronize()
         ref = cuda_csp.detector_csp_plain(x, det, consts)
     assert cuda_csp.launches_bf16 == n0 + 1
-    assert got.shape == (batch, hw // 2, hw // 2, 128)
+    assert got.shape == (batch, h // 2, w // 2, 128)
     _bf16_hold(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,h,w", [(1, 104, 104), (2, 38, 38),
+                                       (3, 37, 53), (2, 18, 22),
+                                       (1, 5, 7), (7, 104, 104),
+                                       (20, 104, 104)])
+def test_csp_bf16_kernel_bit_equal_on_exact_data(cuda_device, batch, h, w):
+    """Where every f32 sum is exact (tests/test_torch_csp_bf16.py
+    exact_constants) the kernel equals the twin bit for bit, whatever the
+    order of its sums: any slip of a ring row, tap, swizzle, mask or
+    fragment shows as a difference. The twin runs on the CPU (cuDNN may
+    pick a Winograd or FFT conv, which is not exact)."""
+    from .test_torch_csp_bf16 import exact_constants, exact_input
+    cpu = exact_constants(batch + h + w)
+    consts = {k: v.to(cuda_device) if torch.is_tensor(v) else v
+              for k, v in cpu.items()}
+    x = exact_input((batch, h, w, 64), h * w)
+    got = cuda_csp.detector_csp_cuda(x.to(cuda_device), None, consts).cpu()
+    ref = cuda_csp._csp_plain_bf16(x, cpu)
+    assert torch.equal(got, ref), (
+        f"{int((got != ref).sum())} of {got.numel()} differ; rows "
+        f"{sorted(set((got != ref).nonzero()[:, 1].tolist()))[:20]}, "
+        f"columns {sorted(set((got != ref).nonzero()[:, 2].tolist()))[:20]}"
+        f", channels {sorted(set((got != ref).nonzero()[:, 3].tolist()))}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,h,w", [(1, 104, 104), (64, 104, 104),
+                                       (5, 104, 104), (2, 38, 38),
+                                       (3, 37, 53), (200, 104, 104)])
+def test_csp_bf16_plan_is_the_kernels(cuda_device, batch, h, w):
+    """cuda_csp.csp_bf16_plan is the kernel's own plan at the card's SM
+    count, and its block is resident (one an SM)."""
+    sms, plan = cuda_csp.bf16_plan_on_card(batch, h, w)
+    assert plan[:4] == tuple(cuda_csp.csp_bf16_plan(batch, h, w, sms))
+    assert plan[5] == 1
+
+
+@pytest.mark.cuda
+def test_csp_bf16_one_launch_and_unaligned_frames(cuda_device):
+    """One kernel in the profiler a call (and one count); an activation
+    off a 16-byte boundary raises before anything runs; an empty output
+    launches nothing."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = GridVisionConfig(detection_weights_file="weights/detector.npz")
+    det = weights.load_all(cfg, device=cuda_device)["detector"]
+    consts = cuda_csp.prepare_csp_constants(det, BF)
+    x = torch.rand((2, 38, 38, 64), device=cuda_device).to(BF)
+    cuda_csp.detector_csp_cuda(x, det, consts)
+    torch.cuda.synchronize()
+    n0 = cuda_csp.launches_bf16
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cuda_csp.detector_csp_cuda(x, det, consts)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "gv_" in e.name]
+    assert len(names) == 1 and "gv_csp_bf16_kernel" in names[0]
+    assert cuda_csp.launches_bf16 == n0 + 1
+    flat = torch.zeros(38 * 38 * 64 + 4, dtype=BF, device=cuda_device)
+    assert flat[4:].data_ptr() % 16 == 8
+    with pytest.raises(ValueError, match="16-byte"):
+        cuda_csp.detector_csp_cuda(flat[4:].view(1, 38, 38, 64), det,
+                                   consts)
+    assert cuda_csp.launches_bf16 == n0 + 1
+    empty = cuda_csp.detector_csp_cuda(x[:, :1].contiguous(), det, consts)
+    assert empty.shape == (2, 0, 19, 128)
 
 
 @pytest.mark.cuda
@@ -976,16 +1054,3 @@ def test_bf16_forms_raise_on_f32_inputs(cuda_device):
             frames, box, torch.ones(1, dtype=torch.bool, device=cuda_device),
             torch.zeros(1, dtype=torch.int32, device=cuda_device), net,
             cuda_orient.prepare_orient_constants(net, BF), 64)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,n,k", [(16, 16, 16), (128, 64, 288)])
-def test_bf16_tile_product_matches_emulation(cuda_device, m, n, k):
-    from grid_vision_tpu_torch.ops import bf16mma
-    g = torch.Generator(device=cuda_device).manual_seed(m)
-    a = torch.randn((m, k), generator=g, device=cuda_device)
-    b = torch.randn((k, n), generator=g, device=cuda_device)
-    got = cuda_csp.mma_product_bf16_cuda(a, b)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, bf16mma.matmul_bf16(a, b), rtol=1e-5,
-                               atol=1e-4)

@@ -83,8 +83,8 @@ def test_wgmma_b_round_trip_and_layout(k):
 def test_wgmma_b_rejects_other_shapes():
     with pytest.raises(ValueError, match="K % 16"):
         bf16mma.pack_wgmma_b(torch.zeros((40, 64)))
-    with pytest.raises(ValueError, match="N 64"):
-        bf16mma.pack_wgmma_b(torch.zeros((32, 32)))
+    with pytest.raises(ValueError, match="N 32, 64 or 96"):
+        bf16mma.pack_wgmma_b(torch.zeros((32, 48)))
 
 
 def _tile_extent(h, w, size):

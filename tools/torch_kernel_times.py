@@ -4,7 +4,8 @@ card (grid_vision_tpu_torch; imports nothing of JAX):
 
     python3 tools/torch_kernel_times.py            # from the repo's root
     python3 tools/torch_kernel_times.py stem       # or: stem_bf16, knn,
-                                                   # grid, carve, orient_bf16
+                                                   # grid, carve, orient_bf16,
+                                                   # csp_bf16
     python3 tools/torch_kernel_times.py carve --variant cuda_raycast:MACRO
 
 torch.profiler over a few calls at the ticks' shapes (64 frames of 480x640
@@ -12,7 +13,9 @@ to 416, f32 or, for stem_bf16, the bf16 form on bf16 frames of integers;
 64 rigs x 8192 points x 16 and 64 queries, one rig x 16384 x 64;
 the gated grid and carve updates at 64 rigs and one rig of 500x200, every
 fourth rig gated off; the orientation front's bf16 form at 320 crops over
-64 bf16 frames and 5 crops over one, shipped weights); prints one JSON line per shape with the microseconds
+64 bf16 frames and 5 crops over one; the CSP stage's bf16 form on the bf16
+stem's output of 64 frames and of one, 8-bit frames, shipped weights);
+prints one JSON line per shape with the microseconds
 per call of every kernel of csrc/ (named gv_*). The quick look at where a
 call's device time goes while a kernel is being worked on. `--variant
 SOURCE:MACRO[,MACRO...]` first builds csrc/SOURCE.cu with a -D for each
@@ -23,14 +26,15 @@ cuda_stem_bf16:GV_STEM_CLOCKS` also prints the bf16 stem's cycles a tile
 and block of each phase at 64 frames, thread 0's (barrier to barrier)
 and the mean warp's (to its arrival at the barrier); `orient_bf16
 --variant cuda_orient_bf16:GV_ORIENT_CLOCKS` the bf16 orientation front's
-cycles a block of each phase (thread 0's).
+cycles a block of each phase (thread 0's); `csp_bf16 --variant
+cuda_csp_bf16:GV_CSP_CLOCKS` the bf16 CSP stage's cycles a step of each
+phase (thread 0's).
 chip_smoke.py holds the kernels to their twins and times whole calls.
 """
 
 import ctypes
 import json
 import os
-import subprocess
 import sys
 
 import torch
@@ -40,9 +44,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from grid_vision_tpu_torch import GridVisionConfig  # noqa: E402
 from grid_vision_tpu_torch.models import weights  # noqa: E402
-from grid_vision_tpu_torch.ops import (cuda_build, cuda_grid,  # noqa: E402
-                                       cuda_knn, cuda_orient, cuda_raycast,
-                                       cuda_stem, rasterize)
+from grid_vision_tpu_torch.ops import (cuda_build, cuda_csp,  # noqa: E402
+                                       cuda_grid, cuda_knn, cuda_orient,
+                                       cuda_raycast, cuda_stem, rasterize)
 
 
 def kernel_us(fn, iters: int = 10):
@@ -66,24 +70,18 @@ def use_variant(spec: str) -> str:
     SOURCE:MACRO[,MACRO...] (a MACRO may be NAME=VALUE) and load it in the
     source's place; returns the spec."""
     source, macros = spec.split(":")
-    macros = macros.split(",")
-    tag = "-".join(m.replace("=", "_") for m in macros)
-    out = cuda_build.BUILD_DIR / f"lib{source}-{tag}.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    log = subprocess.run(
-        [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
-         *(f"-D{m}" for m in macros), "-o", str(out),
-         str(cuda_build.CSRC / f"{source}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        check=True)
+    macros = tuple(macros.split(","))
+    lib = cuda_build.load(source, macros)
+    log = cuda_build.ptxas_log.get(cuda_build._key(source, macros), "")
     print(json.dumps(dict(variant=spec, ptxas=[
-        ln.strip() for ln in log.stdout.splitlines()
+        ln.strip() for ln in log.splitlines()
         if "registers" in ln or "spill" in ln])), flush=True)
-    cuda_build._libs[source] = ctypes.CDLL(str(out))
-    for mod in (cuda_grid, cuda_raycast, cuda_knn):
-        entry = getattr(mod, "_entry", None)
-        if entry is not None:
-            entry.cache_clear()
+    cuda_build._libs[(source, ())] = lib
+    for mod in (cuda_grid, cuda_raycast, cuda_knn, cuda_csp):
+        for name in ("_entry", "_entry_bf16"):
+            entry = getattr(mod, name, None)
+            if entry is not None:
+                entry.cache_clear()
     return spec
 
 
@@ -129,6 +127,14 @@ def orient_bf16_clocks(call, calls: int = 5):
     return dict(kernel="orient_bf16_clocks", blocks=buf[9] // calls,
                 cycles_per_block={p: buf[i] / max(buf[9], 1)
                                   for i, p in enumerate(phases)})
+
+
+def csp_bf16_clocks(call, calls: int = 5):
+    """Cycles a step by phase of the bf16 CSP stage (a -DGV_CSP_CLOCKS
+    build), thread 0's view (cuda_csp.csp_bf16_clocks)."""
+    return dict(kernel="csp_bf16_clocks",
+                **cuda_csp.csp_bf16_clocks(cuda_build.load("cuda_csp_bf16"),
+                                           call, calls))
 
 
 def grid_cases(dev, g):
@@ -228,6 +234,24 @@ def main() -> None:
             if batch == 64 and variant and "GV_STEM_CLOCKS" in variant:
                 print(json.dumps(stem_bf16_clocks(img, consts, cfg.resize)),
                       flush=True)
+    if "csp_bf16" in which:
+        cfg = GridVisionConfig(detection_weights_file="weights/detector.npz")
+        det = weights.load_all(cfg, device=dev)["detector"]
+        stem = cuda_stem.prepare_stem_constants(det, torch.bfloat16)
+        consts = cuda_csp.prepare_csp_constants(det, torch.bfloat16)
+        for batch in (64, 1):
+            img = torch.randint(0, 256, (batch, 480, 640, 3), generator=g,
+                                device=dev).to(torch.bfloat16)
+            x = cuda_stem.detector_stem_cuda(img, stem, cfg.resize)
+            with torch.no_grad():
+                us = kernel_us(lambda: cuda_csp.detector_csp_cuda(
+                    x, det, consts))
+            print(json.dumps(dict(kernel="csp_bf16", variant=variant,
+                                  shape=list(x.shape), us=us)), flush=True)
+            if variant and "GV_CSP_CLOCKS" in variant:
+                print(json.dumps(csp_bf16_clocks(
+                    lambda: cuda_csp.detector_csp_cuda(x, det, consts))),
+                    flush=True)
     if "orient_bf16" in which:
         cfg = GridVisionConfig(vision_weights_file="weights/orientation.npz")
         net = weights.load_all(cfg, device=dev)["orientation"]
