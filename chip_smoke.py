@@ -100,15 +100,24 @@ device JSON follows. Phases, each printing one line:
    rig-batched tracker bit-equal to single-rig calls (f32 and bf16) with a
    forecast every 5th tick, and the tracker's cost (no host sync, device
    time and launches a call, tracked against untracked ticks, the fleet
-   forecast's peak memory);
+   forecast's peak memory); then the parallel layer (phase `parallel`,
+   parallel_phases: Fleet, its compacted step on one and on two logical
+   shards, tracked_step, forecast, run and checkpoints, SharedGrid,
+   CityGrid / CityFusion and MultiFleet on per-fleet streams, each against
+   Engine.fleet or the plain backends) and the fleet server (phase
+   `serve`, serve_phases: FleetServer fed the pool's 8-bit frames through
+   the mailboxes, every published grid against Fleet.__call__, the
+   kernels once a served tick, served rig-frames/s beside Engine.fleet's,
+   the tracked, forecast and hub modes, the `serve` CLI in a subprocess);
 8. a `kernels` JSON line for every ported kernel and form (launches: the
    fleet run's counts, the extension fleet run's for the carve kernel, the
    bf16 fleet run's for the bf16 forms, `launches_pca_fleet`, the PCA
    fleet run's (f32, bf16 for the bf16 forms), and `launches_stream`, the
    per-frame packed run's (f32; bf16 for the bf16 forms; extension for the
-   carve kernel), and `launches_tracked`, the tracked fleet run's (f32;
+   carve kernel), `launches_tracked`, the tracked fleet run's (f32;
    bf16 for the bf16 forms; the tracked extension run's for the carve
-   kernel); for the
+   kernel), and `launches_served`, the served fleet run's (f32; bf16 for
+   the bf16 forms); for the
    tensor-core kernels also `bound_3xtf32_ms`, the bound with three TF32
    products per f32 product at the TF32 rate; for them and the kNN kernel
    `device_ms`, their device time per profiled fleet tick, and
@@ -124,6 +133,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -154,6 +164,20 @@ TRACKED_EXT_TICKS = 4
 TRACKED_PAIRS = 10
 TRACKED_PEAK_GB = 40.0          # half the card: more fails the run
 FORECAST_HORIZONS = (0.5, 1.0, 2.0)
+PAR_TICKS = 3                   # Fleet / compacted / MultiFleet ticks
+PAR_TRACKED_TICKS = 5
+PAR_HUB_TICKS = 2
+PAR_CITY_TICKS = 2
+PAR_RUN_STEPS = 5
+PAR_CHUNK = 4
+SERVE_TICKS = 6
+SERVE_MODE_TICKS = 3
+FLEET_KERNELS = ("detector_stem", "detector_csp", "orient_front",
+                 "grid_update", "knn_median_depth")
+BF16_KERNELS = ("detector_stem_bf16", "detector_csp_bf16",
+                "orient_front_bf16", "grid_update", "knn_median_depth")
+
+
 N_RIGS = 64
 BUDGET = 5 * N_RIGS            # bench.py:206
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -2234,6 +2258,617 @@ def tracked_phases(torch, dev, root, cfg, nets, extrinsics, fleet_cfg,
     return fleet_launches, bf_launches, ext_launches
 
 
+def synced_ms(torch, fn):
+    """(fn()'s result, its host-clock ms with the card synchronized before
+    and after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def same_grids(torch, what, got, ref):
+    """occupancy_i8 bit-equal and box counts equal, tick by tick (pairs of
+    StepOutputs)."""
+    for i, (o, r) in enumerate(zip(got, ref)):
+        if not torch.equal(o.occupancy_i8, r.occupancy_i8):
+            fail(f"{what} tick {i}: occupancy_i8 differs")
+        if not torch.equal(o.boxes.valid.sum(-1), r.boxes.valid.sum(-1)):
+            fail(f"{what} tick {i}: box counts differ")
+
+
+def hub_extrinsics(torch, extrinsics, n):
+    """n rigs placed around the hub's world: rig r the shared extrinsics,
+    then a yaw of 0.02 (r % 8) rad and a shift of (0.5 (r % 8), 0.5 (r // 8
+    - n / 16)) m."""
+    from grid_vision_tpu_torch.types import Extrinsics, stack
+    out = []
+    for r in range(n):
+        c, s = math.cos(0.02 * (r % 8)), math.sin(0.02 * (r % 8))
+        world = torch.eye(4, device=extrinsics.camera_to_base.device)
+        world[0, 0], world[0, 1], world[1, 0], world[1, 1] = c, -s, s, c
+        world[0, 3] = 0.5 * (r % 8)
+        world[1, 3] = 0.5 * (r // 8 - n / 16)
+        out.append(Extrinsics(
+            lidar_to_camera=extrinsics.lidar_to_camera.clone(),
+            camera_to_base=world @ extrinsics.camera_to_base))
+    return stack(out)
+
+
+def parallel_phases(torch, dev, root, fleet_cfg, nets, extrinsics, fleet_obs,
+                    modules, forms, card):
+    """Phase `parallel`: parallel/ on the card, the fleet configuration of
+    bench.py at full width with the shipped weights, N_RIGS rigs of the
+    fleet pool.
+
+    1. Fleet on one shard: __call__ and compacted_step(budget_per_rig=5)
+       against Engine.fleet (budget None and BUDGET) for PAR_TICKS ticks,
+       occupancy_i8 bit-equal and equal box counts; each of the five
+       kernels launched once a tick (counted from zero).
+    2. Two logical shards on one card: compacted_step equals two
+       Engine.fleet calls of half the rigs at half the budget.
+    3. Fleet.tracked_step in f32 and bf16 for PAR_TRACKED_TICKS ticks
+       against Engine.fleet then update_tracks: every track field and
+       TrackStats bit-equal; the tracked tick's median ms.
+    4. Fleet.forecast at FORECAST_HORIZONS equals the int8 of
+       forecast_occupancy.
+    5. Fleet.run(PAR_RUN_STEPS) equals as many calls; a save_states /
+       restore_states round trip is bit-equal.
+    6. SharedGrid (grid "xla") with every rig's own extrinsics: with
+       orientation_budget=BUDGET on the kernel backends against the plain
+       backends, >= 99.9 % occupancy_i8 and equal dropped; without a budget
+       the world counts equal the sum of the rigs' lshape_hit_counts;
+       call_chunk(PAR_CHUNK) equals as many calls; ms a world tick with and
+       without the budget.
+    7. The default CityGridSpec (4000 x 2000 cells) fed the rigs' world
+       poses: one slab and four logical slabs give the same grid bit for
+       bit; CityFusion.step ms and its peak memory.
+    8. MultiFleet: two fleets of N_RIGS / 2 rigs on one card (f32 and
+       bf16), each on its own stream: step_all bit-equal to each fleet
+       stepped alone; step_all ms beside the sum of the two alone.
+
+    Returns the phase's record."""
+    from grid_vision_tpu_torch import pipeline
+    from grid_vision_tpu_torch.ops import rasterize, tracking
+    from grid_vision_tpu_torch.parallel import (CityFusion, CityGrid, Fleet,
+                                                MultiFleet, RigMesh,
+                                                SharedGrid)
+    from grid_vision_tpu_torch.parallel.city_grid import CityGridSpec
+    from grid_vision_tpu_torch.parallel.shared_grid import shard_hit_counts
+    from grid_vision_tpu_torch.types import stack
+    from grid_vision_tpu_torch.utils import prng
+    t_phase = time.perf_counter()
+    res = dict(card=card, rigs=N_RIGS)
+    obs_seq = fleet_obs[:PAR_TICKS]
+    one = RigMesh([dev])
+    fleet = Fleet(fleet_cfg, N_RIGS, mesh=one, params=nets,
+                  extrinsics=extrinsics)
+    eng = pipeline.Engine(fleet_cfg, extrinsics=extrinsics, params=nets,
+                          device=dev)
+
+    def fleet_ticks(step, n_obs=obs_seq):
+        states, outs = fleet.init_states(), []
+        for obs in n_obs:
+            states, out = step(states, obs)
+            outs.append(out)
+        torch.cuda.synchronize()
+        return states, outs
+
+    # 1. one shard: __call__ and compacted_step against Engine.fleet
+    want = {name: len(obs_seq) for name in FLEET_KERNELS}
+    (_, outs), launches = _counted(modules, forms,
+                                   lambda: fleet_ticks(fleet), want,
+                                   "Fleet.__call__")
+    _, refs = fleet_ticks(lambda s, o: eng.fleet(s, o))
+    same_grids(torch, "Fleet.__call__", outs, refs)
+    (_, c_outs), c_launches = _counted(
+        modules, forms,
+        lambda: fleet_ticks(lambda s, o: fleet.compacted_step(s, o, 5)),
+        want, "Fleet.compacted_step")
+    _, c_refs = fleet_ticks(lambda s, o: eng.fleet(s, o, BUDGET))
+    same_grids(torch, "Fleet.compacted_step", c_outs, c_refs)
+    res["fleet"] = dict(ticks=len(obs_seq), launches=launches,
+                        compacted_launches=c_launches,
+                        boxes_per_tick=[int(o.boxes.valid.sum())
+                                        for o in outs],
+                        dropped_per_tick=[
+                            int(o.saturation.orientation_dropped.sum())
+                            for o in c_outs], equals_engine_fleet=True)
+    del outs, refs, c_outs, c_refs
+
+    # 2. two logical shards on one card
+    half = N_RIGS // 2
+    two = Fleet(fleet_cfg, N_RIGS, mesh=RigMesh([dev, dev]), params=nets,
+                extrinsics=extrinsics)
+    states = fleet.init_states()
+    (s2, o2), l2 = _counted(
+        modules, forms, lambda: two.compacted_step(states, obs_seq[0], 5),
+        {name: 2 for name in FLEET_KERNELS}, "two-shard compacted_step")
+    halves = [eng.fleet(states.select(slice(a, a + half)),
+                        obs_seq[0].select(slice(a, a + half)), 5 * half)
+              for a in (0, half)]
+    if not (torch.equal(s2.log_odds, torch.cat([h[0].log_odds
+                                                for h in halves]))
+            and torch.equal(o2.occupancy_i8,
+                            torch.cat([h[1].occupancy_i8 for h in halves]))
+            and torch.equal(o2.saturation.orientation_dropped, torch.cat(
+                [h[1].saturation.orientation_dropped for h in halves]))):
+        fail("the two-shard compacted_step differs from two Engine.fleet "
+             "calls of half the rigs")
+    res["two_shards"] = dict(launches=l2, budget_per_shard=5 * half,
+                             dropped=int(o2.saturation.orientation_dropped
+                                         .sum()), equals_two_calls=True)
+    del two, s2, o2, halves
+
+    # 3. the tracked tick, f32 and bf16, against Engine.fleet + tracker
+    tcfg = tracking.TrackConfig()
+    dt = 0.1
+    tracked = {}
+    for dtype in ("f32", "bf16"):
+        c = (fleet_cfg if dtype == "f32" else
+             dataclasses.replace(fleet_cfg, compute_dtype="bfloat16"))
+        f = Fleet(c, N_RIGS, mesh=one, params=nets, extrinsics=extrinsics)
+        e = pipeline.Engine(c, extrinsics=extrinsics, params=nets,
+                            device=dev)
+        seq = [fleet_obs[i % len(fleet_obs)]
+               for i in range(PAR_TRACKED_TICKS)]
+        if dtype == "bf16":
+            seq = [dataclasses.replace(o, image=o.image.to(torch.bfloat16))
+                   for o in seq]
+        s, tr = f.init_states(), f.init_tracks(tcfg)
+        rs, rtr = f.init_states(), f.init_tracks(tcfg)
+        times = []
+        for i, obs in enumerate(seq):
+            (s, tr, out, st), ms = synced_ms(
+                torch, lambda: f.tracked_step(s, tr, obs, dt, tcfg))
+            times.append(ms)
+            rs, rout = e.fleet(rs, obs)
+            rtr, rst = tracking.update_tracks(rtr, rout, dt, c, tcfg)
+            bad = [x.name for x in dataclasses.fields(tr)
+                   if not torch.equal(getattr(tr, x.name),
+                                      getattr(rtr, x.name))]
+            bad += [x.name for x in dataclasses.fields(st)
+                    if not torch.equal(getattr(st, x.name),
+                                       getattr(rst, x.name))]
+            if bad or not torch.equal(out.occupancy_i8, rout.occupancy_i8):
+                fail(f"Fleet.tracked_step {dtype} tick {i}: {bad or 'grid'}"
+                     " differ from Engine.fleet + update_tracks")
+        tracked[dtype] = dict(ticks=len(seq), tick_ms=times,
+                              median_tick_ms=statistics.median(times),
+                              tracks_last=int(tr.valid.sum()),
+                              confirmed_last=int(tr.confirmed(tcfg).sum()),
+                              bit_equal=True)
+        if dtype == "f32":
+            # 4. the forecast
+            (fc, fc_ms) = synced_ms(
+                torch, lambda: f.forecast(tr, FORECAST_HORIZONS, tcfg))
+            ref = torch.round(tracking.forecast_occupancy(
+                tr, FORECAST_HORIZONS, c, tcfg) * 100.0).to(torch.int8)
+            if fc.dtype != torch.int8 or not torch.equal(fc, ref):
+                fail("Fleet.forecast differs from the int8 of "
+                     "forecast_occupancy")
+            res["forecast"] = dict(horizons=list(FORECAST_HORIZONS),
+                                   shape=list(fc.shape), ms=fc_ms,
+                                   occupied_cells=int((fc > 50).sum()),
+                                   equals_forecast_occupancy=True)
+        del f, e, s, tr, rs, rtr
+    res["tracked"] = tracked
+
+    # 5. run and checkpoint
+    run_s, run_ms = synced_ms(
+        torch, lambda: fleet.run(fleet.init_states(), obs_seq[0],
+                                 PAR_RUN_STEPS))
+    ref_s = fleet.init_states()
+    for _ in range(PAR_RUN_STEPS):
+        ref_s, _ = fleet(ref_s, obs_seq[0])
+    if not torch.equal(run_s.log_odds, ref_s.log_odds):
+        fail("Fleet.run differs from as many calls")
+    path = os.path.join(root, "build", "chip_smoke_fleet_states.npz")
+    fleet.save_states(run_s, path)
+    back = fleet.restore_states(path)
+    os.remove(path)
+    for x in dataclasses.fields(back):
+        got, want = getattr(back, x.name), getattr(run_s, x.name)
+        if got.device != want.device or not torch.equal(got, want):
+            fail(f"the checkpoint round trip changed {x.name}")
+    res["run"] = dict(steps=PAR_RUN_STEPS, ms=run_ms, equals_calls=True,
+                      checkpoint_round_trip=True)
+    del run_s, ref_s, back
+
+    # 6. the fusion hub: kernel backends against plain, counts, chunks
+    hub_cfg = dataclasses.replace(fleet_cfg, grid_backend="xla")
+    plain_cfg = dataclasses.replace(
+        hub_cfg, detector_stem_backend="xla", orientation_stem_backend="xla",
+        knn_backend="xla")
+    extr_b = hub_extrinsics(torch, extrinsics, N_RIGS)
+    obs = obs_seq[0]
+    hub = {}
+    for budget in (BUDGET, None):
+        sg = SharedGrid(hub_cfg, N_RIGS, mesh=one, params=nets,
+                        orientation_budget=budget)
+        pg = SharedGrid(plain_cfg, N_RIGS, mesh=one, params=nets,
+                        orientation_budget=budget)
+        lo = plo = sg.init_grid()
+        times, agree, drops = [], [], []
+        # the detector's stem and CSP kernels and the orientation front
+        # (with or without a budget: the fleet-compacted crop batch); the
+        # hub has no kNN stage, and its grid is "xla"
+        want = dict(detector_stem=PAR_HUB_TICKS,
+                    detector_csp=PAR_HUB_TICKS,
+                    orient_front=PAR_HUB_TICKS)
+
+        def hub_run():
+            nonlocal lo
+            rows = []
+            for i in range(PAR_HUB_TICKS):
+                (lo, occ, d), ms = synced_ms(
+                    torch, lambda: sg(lo, obs, extr_b, prng.prng_key(i)))
+                rows.append((occ, d, ms))
+            return rows
+
+        rows, hub_launches = _counted(modules, forms, hub_run, want,
+                                      f"SharedGrid budget={budget}")
+        for i, (occ, d, ms) in enumerate(rows):
+            plo, pocc, pd = pg(plo, obs, extr_b, prng.prng_key(i))
+            a = (rasterize.export_occupancy_i8(occ)
+                 == rasterize.export_occupancy_i8(pocc)).float().mean()
+            agree.append(float(a))
+            drops.append(int(d))
+            times.append(ms)
+            if int(d) != int(pd):
+                fail(f"SharedGrid budget={budget} tick {i}: dropped {int(d)}"
+                     f" against the plain backends' {int(pd)}")
+        if min(agree) < 0.999:
+            fail(f"SharedGrid budget={budget}: occupancy_i8 agreement "
+                 f"{min(agree)} with the plain backends")
+        key = "budget" if budget is not None else "no_budget"
+        hub[key] = dict(ticks=PAR_HUB_TICKS, tick_ms=times,
+                        median_tick_ms=statistics.median(times),
+                        launches=hub_launches,
+                        min_occupancy_i8_agreement_vs_plain=min(agree),
+                        dropped_per_tick=drops,
+                        occupied_cells_last=int(
+                            (rasterize.export_occupancy_i8(rows[-1][0]) > 50)
+                            .sum()))
+        if budget is None:
+            keys = sg.step_keys(prng.prng_key(0))
+            poses = sg.world_poses(obs, extr_b, keys)
+            counts, _ = shard_hit_counts(sg.params, obs, extr_b, keys,
+                                         hub_cfg)
+            per_rig = sum(rasterize.lshape_hit_counts(poses.select(r),
+                                                      hub_cfg)
+                          for r in range(N_RIGS))
+            if not torch.equal(counts, per_rig) or not counts.max() > 0:
+                fail("the hub's world counts are not the sum of the rigs' "
+                     "lshape_hit_counts (or are empty)")
+            hub["world_counts"] = dict(max=float(counts.max()),
+                                       cells_hit=int((counts > 0).sum()),
+                                       equal_sum_of_rigs=True)
+            obs_c = stack([obs_seq[i % len(obs_seq)]
+                           for i in range(PAR_CHUNK)])
+            (lo_c, occ_c, d_c), chunk_ms = synced_ms(
+                torch, lambda: sg.call_chunk(sg.init_grid(), obs_c, extr_b,
+                                             prng.prng_key(9)))
+            keys_c = prng.split(prng.split(prng.prng_key(9, dev), PAR_CHUNK),
+                                N_RIGS)
+            lo1 = sg.init_grid()
+            for t in range(PAR_CHUNK):
+                lo1, occ1, _ = sg._step(lo1, obs_c.select(t), extr_b,
+                                        keys_c[t])
+                if not torch.equal(occ_c[t], occ1):
+                    fail(f"call_chunk tick {t} differs from the call")
+            if not torch.equal(lo_c, lo1):
+                fail("call_chunk's grid differs from as many calls")
+            hub["chunk"] = dict(k=PAR_CHUNK, ms=chunk_ms,
+                                ms_per_world_tick=chunk_ms / PAR_CHUNK,
+                                equals_calls=True)
+            world_poses = poses
+        del sg, pg
+    res["shared_grid"] = hub
+
+    # 7. the city grid: one slab against four, CityFusion's cost
+    spec = CityGridSpec()
+    flat = type(world_poses)(**{x.name: getattr(world_poses, x.name)
+                                .flatten(0, 1)
+                                for x in dataclasses.fields(world_poses)})
+    c1, c4 = CityGrid(spec, mesh=one), CityGrid(spec, mesh=RigMesh([dev] * 4))
+    lo1, lo4 = c1.init_grid(), c4.init_grid()
+    for _ in range(PAR_CITY_TICKS):
+        lo1, occ1 = c1.update(lo1, flat)
+        lo4, occ4 = c4.update(lo4, flat)
+    if not (torch.equal(lo1, lo4) and torch.equal(occ1, occ4)):
+        fail("the city grid in four slabs differs from one slab")
+    if not lo1.max() > 0:
+        fail("no rig's pose reached the city grid")
+    del c1, c4, lo4, occ1, occ4
+    cf = CityFusion(spec, hub_cfg, N_RIGS, mesh=one, params=nets)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lo = cf.init_grid()
+    times = []
+    for i in range(PAR_CITY_TICKS):
+        (lo, occ), ms = synced_ms(
+            torch, lambda: cf.step(lo, obs, extr_b, prng.prng_key(i)))
+        times.append(ms)
+    peak = torch.cuda.max_memory_allocated() - base
+    res["city"] = dict(shape=list(spec.shape), ticks=PAR_CITY_TICKS,
+                       one_slab_equals_four=True,
+                       cells_occupied=int((lo > 0).sum()),
+                       fusion_tick_ms=times,
+                       fusion_median_tick_ms=statistics.median(times),
+                       fusion_peak_memory_gib=peak / 2 ** 30)
+    del cf, lo, lo1, occ, world_poses, flat
+
+    # 8. MultiFleet: two fleets on one card, each on its own stream
+    bf = dataclasses.replace(fleet_cfg, compute_dtype="bfloat16")
+    mf = MultiFleet([fleet_cfg, bf], half, mesh=RigMesh([dev, dev]),
+                    params_list=[nets, nets],
+                    extrinsics_list=[extrinsics, extrinsics])
+    if len({id(s) for s in mf.streams}) != 2:
+        fail("MultiFleet's fleets do not have a stream each")
+    mobs = [(o.select(slice(0, half)),
+             dataclasses.replace(o.select(slice(half, N_RIGS)),
+                                 image=o.image[half:].to(torch.bfloat16)))
+            for o in obs_seq]
+    states = mf.init_states()
+    alone = [f.init_states(100 * i) for i, f in enumerate(mf.fleets)]
+    both_ms, alone_ms = [], []
+    for i, pair in enumerate(mobs):
+        (states, outs), ms = synced_ms(
+            torch, lambda: mf.step_all(states, list(pair)))
+        both_ms.append(ms)
+        refs, t_sum = [], 0.0
+        for f, s, o in zip(mf.fleets, alone, pair):
+            r, t = synced_ms(torch, lambda: f(s, o))
+            refs.append(r)
+            t_sum += t
+        alone_ms.append(t_sum)
+        alone = [r[0] for r in refs]
+        for k, (s, o, (rs, ro)) in enumerate(zip(states, outs, refs)):
+            if not (torch.equal(s.log_odds, rs.log_odds)
+                    and torch.equal(o.occupancy_i8, ro.occupancy_i8)
+                    and torch.equal(o.boxes.xyxy, ro.boxes.xyxy)):
+                fail(f"MultiFleet tick {i} fleet {k} differs from the "
+                     "fleet stepped alone")
+    res["multi_fleet"] = dict(
+        fleets=2, rigs_per_fleet=half, compute_dtypes=["float32",
+                                                      "bfloat16"],
+        ticks=len(mobs), step_all_ms=both_ms, alone_sum_ms=alone_ms,
+        median_step_all_ms=statistics.median(both_ms),
+        median_alone_sum_ms=statistics.median(alone_ms),
+        telemetry=mf.telemetry(outs), equals_alone=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    phase("parallel", **res)
+    del mf, fleet, eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_phases(torch, dev, root, fleet_cfg, nets, pool, modules, forms,
+                 card):
+    """Phase `serve`: runtime/serve.py on the card at N_RIGS rigs, the
+    fleet configuration with the shipped weights, fed synchronously:
+    before each step every rig's FleetClient publishes the fleet scene
+    pool's 8-bit frame and cloud of that tick.
+
+    1. Fleet mode, f32 and bf16, SERVE_TICKS served ticks each (publish
+       every tick): every rig's published grid, decoded from its mailbox,
+       equals a Fleet's __call__ on the Obs the server polled (itself held
+       to the pool's frames and clouds); each kernel (the bf16 forms in
+       bf16) launched once a served tick, counted from zero; served
+       rig-frames/s beside Engine.fleet's on the same frames on the card.
+    2. The other modes, SERVE_MODE_TICKS steps each: tracked with a
+       forecast at FORECAST_HORIZONS, and the fusion hub at chunk 1 and
+       PAR_CHUNK (grid "xla").
+    3. The CLI: `python -m grid_vision_tpu_torch serve --selftest --rigs 2
+       --steps 5` in a subprocess exits 0 and prints "served 5 fleet
+       steps".
+
+    Returns (the f32 served run's launches, the bf16 run's)."""
+    import numpy as np
+    from grid_vision_tpu_torch import pipeline
+    from grid_vision_tpu_torch.parallel import Fleet, RigMesh
+    from grid_vision_tpu_torch.runtime import native
+    from grid_vision_tpu_torch.runtime.serve import (FleetClient,
+                                                     FleetServer, rig_session)
+    from grid_vision_tpu_torch.runtime.session import (FORECAST_CHANNEL,
+                                                       GRID_CHANNEL,
+                                                       _decode_forecast,
+                                                       _decode_grid)
+    from grid_vision_tpu_torch.types import PointCloud
+    t_phase = time.perf_counter()
+    # the servers load the configured weights (the nets), wherever the
+    # script runs from
+    fleet_cfg = dataclasses.replace(
+        fleet_cfg, detection_weights_file=os.path.join(
+            root, fleet_cfg.detection_weights_file),
+        vision_weights_file=os.path.join(root, fleet_cfg.vision_weights_file))
+    res = dict(card=card, rigs=N_RIGS, ticks=SERVE_TICKS)
+    one = RigMesh([dev])
+    # mailboxes are shared-memory paths: this run's names are its own
+    tag = f"gvsmoke-{os.getpid()}"
+    t0 = time.perf_counter()
+    frames = [[(np.clip(s.image_at(t + 0.1 * i), 0, 255).astype(np.uint8),
+                s.cloud_at(t + 0.1 * i))
+               for s, t in zip(pool.scenes, pool.t0)]
+              for i in range(SERVE_TICKS)]
+    res["render_s"] = time.perf_counter() - t0
+
+    def publish(clients, tick):
+        for client, (img, pts) in zip(clients, frames[tick % SERVE_TICKS]):
+            client.publish_image(img)
+            client.publish_cloud(pts)
+
+    def read(session, channel, decode):
+        box = native.ShmMailbox(native.shm_path(session, channel))
+        got = box.read()
+        box.close()
+        if got is None:
+            fail(f"session {session} published nothing on {channel}")
+        return decode(got[0])
+
+    served, launches_served = {}, {}
+    for dtype, kernels in (("f32", FLEET_KERNELS), ("bf16", BF16_KERNELS)):
+        c = (fleet_cfg if dtype == "f32" else
+             dataclasses.replace(fleet_cfg, compute_dtype="bfloat16"))
+        name = f"{tag}-{dtype}"
+        # the server loads the configured (shipped) weights, the nets
+        server = FleetServer(name, c, N_RIGS, mesh=one)
+        clients = [FleetClient(name, r, c) for r in range(N_RIGS)]
+        ref = Fleet(c, N_RIGS, mesh=one, params=nets)
+        try:
+            # the polled Obs is the pool's frames and clouds (the server's
+            # packer keeps a scan's first max_points points, as the JAX
+            # package's server does)
+            publish(clients, 0)
+            polled = server.poll_batch()
+            img = torch.from_numpy(np.stack([f[0] for f in frames[0]]))
+            clouds = [PointCloud.pack_numpy(f[1][:c.max_points], None,
+                                            c.max_points)[0]
+                      for f in frames[0]]
+            if (polled.image.dtype != torch.uint8
+                    or not torch.equal(polled.image, img)
+                    or not all(torch.equal(polled.cloud.xyz[r], cl.xyz)
+                               and int(polled.cloud.count[r]) ==
+                               int(cl.count)
+                               for r, cl in enumerate(clouds))):
+                fail(f"serve {dtype}: the polled Obs is not the pool's "
+                     "8-bit frames and clouds")
+
+            def served_run():
+                """Served ticks, each split by the server itself
+                (FleetServer.step's timings: poll, upload, tick, publish
+                on the same step); beside each, the Obs the step polled
+                (a second, untimed read of the latest-wins mailboxes) and
+                the grids it published."""
+                splits, polls = [], []
+                for i in range(SERVE_TICKS):
+                    publish(clients, i)
+                    obs = server.poll_batch()
+                    split = {}
+                    server.step(i, split)
+                    splits.append(split)
+                    grids = [read(rig_session(name, r), GRID_CHANNEL,
+                                  _decode_grid)[0] for r in range(N_RIGS)]
+                    polls.append((obs, grids))
+                return splits, polls
+
+            (splits, polls), launches = _counted(
+                modules, forms, served_run,
+                {k: SERVE_TICKS for k in kernels}, f"served {dtype} run")
+            parts = ("poll_ms", "upload_ms", "tick_ms", "publish_ms")
+            times = [sum(sp[p] for p in parts) for sp in splits]
+            rs, es = ref.init_states(), ref.init_states()
+            eng_ms = []
+            for i, (obs, grids) in enumerate(polls):
+                dobs = obs.to(dev)
+                rs, rout = ref(rs, dobs)
+                (es, _), ms = synced_ms(torch, lambda: ref.engine.fleet(
+                    es, dobs))
+                eng_ms.append(ms)
+                got = torch.from_numpy(np.stack(grids))
+                if not torch.equal(got, rout.occupancy_i8.cpu()):
+                    fail(f"serve {dtype} tick {i}: a published grid differs "
+                         "from Fleet.__call__ on the polled Obs")
+            if not torch.equal(server.states.log_odds, rs.log_odds):
+                fail(f"serve {dtype}: the server's grids differ")
+            served[dtype] = dict(
+                # each part as the server timed it, tick by tick
+                **{p: [sp[p] for sp in splits] for p in parts},
+                **{f"median_{p}": statistics.median(sp[p] for sp in splits)
+                   for p in parts},
+                launches=launches, served_step_ms=times,
+                engine_fleet_tick_ms=eng_ms,
+                median_served_step_ms=statistics.median(times),
+                engine_fleet_median_tick_ms=statistics.median(eng_ms),
+                # every tick over all of its time
+                served_rig_frames_per_s=(SERVE_TICKS * N_RIGS
+                                         / sum(times) * 1e3),
+                engine_fleet_rig_frames_per_s=(SERVE_TICKS * N_RIGS
+                                               / sum(eng_ms) * 1e3),
+                frame_bytes_per_tick=int(img.numel()),
+                saturation_totals=server.saturation_totals,
+                parse_errors=server.parse_errors,
+                published_equals_fleet=True)
+            launches_served[dtype] = launches
+        finally:
+            for cl in clients:
+                cl.close()
+            server.close()
+        del server, ref
+        torch.cuda.empty_cache()
+    res["fleet"] = served
+
+    # 2. the other modes: tracked with a forecast, the hub at chunk 1 and K
+    modes = {}
+    for mode, kw in (("tracked_forecast", dict(
+            track=True, track_dt=0.1, forecast_horizons=FORECAST_HORIZONS)),
+                     ("hub", dict(shared=True)),
+                     ("hub_chunk", dict(shared=True, chunk=PAR_CHUNK))):
+        c = (dataclasses.replace(fleet_cfg, grid_backend="xla")
+             if kw.get("shared") else fleet_cfg)
+        name = f"{tag}-{mode}"
+        server = FleetServer(name, c, N_RIGS, mesh=one, **kw)
+        clients = [FleetClient(name, r, c) for r in range(N_RIGS)]
+        steps = SERVE_MODE_TICKS * (PAR_CHUNK if "chunk" in kw else 1)
+        try:
+            times = []
+            for i in range(steps):
+                publish(clients, i)
+                _, ms = synced_ms(torch, lambda: server.step(i))
+                times.append(ms)
+            # a chunked hub computes at every PAR_CHUNK-th step: its cost
+            # is the mean a world tick
+            row = dict(steps=steps, tick_ms=times,
+                       median_tick_ms=statistics.median(times),
+                       ms_per_world_tick=sum(times) / steps)
+            if mode == "tracked_forecast":
+                planes, horizons, step, _ = read(rig_session(name, 0),
+                                                 FORECAST_CHANNEL,
+                                                 _decode_forecast)
+                if planes.shape != (len(FORECAST_HORIZONS),) + tuple(
+                        c.grid_size) or step != steps - 1:
+                    fail("served forecast planes of the wrong shape / step")
+                row.update(track_totals=server.track_totals,
+                           tracks_last=int(server.tracks.valid.sum()))
+            else:
+                grid, step, _ = read(f"{name}-world", GRID_CHANNEL,
+                                     _decode_grid)
+                if grid.shape != tuple(c.grid_size) or step != steps - 1:
+                    fail(f"hub {mode}: world grid of the wrong shape / step")
+                lo = server.world_lo
+                if not torch.isfinite(lo).all() or not lo.max() > 0:
+                    fail(f"hub {mode}: no evidence in the world grid")
+                row.update(dropped_total=server.dropped_total,
+                           occupied_cells=int((grid > 50).sum()))
+            modes[mode] = row
+        finally:
+            for cl in clients:
+                cl.close()
+            server.close()
+        del server
+        torch.cuda.empty_cache()
+    res["modes"] = modes
+
+    # 3. the CLI
+    proc = subprocess.run(
+        [sys.executable, "-m", "grid_vision_tpu_torch", "serve",
+         "--selftest", "--rigs", "2", "--steps", "5", "--name",
+         f"{tag}-cli"], capture_output=True, text=True, cwd=root,
+        timeout=300)
+    if proc.returncode != 0 or "served 5 fleet steps" not in proc.stdout:
+        fail(f"serve CLI: rc {proc.returncode}, stdout {proc.stdout!r}, "
+             f"stderr {proc.stderr[-2000:]!r}")
+    res["cli"] = dict(rc=proc.returncode,
+                      last_line=proc.stdout.strip().splitlines()[-1])
+    res["seconds"] = time.perf_counter() - t_phase
+    phase("serve", **res)
+    return launches_served["f32"], launches_served["bf16"]
+
+
 def kernel_phase(path: str, r: dict) -> None:
     phase("kernel", path=path,
           **{k: v for k, v in r.items() if k not in ("bound", "call")},
@@ -2730,6 +3365,13 @@ def main() -> None:
         torch, dev, root, cfg, nets, engine.extrinsics, fleet_cfg, fleet_obs,
         modules, forms, card)
 
+    # the parallel layer (Fleet, SharedGrid, CityGrid, MultiFleet) and the
+    # fleet server
+    parallel_phases(torch, dev, root, fleet_cfg, nets, engine.extrinsics,
+                    fleet_obs, modules, forms, card)
+    served_launches = serve_phases(torch, dev, root, fleet_cfg, nets, pool,
+                                   modules, forms, card)
+
     # 8. the kernels line, then the card, then the device JSON
     launches["carve_update"] = ext_launches["carve_update"]
     engine_launches["carve_update"] = ext_engine_launches["carve_update"]
@@ -2756,6 +3398,8 @@ def main() -> None:
             if name == "carve_update" else "f32"][name]
         kernels[-1]["launches_tracked"] = tracked_launches[
             1 if name in forms else 2 if name == "carve_update" else 0][name]
+        kernels[-1]["launches_served"] = served_launches[
+            1 if name in forms else 0][name]
         for key in ("bound_3xtf32_ms", "bound_old_bytes_ms", "gated_off",
                     "bit_equal_share", "toward_zero_share"):
             if key in r:

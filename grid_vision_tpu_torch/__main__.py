@@ -11,9 +11,14 @@
   record  record a packed-wire sensor drive to a .gvr file (the rosbag
           equivalent; the JAX package's format)
   play    re-drive the engine from a .gvr recording byte for byte
+  serve   the fleet server (runtime/serve.py): N rigs' sensor mailboxes
+          -> one fleet tick on the card -> per-rig sessions; --shared
+          fuses every rig into one world grid, --track / --forecast add
+          the tracker and predictive occupancy, --selftest feeds the rigs
+          from synthetic scenes
 
 Every command runs on the card; --cpu runs it on the CPU. Not ported yet:
-view, serve, demo, train, eval, eval-pose, bench.
+view, demo, train, eval, eval-pose, bench.
 
 Examples:
   python -m grid_vision_tpu_torch run --config config/grid_vision_cfg.yaml
@@ -21,6 +26,8 @@ Examples:
   python -m grid_vision_tpu_torch run --track --steps 40
   python -m grid_vision_tpu_torch record --out drive.gvr --steps 100
   python -m grid_vision_tpu_torch play drive.gvr --chunk 8
+  python -m grid_vision_tpu_torch serve --selftest --rigs 64 --steps 100
+  python -m grid_vision_tpu_torch serve --selftest --shared --rigs 8
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import logging
 import sys
 import time
 
-NOT_PORTED = ("view", "serve", "demo", "train", "eval", "eval-pose", "bench")
+NOT_PORTED = ("view", "demo", "train", "eval", "eval-pose", "bench")
 
 
 def _run(argv) -> None:
@@ -202,6 +209,9 @@ def main(argv=None) -> None:
         _record(rest)
     elif cmd == "play":
         _play(rest)
+    elif cmd == "serve":
+        from .runtime.serve import main as serve_main
+        serve_main(rest)
     elif cmd in NOT_PORTED:
         print(f"{cmd!r} is not ported to grid_vision_tpu_torch yet; "
               f"`python -m grid_vision_tpu {cmd}` runs the JAX package's",

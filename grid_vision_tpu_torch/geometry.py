@@ -52,7 +52,13 @@ def pixel_to_3d(uv: torch.Tensor, depth: torch.Tensor,
 
 
 def transform_points(T: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
-    """Apply a 4x4 rigid transform to (..., 3) points."""
+    """Apply a 4x4 rigid transform to (..., 3) points. A stack of
+    transforms T (R, 4, 4), one a rig, applies T[r] to rig r's points
+    (R, ..., 3), each rig as the one-transform call computes it: a batched
+    matmul rounds some rows otherwise (its small-row path), so the result
+    equals R single calls bit for bit."""
+    if T.dim() == 3:
+        return torch.stack([transform_points(t, x) for t, x in zip(T, xyz)])
     return xyz @ T[:3, :3].T + T[:3, 3]
 
 
@@ -77,11 +83,12 @@ def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
 
 
 def quat_from_matrix(R: torch.Tensor) -> torch.Tensor:
-    """Rotation matrix -> xyzw quaternion (branch-free Shepperd method,
-    degrading within ~1e-3 of a 180 degree rotation)."""
-    m00, m01, m02 = R[0, 0], R[0, 1], R[0, 2]
-    m10, m11, m12 = R[1, 0], R[1, 1], R[1, 2]
-    m20, m21, m22 = R[2, 0], R[2, 1], R[2, 2]
+    """(..., 3, 3) rotation matrices -> (..., 4) xyzw quaternions
+    (branch-free Shepperd method, degrading within ~1e-3 of a 180 degree
+    rotation)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
     tr = m00 + m11 + m22
     qw = torch.sqrt(torch.clamp(1.0 + tr, min=0.0)) / 2.0
     qx = torch.sqrt(torch.clamp(1.0 + m00 - m11 - m22, min=0.0)) / 2.0
@@ -97,8 +104,11 @@ def quat_from_matrix(R: torch.Tensor) -> torch.Tensor:
 def transform_pose(T: torch.Tensor, position: torch.Tensor,
                    quat: torch.Tensor):
     """tf2::doTransform on a Pose: move the position, compose the
-    orientation."""
-    q_T = quat_from_matrix(T[:3, :3])
+    orientation. T (4, 4), or (R, 4, 4) with a leading rig axis on position
+    and quat (transform_points)."""
+    q_T = quat_from_matrix(T[..., :3, :3])
+    q_T = q_T.reshape(q_T.shape[:-1] + (1,) * (quat.dim() - q_T.dim())
+                      + (4,))
     return (transform_points(T, position),
             quat_multiply(q_T.expand_as(quat), quat))
 

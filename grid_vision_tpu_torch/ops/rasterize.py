@@ -83,16 +83,23 @@ def corner_window_counts(corners_xy: torch.Tensor, box_valid: torch.Tensor,
     return torch.einsum("...dh,...dw->...hw", row_mask, col_mask)
 
 
+def lshape_hit_counts(poses: LShapePoses,
+                      cfg: GridVisionConfig) -> torch.Tensor:
+    """(..., H, W) f32 count of valid pose footprints covering each cell:
+    corner_window_counts without decay, hit scale or clamp; the evidence a
+    rig adds to a shared grid (parallel/shared_grid.py)."""
+    h, w = cfg.grid_size
+    return corner_window_counts(
+        pose_footprint_corners(poses), poses.valid, cfg.grid_center,
+        (float(cfg.grid_x), float(cfg.grid_y)), cfg.resolution, h, w)
+
+
 def lshape_update(log_odds: torch.Tensor, poses: LShapePoses,
                   cfg: GridVisionConfig):
     """updateMap(grid, bboxes_pose): decay, footprint hits, clamp, sigmoid.
     Returns (log_odds, occupancy), each (..., H, W)."""
-    h, w = cfg.grid_size
-    counts = corner_window_counts(
-        pose_footprint_corners(poses), poses.valid, cfg.grid_center,
-        (float(cfg.grid_x), float(cfg.grid_y)), cfg.resolution, h, w)
     log_odds = hit_add(log_odds + cfg.log_odds_decay, cfg.log_odds_hit,
-                       counts)
+                       lshape_hit_counts(poses, cfg))
     return _finish(log_odds, cfg)
 
 

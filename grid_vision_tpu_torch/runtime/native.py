@@ -192,6 +192,7 @@ class Mailbox:
 
 _SHM_MAGIC = 0x4756534853454D31  # "GVSHSEM1"
 _SHM_HEADER = 64
+_SHM_TABLE_FULL = -6             # gv_shm_open: the handle table is full
 
 
 def shm_path(session: str, channel: str) -> str:
@@ -209,7 +210,10 @@ class ShmMailbox:
 
     Uses the native seqlock implementation when the library is built; the
     pure-Python mmap fallback implements the identical 64-byte-header
-    layout, so native and Python endpoints interoperate freely.
+    layout, so native and Python endpoints interoperate freely. The
+    library holds 256 mailboxes a process; a mailbox beyond them takes the
+    Python path (a 64-rig fleet server alone holds 128 sensor mailboxes and
+    two or three session channels a rig).
     """
 
     def __init__(self, path: str, capacity: int = 0, create: bool = False):
@@ -219,12 +223,13 @@ class ShmMailbox:
         lib = _load()
         if lib is not None:
             h = lib.gv_shm_open(path.encode(), capacity, 1 if create else 0)
-            if h < 0:
+            if h >= 0:
+                self._h = h
+                self._lib = lib
+                self.capacity = int(lib.gv_shm_capacity(h))
+                return
+            if h != _SHM_TABLE_FULL:
                 raise OSError(f"gv_shm_open({path!r}) failed: {h}")
-            self._h = h
-            self._lib = lib
-            self.capacity = int(lib.gv_shm_capacity(h))
-            return
         # Pure-Python fallback: identical on-disk layout via mmap.
         import mmap
         import struct

@@ -61,6 +61,9 @@ def stack(values):
     return type(first)(**kw)
 
 
+tree_stack = stack     # the JAX package's name (types.tree_stack)
+
+
 @dataclasses.dataclass(frozen=True)
 class Boxes(_Tensors):
     """Padded 2D detections in pixel space: xyxy (D, 4) f32, confidence

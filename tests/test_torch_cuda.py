@@ -1054,3 +1054,73 @@ def test_bf16_forms_raise_on_f32_inputs(cuda_device):
             frames, box, torch.ones(1, dtype=torch.bool, device=cuda_device),
             torch.zeros(1, dtype=torch.int32, device=cuda_device), net,
             cuda_orient.prepare_orient_constants(net, BF), 64)
+
+
+# -- the parallel layer on one card ------------------------------------------
+
+SMALL_FLEET = dict(camera_image_height=96, camera_image_width=128,
+                   detection_network_input_size=64, network_height=64,
+                   network_width=64, orientation_width=8, fx=64.0, fy=64.0,
+                   cx=64.0, cy=48.0, max_points=512, grid_x=30, grid_y=10,
+                   resolution=0.25, max_static_depth=16,
+                   detector_stem_backend="pallas2",
+                   orientation_stem_backend="pallas", grid_backend="pallas",
+                   knn_backend="pallas")
+
+
+def _fleet_parts(dev, rigs, **kw):
+    from grid_vision_tpu_torch.runtime.stream import FleetPool
+    cfg = GridVisionConfig(**SMALL_FLEET, **kw)
+    nets = weights.load_all(cfg, seed=3, device=dev)
+    return cfg, nets, FleetPool(cfg, rigs, device=dev).obs(0)
+
+
+@pytest.mark.cuda
+def test_fleet_two_logical_shards_on_one_card(cuda_device):
+    """RigMesh([cuda:0, cuda:0]): compacted_step is two Engine.fleet calls
+    of half the rigs at half the budget each; __call__ runs the two shards
+    as one batch (each kernel once a tick)."""
+    from grid_vision_tpu_torch import pipeline
+    from grid_vision_tpu_torch.parallel import Fleet, RigMesh
+    cfg, nets, obs = _fleet_parts(cuda_device, 4)
+    fleet = Fleet(cfg, 4, mesh=RigMesh([cuda_device] * 2), params=nets)
+    eng = pipeline.Engine(cfg, params=nets, device=cuda_device)
+    states = fleet.init_states()
+    s_c, o_c = fleet.compacted_step(states, obs, budget_per_rig=1)
+    halves = [eng.fleet(states.select(slice(a, a + 2)),
+                        obs.select(slice(a, a + 2)), 2) for a in (0, 2)]
+    assert torch.equal(s_c.log_odds, torch.cat([h[0].log_odds
+                                                for h in halves]))
+    assert torch.equal(o_c.occupancy_i8, torch.cat([h[1].occupancy_i8
+                                                    for h in halves]))
+    n0 = cuda_stem.launches
+    s_1, o_1 = fleet(states, obs)
+    torch.cuda.synchronize()
+    assert cuda_stem.launches == n0 + 1
+    s_ref, o_ref = eng.fleet(states, obs)
+    assert torch.equal(s_1.log_odds, s_ref.log_odds)
+    assert torch.equal(o_1.occupancy_i8, o_ref.occupancy_i8)
+
+
+@pytest.mark.cuda
+def test_multi_fleet_streams_equal_fleets_alone(cuda_device):
+    """Two fleets (f32, bf16) on one card, each on its own stream: step_all
+    equals each fleet stepped alone on the caller's stream, twice over."""
+    from grid_vision_tpu_torch.parallel import MultiFleet, RigMesh
+    cfg, nets, obs = _fleet_parts(cuda_device, 2)
+    bf = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    mf = MultiFleet([cfg, bf], 2, mesh=RigMesh([cuda_device] * 2),
+                    params_list=[nets, nets])
+    caller = torch.cuda.current_stream(cuda_device)
+    assert all(s is not None and s != caller for s in mf.streams)
+    obs_bf = dataclasses.replace(obs, image=obs.image.to(torch.bfloat16))
+    states = mf.init_states()
+    alone = [f.init_states(100 * i) for i, f in enumerate(mf.fleets)]
+    for _ in range(2):
+        states, outs = mf.step_all(states, [obs, obs_bf])
+        refs = [f(s, o) for f, s, o in zip(mf.fleets, alone, [obs, obs_bf])]
+        alone = [r[0] for r in refs]
+        for s, o, (rs, ro) in zip(states, outs, refs):
+            assert torch.equal(s.log_odds, rs.log_odds)
+            assert torch.equal(o.occupancy_i8, ro.occupancy_i8)
+            assert torch.equal(o.boxes.valid, ro.boxes.valid)

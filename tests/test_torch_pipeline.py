@@ -165,6 +165,8 @@ def test_import_pulls_in_no_jax():
             " grid_vision_tpu_torch.io.font,"
             " grid_vision_tpu_torch.ops.tracking,"
             " grid_vision_tpu_torch.train.eval_tracking,"
+            " grid_vision_tpu_torch.parallel,"
+            " grid_vision_tpu_torch.runtime.serve,"
             " grid_vision_tpu_torch.__main__; bad = [m for m in sys.modules if m in"
             " ('jax', 'flax', 'optax', 'grid_vision_tpu') or m.startswith("
             "('jax.', 'flax.', 'optax.', 'grid_vision_tpu.'))]; print(bad);"
