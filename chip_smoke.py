@@ -52,9 +52,11 @@ device JSON follows. Phases, each printing one line:
    production bf16 configuration (compute_dtype="bfloat16"): the single-rig
    Engine for BF16_ENGINE_TICKS ticks and the fleet for BF16_FLEET_TICKS
    ticks with the frames in bf16 (FleetPool image_dtype), each against the
-   same bf16 configuration on the plain backends (equal box counts on >=
-   99 % of rig-ticks, occupancy_i8 >= 99 % on the mean, >= 97.5 % at the
-   least); the bf16 forms must launch once a tick and the f32 forms never;
+   same bf16 configuration on the plain backends (compare_bf16: box
+   counts equal but for boxes within 0.02 of the decode's confidence or
+   NMS threshold on >= 99 % of rig-ticks, occupancy_i8 >= 99 % on the
+   mean, >= 97.5 % at the least over the rigs with no such box); the bf16
+   forms must launch once a tick and the f32 forms never;
    the bf16 tick beside the f32 one, a profile of three bf16 fleet ticks
    (`stem_bf16_profile`, `orient_bf16_profile`, `csp_bf16_profile`: the
    bf16 stem's, orientation front's and CSP stage's device time a launch
@@ -172,6 +174,17 @@ PAR_RUN_STEPS = 5
 PAR_CHUNK = 4
 SERVE_TICKS = 6
 SERVE_MODE_TICKS = 3
+TRAIN_STEPS = 100               # two chunks of TRAIN_SCAN steps a net
+TRAIN_SCAN = 50
+TRAIN_SCENE_FRAMES = 16
+TRAIN_SCENE_CROPS = 32
+TRAIN_DET = dict(batch=32, size=416)             # the CLI's defaults
+TRAIN_ORI = dict(batch=64, size=224, width=32)   # the shipped net's
+TRAIN_TIMED_STEPS = 20
+TRAIN_PROFILED_STEPS = 10
+TRAIN_TICKS = 3                 # fleet ticks on the trained weights
+EVAL_SYNTH = 50                 # tests/test_eval_map.py:101-115
+EVAL_SCENE = 64
 FLEET_KERNELS = ("detector_stem", "detector_csp", "orient_front",
                  "grid_update", "knn_median_depth")
 BF16_KERNELS = ("detector_stem_bf16", "detector_csp_bf16",
@@ -1137,13 +1150,54 @@ def compare_outputs(torch, cfg, outs, plain_outs, per_rig: bool):
     return min(agree), n_boxes, n_poses
 
 
-def compare_bf16(torch, cfg, outs, plain_outs):
-    """The bf16 bars of the kernel backends against the plain ones, per rig
-    per tick: equal box counts on >= 99 % of rig-ticks, occupancy_i8
-    agreement >= 99 % on the mean and >= 97.5 % at the least (PARITY.json
-    per_step_min_agreement of the JAX package's bf16 against f32); finite
-    valid slots."""
-    same, agree, n_boxes, n_poses = [], [], [], []
+BOX_BAND = 0.02     # band about the decode's thresholds (compare_bf16)
+
+
+def pairwise_iou(torch, xyxy):
+    """(..., N, 4) boxes -> (..., N, N) IoU."""
+    lo = torch.maximum(xyxy[..., :, None, :2], xyxy[..., None, :, :2])
+    hi = torch.minimum(xyxy[..., :, None, 2:], xyxy[..., None, :, 2:])
+    inter = (hi - lo).clamp(min=0).prod(-1)
+    area = (xyxy[..., 2:] - xyxy[..., :2]).clamp(min=0).prod(-1)
+    return inter / (area[..., :, None] + area[..., None, :] - inter
+                    ).clamp(min=1e-9)
+
+
+def marginal_boxes(torch, cfg, boxes, band: float):
+    """The valid boxes that sit within `band` of one of the decode's
+    thresholds: a confidence below confidence_threshold + band, or an IoU
+    with a box kept before it (the rows are in NMS order) of
+    iou_threshold - band or more. A bf16 rounding may move such a box
+    across the threshold on either path."""
+    xyxy, valid = boxes.xyxy.float(), boxes.valid
+    n = valid.shape[-1]
+    iou = pairwise_iou(torch, xyxy)
+    before = torch.ones(n, n, dtype=torch.bool,
+                        device=valid.device).tril(-1)
+    near_nms = ((iou >= cfg.iou_threshold - band) & before
+                & valid[..., None, :]).any(-1)
+    near_conf = boxes.confidence < cfg.confidence_threshold + band
+    return valid & (near_conf | near_nms)
+
+
+def bf16_stats(torch, cfg, outs, plain_outs, band: float = BOX_BAND):
+    """The kernel backends against the plain ones in bf16, per rig per
+    tick; fails on non-finite valid slots.
+
+    Box counts agree where they differ by marginal boxes only
+    (marginal_boxes): each path's other boxes are no more than the other
+    path's boxes. A rounding that moves a box across the confidence
+    threshold, or across the NMS threshold against the box before it,
+    changes no box that sits clear of both (a box is suppressed only by
+    one before it). A rig is clean while its two paths have given the same
+    boxes, or equal counts and no marginal box, on every tick so far (a
+    box moved across a threshold changes the grid from then on):
+    occupancy_i8 agreement is
+    reported on the mean over all rig-ticks and at the least over the
+    clean ones."""
+    same, raw_same, agree, clean_agree = [], [], [], []
+    n_boxes, n_poses, n_marginal = [], [], []
+    clean = None
     for o, p in zip(outs, plain_outs):
         if tuple(o.occupancy_i8.shape[-2:]) != tuple(cfg.grid_size):
             fail(f"occupancy_i8 shape {tuple(o.occupancy_i8.shape)}")
@@ -1152,19 +1206,50 @@ def compare_bf16(torch, cfg, outs, plain_outs):
                         ("poses", o.poses.position[o.poses.valid])):
             if not torch.isfinite(t).all():
                 fail(f"non-finite {name} in a valid slot (bf16)")
-        nb, pb = o.boxes.valid.sum(-1), p.boxes.valid.sum(-1)
-        same += (nb == pb).reshape(-1).tolist()
-        eq = (o.occupancy_i8 == p.occupancy_i8).float()
-        agree += eq.mean(dim=(-2, -1)).reshape(-1).tolist()
-        n_boxes.append(int(nb.sum()))
+        (na, nm), (pa, pm) = (
+            (b.valid.sum(-1), marginal_boxes(torch, cfg, b, band).sum(-1))
+            for b in (o.boxes, p.boxes))
+        same += ((na - nm <= pa) & (pa - pm <= na)).reshape(-1).tolist()
+        raw_same += (na == pa).reshape(-1).tolist()
+        ob, pb = o.boxes, p.boxes
+        identical = ((ob.xyxy == pb.xyxy).all(-1) & (ob.label == pb.label)
+                     & (ob.confidence == pb.confidence)
+                     & (ob.valid == pb.valid)).all(-1)
+        now = identical | ((na == pa) & (nm == 0) & (pm == 0))
+        clean = now if clean is None else clean & now
+        eq = (o.occupancy_i8 == p.occupancy_i8).float().mean(dim=(-2, -1))
+        agree += eq.reshape(-1).tolist()
+        clean_agree += eq[clean].reshape(-1).tolist()
+        n_boxes.append(int(na.sum()))
+        n_marginal.append(int(pm.sum()))
         n_poses.append(int(o.poses.valid.sum()))
-    out = dict(equal_box_count_share=sum(same) / len(same),
-               mean_occupancy_i8_agreement=sum(agree) / len(agree),
-               min_occupancy_i8_agreement=min(agree),
-               boxes_per_tick=n_boxes, poses_per_tick=n_poses)
-    if (out["equal_box_count_share"] < 0.99
-            or out["mean_occupancy_i8_agreement"] < 0.99
-            or out["min_occupancy_i8_agreement"] < 0.975):
+    return dict(equal_box_count_share=sum(same) / len(same),
+                raw_equal_box_count_share=sum(raw_same) / len(raw_same),
+                mean_occupancy_i8_agreement=sum(agree) / len(agree),
+                min_occupancy_i8_agreement=min(agree),
+                clean_rig_ticks=len(clean_agree),
+                min_clean_occupancy_i8_agreement=(
+                    min(clean_agree) if clean_agree else None),
+                boxes_per_tick=n_boxes,
+                plain_marginal_boxes_per_tick=n_marginal,
+                poses_per_tick=n_poses, box_band=band)
+
+
+def meets_bf16_bars(out) -> bool:
+    """root PERF.md §2's bf16 bars on bf16_stats: box counts agreeing
+    (but for marginal boxes) on >= 99 % of rig-ticks; occupancy_i8 agreement
+    >= 99 % on the mean, and >= 97.5 % at the least over the clean
+    rig-ticks (PARITY.json per_step_min_agreement of the JAX package's
+    bf16 against f32)."""
+    return (out["equal_box_count_share"] >= 0.99
+            and out["mean_occupancy_i8_agreement"] >= 0.99
+            and (out["min_clean_occupancy_i8_agreement"] or 1.0) >= 0.975)
+
+
+def compare_bf16(torch, cfg, outs, plain_outs):
+    """bf16_stats held to the bf16 bars (meets_bf16_bars)."""
+    out = bf16_stats(torch, cfg, outs, plain_outs)
+    if not meets_bf16_bars(out):
         fail(f"bf16 kernel backends against the plain ones: {out}")
     return out
 
@@ -2869,6 +2954,368 @@ def serve_phases(torch, dev, root, fleet_cfg, nets, pool, modules, forms,
     return launches_served["f32"], launches_served["bf16"]
 
 
+def train_step_cost(torch, kind, model_cfg, batch, lr, draw):
+    """A train step of `kind` on a fixed batch: median ms over
+    TRAIN_TIMED_STEPS synchronized steps and images/s, the steps' peak
+    device memory above what was allocated before the train state was
+    built (parameters, AdamW moments, activations, gradients), and from
+    torch.profiler over TRAIN_PROFILED_STEPS steps the device's busy time,
+    idle share and launches a step; `draw()`'s median ms (drawing one such
+    batch on the card)."""
+    from torch.profiler import ProfilerActivity, profile
+    from grid_vision_tpu_torch.train import trainer
+    from grid_vision_tpu_torch.utils import prng
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    tx = trainer.AdamW(trainer.warmup_cosine_decay_schedule(
+        0.0, lr, warmup_steps=100, decay_steps=8000), weight_decay=1e-5)
+    state = trainer.init_train_state(
+        kind, model_cfg, tx, prng.prng_key(0, device=batch[0].device))
+    step = trainer.make_train_step(kind, model_cfg, tx)
+    for _ in range(3):
+        state, _ = step(state, *batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TRAIN_TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, *batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    if not torch.isfinite(metrics["loss"]):
+        fail(f"{kind} train step: loss {metrics['loss'].item()}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_PROFILED_STEPS):
+            state, _ = step(state, *batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / TRAIN_PROFILED_STEPS
+    events = [e for e in prof.events()
+              if e.device_type != torch.autograd.DeviceType.CPU]
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3 \
+        / TRAIN_PROFILED_STEPS
+    draws = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        draw()
+        torch.cuda.synchronize()
+        draws.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(times)
+    return dict(batch=int(batch[0].shape[0]),
+                input_size=int(batch[0].shape[1]),
+                dtype=str(model_cfg.compute_dtype).replace("torch.", ""),
+                median_step_ms=med, step_ms=times,
+                images_per_s=batch[0].shape[0] / med * 1e3,
+                peak_memory_gib=peak, profiled_step_ms=wall,
+                device_busy_ms=busy, device_idle_share=1.0 - busy / wall,
+                device_launches_per_step=len(events) / TRAIN_PROFILED_STEPS,
+                median_batch_draw_ms=statistics.median(draws))
+
+
+def train_phases(torch, dev, root, fleet_cfg, fleet_obs, extrinsics, modules,
+                 forms, card):
+    """Phase `train`: train/ on the card.
+
+    1. The cost of a train step: the detector at full width (416, batch
+       32, bf16 as the CLI defaults) and the orientation net (224, width
+       32, batch 64, bf16), each on a batch drawn on the card
+       (train_step_cost).
+    2. The CLI entry points: `train detector` (TRAIN_STEPS steps in chunks
+       of TRAIN_SCAN, TRAIN_SCENE_FRAMES scene frames) and `train
+       orientation` (TRAIN_SCENE_CROPS scene crops), every chunk run under
+       torch.cuda.set_sync_debug_mode("error") (a host sync inside a chunk
+       fails); the loss finite and falling (the mean of the last 10 steps
+       below that of the first 10); no kernel of csrc/ launched (training
+       is plain torch).
+    3. The saved weights reloaded through weights.load_all (equal to the
+       trained modules), then TRAIN_TICKS 64-rig fleet ticks on them, f32
+       and bf16, on the kernel backends against the plain ones (the fleet
+       phases' bars: compare_outputs, compare_bf16), each kernel (the bf16
+       forms in bf16) once a tick; in bf16 also against the detector's
+       kernels with the rest plain (the same boxes: every rig clean).
+
+    Returns (the f32 tick's launches, the bf16 tick's)."""
+    import contextlib
+    import io
+    from grid_vision_tpu_torch import pipeline
+    from grid_vision_tpu_torch.models import weights
+    from grid_vision_tpu_torch.models.orientation_net import OrientationConfig
+    from grid_vision_tpu_torch.models.yolov4_tiny import YoloConfig
+    from grid_vision_tpu_torch.train import (fit_on_device, fit_orientation,
+                                             synth_data)
+    from grid_vision_tpu_torch.utils import prng
+    t_phase = time.perf_counter()
+    res = dict(card=card)
+    key = prng.prng_key(0, device=dev)
+    nb, size = TRAIN_DET["batch"], TRAIN_DET["size"]
+    ycfg = YoloConfig(input_size=size)
+    res["detector_step"] = train_step_cost(
+        torch, "yolo", ycfg, synth_data.make_batch_on_device(key, nb, ycfg),
+        2e-3, lambda: synth_data.make_batch_on_device(key, nb, ycfg))
+    ocfg = OrientationConfig(input_size=TRAIN_ORI["size"],
+                             width=TRAIN_ORI["width"], s2d_fold=False)
+
+    def crops():
+        n = TRAIN_ORI["batch"]
+        c, b, off = fit_orientation.render_crop(prng.split(key, n),
+                                                TRAIN_ORI["size"])
+        return c, torch.zeros((n, 3), device=dev), b, off
+
+    res["orientation_step"] = train_step_cost(torch, "multibin", ocfg,
+                                              crops(), 1e-3, crops)
+    phase("train", path="step", **res)
+    torch.cuda.empty_cache()
+
+    # 2. the CLI's trainers, each chunk without a host sync
+    out_dir = os.path.join(root, "build", "smoke_train")
+    os.makedirs(out_dir, exist_ok=True)
+    det_path = os.path.join(out_dir, "detector.npz")
+    ori_path = os.path.join(out_dir, "orientation.npz")
+
+    def sync_free(fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return run
+
+    log = io.StringIO()
+    chunks = (fit_on_device.run_chunk, fit_orientation.run_chunk)
+    fit_on_device.run_chunk = sync_free(chunks[0])
+    fit_orientation.run_chunk = sync_free(chunks[1])
+    try:
+        with contextlib.redirect_stdout(log):
+            (det, ori), _ = _counted(modules, forms, lambda: (
+                fit_on_device.main([
+                    "--steps", str(TRAIN_STEPS), "--scan", str(TRAIN_SCAN),
+                    "--scene-frames", str(TRAIN_SCENE_FRAMES),
+                    "--batch", str(TRAIN_DET["batch"]),
+                    "--input-size", str(TRAIN_DET["size"]),
+                    "--out", det_path]),
+                fit_orientation.main([
+                    "--steps", str(TRAIN_STEPS), "--scan", str(TRAIN_SCAN),
+                    "--scene-crops", str(TRAIN_SCENE_CROPS),
+                    "--batch", str(TRAIN_ORI["batch"]),
+                    "--input-size", str(TRAIN_ORI["size"]),
+                    "--width", str(TRAIN_ORI["width"]),
+                    "--out", ori_path])), {}, "train CLI")
+    except RuntimeError:
+        import traceback
+        fail(f"train: {traceback.format_exc()[-3000:]}")
+    finally:
+        fit_on_device.run_chunk, fit_orientation.run_chunk = chunks
+    for name, r in (("detector", det), ("orientation", ori)):
+        losses = r["losses"].reshape(-1)
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"train {name}: non-finite loss")
+        first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+        if not last < first:
+            fail(f"train {name}: the loss did not fall ({first} -> {last})")
+        res[f"{name}_cli"] = dict(
+            steps=TRAIN_STEPS, scan=TRAIN_SCAN, seconds=r["seconds"],
+            first_10_mean_loss=first, last_10_mean_loss=last,
+            chunk_losses=[[float(c[0]), float(c[-1])] for c in r["losses"]])
+    res["orientation_cli"].update(
+        angle_median_deg=ori["angle_median_deg"],
+        angle_p90_deg=ori["angle_p90_deg"],
+        dims_median_m=ori["dims_median_m"])
+    res["cli_log"] = log.getvalue().splitlines()
+    phase("train", path="cli", **{k: res.pop(k) for k in (
+        "detector_cli", "orientation_cli", "cli_log")})
+
+    # 3. reload, then the fleet tick on the trained weights
+    cfg_t = dataclasses.replace(fleet_cfg, detection_weights_file=det_path,
+                                vision_weights_file=ori_path)
+    nets_t = weights.load_all(cfg_t, device=dev)
+    for name, r in (("detector", det), ("orientation", ori)):
+        want = r["state"].model.state_dict()
+        for k, v in nets_t[name].state_dict().items():
+            if not torch.equal(v, want[k]):
+                fail(f"train: reloaded {name} differs in {k}")
+    del det, ori
+    obs = fleet_obs[:TRAIN_TICKS]
+    plain_kw = dict(detector_stem_backend="xla",
+                    orientation_stem_backend="xla", grid_backend="xla",
+                    knn_backend="xla")
+    tick_launches = []
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(fleet_cfg, compute_dtype=dtype)
+        kern = pipeline.Engine(c, extrinsics=extrinsics, params=nets_t,
+                               device=dev)
+        plain = pipeline.Engine(dataclasses.replace(c, **plain_kw),
+                                extrinsics=extrinsics, params=nets_t,
+                                device=dev)
+        o = obs if dtype == "float32" else [
+            dataclasses.replace(x, image=x.image.to(torch.bfloat16))
+            for x in obs]
+        names = (list(forms) if dtype == "bfloat16" else
+                 ["detector_stem", "detector_csp", "orient_front"])
+        (_, outs, _), got = _counted(
+            modules, forms, lambda: run_fleet(torch, kern, o, BUDGET),
+            dict({n: TRAIN_TICKS for n in names},
+                 grid_update=TRAIN_TICKS, knn_median_depth=TRAIN_TICKS),
+            f"trained weights, {dtype} fleet")
+        _, plain_outs, _ = run_fleet(torch, plain, o, BUDGET)
+        if dtype == "float32":
+            agree, n_boxes, n_poses = compare_outputs(
+                torch, c, outs, plain_outs, per_rig=True)
+            res["fleet_f32"] = dict(
+                launches=got, min_occupancy_i8_agreement_per_rig=agree,
+                boxes_per_tick=n_boxes, poses_per_tick=n_poses)
+        else:
+            res["fleet_bf16"] = dict(launches=got, **compare_bf16(
+                torch, c, outs, plain_outs))
+            # the same detections (the detector's kernels on both sides),
+            # the rest plain: every rig-tick clean (the same boxes), the
+            # orientation front, grid and kNN held to the bars on every rig
+            half = pipeline.Engine(dataclasses.replace(
+                c, **{k: v for k, v in plain_kw.items()
+                      if k != "detector_stem_backend"}),
+                extrinsics=extrinsics, params=nets_t, device=dev)
+            _, half_outs, _ = run_fleet(torch, half, o, BUDGET)
+            r = compare_bf16(torch, c, outs, half_outs)
+            if r["clean_rig_ticks"] != N_RIGS * TRAIN_TICKS:
+                fail(f"trained weights, bf16 fleet: the detector's kernels "
+                     f"gave other boxes on a second engine: {r}")
+            res["fleet_bf16_same_detections"] = r
+            del half, half_outs
+        tick_launches.append(got)
+        del kern, plain, outs, plain_outs
+    torch.cuda.empty_cache()
+    # the bf16 forms on the trained weights against their twins, at their
+    # own bars (the fleet shapes)
+    det_t, net_t = nets_t["detector"], nets_t["orientation"]
+    for fn, args in ((check_stem_bf16, (det_t, fleet_cfg, N_RIGS)),
+                     (check_csp_bf16, (det_t, fleet_cfg, N_RIGS)),
+                     (check_orient_bf16, (net_t, fleet_cfg, N_RIGS,
+                                          BUDGET))):
+        r = fn(torch, dev, *args)
+        res[f"{r['name']}_trained"] = {k: r[k] for k in (
+            "max_abs_err", "bit_equal_share", "ms", "plain_ms")
+            if k in r}
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    phase("train", path="trained_weights", **res)
+    return tick_launches
+
+
+def eval_phases(torch, dev, root, modules, forms, card):
+    """Phase `eval`: train/eval_map.py and train/eval_pose.py on the card
+    with the shipped weights.
+
+    1. mAP: EVAL_SYNTH held-out synth frames (the JAX package's keys) and
+       EVAL_SCENE scene frames through pipeline.detect_batch in chunks of
+       16 (eval_map.detect_images, eval confidence 0.05), on "pallas2"
+       (the stem and CSP kernels, once a chunk) and on the plain backends:
+       equal box counts every frame, mAP@0.5 within 1e-3 of each other,
+       and on both the floors of tests/test_eval_map.py (synth >= 0.95,
+       scene >= 0.85, all ten classes >= 0.5, scene Bike >= 0.72 and
+       Motorbike >= 0.75).
+    2. Poses: eval_pose.evaluate_poses with oracle boxes on grid and kNN
+       "pallas" (each once a frame) against the floors of
+       tests/test_eval_pose.py (PCA at 10 frames: >= 20 matched, median <
+       0.10 m; vision at 5 frames, the refine below the faithful median;
+       the refine at 15 frames: >= 30 matched, median < 0.8 m, p90 < 2.5
+       m).
+
+    Returns the launches of the mAP run on "pallas2" (both sources)."""
+    from grid_vision_tpu_torch import pipeline
+    from grid_vision_tpu_torch.config import GridVisionConfig
+    from grid_vision_tpu_torch.models import weights
+    from grid_vision_tpu_torch.train import eval_map, eval_pose
+    t_phase = time.perf_counter()
+    res = dict(card=card)
+    base = GridVisionConfig(
+        detection_weights_file=os.path.join(root, "weights/detector.npz"),
+        vision_weights_file=os.path.join(root, "weights/orientation.npz"),
+        confidence_threshold=0.05)
+    nets = weights.load_all(base, device=dev)
+    kern_cfg = dataclasses.replace(base, detector_stem_backend="pallas2")
+    map_launches = {name: 0 for name in list(modules) + list(forms)}
+    for source, n in (("synth", EVAL_SYNTH), ("scene", EVAL_SCENE)):
+        t0 = time.perf_counter()
+        images, gts = (eval_map.heldout_synth(n, base, device=dev)
+                       if source == "synth" else
+                       eval_map.heldout_scene(n, base))
+        render_s = time.perf_counter() - t0
+        chunks = -(-n // 16)
+        out = {}
+        for name, c, want in (
+                ("kernels", kern_cfg, dict(detector_stem=chunks,
+                                          detector_csp=chunks)),
+                ("plain", base, {})):
+            params = pipeline.Engine(c, params=nets, device=dev).params
+            t0 = time.perf_counter()
+            preds, got = _counted(
+                modules, forms, lambda: eval_map.detect_images(
+                    params, images, c, device=dev), want,
+                f"eval {source} {name}")
+            seconds = time.perf_counter() - t0
+            r = eval_map.score_detections(preds, gts)
+            out[name] = (preds, r)
+            res[f"{source}_{name}"] = dict(r.to_dict(), seconds=seconds,
+                                           launches=got)
+            if name == "kernels":
+                for k, v in got.items():
+                    map_launches[k] += v
+        (kp, kr), (pp, pr) = out["kernels"], out["plain"]
+        if [len(p[0]) for p in kp] != [len(p[0]) for p in pp]:
+            fail(f"eval {source}: box counts per frame differ between "
+                 "pallas2 and the plain backends")
+        if abs(kr.map50 - pr.map50) > 1e-3:
+            fail(f"eval {source}: mAP {kr.map50} (pallas2) against "
+                 f"{pr.map50} (plain)")
+        for name, r in (("kernels", kr), ("plain", pr)):
+            aps = r.per_class_ap
+            if (r.map50 < (0.95 if source == "synth" else 0.85)
+                    or len(aps) != 10
+                    or any(not ap >= 0.5 for ap in aps.values())
+                    or (source == "scene" and (aps["Bike"] < 0.72
+                                               or aps["Motorbike"] < 0.75))):
+                fail(f"eval {source} ({name}) below the floors of "
+                     f"tests/test_eval_map.py: {r.to_dict()}")
+        res[f"{source}_render_s"] = render_s
+    del nets
+    torch.cuda.empty_cache()
+
+    # 2. poses on the grid and kNN kernels
+    pcfg = GridVisionConfig(
+        vision_weights_file=os.path.join(root, "weights/orientation.npz"),
+        grid_backend="pallas", knn_backend="pallas")
+    poses = {}
+    for name, mode, frames, refine in (("pca", "pca", 10, False),
+                                       ("vision", "vision", 5, False),
+                                       ("vision_refine5", "vision", 5, True),
+                                       ("vision_refine", "vision", 15, True)):
+        r, got = _counted(
+            modules, forms, lambda: eval_pose.evaluate_poses(
+                mode, frames, cfg=pcfg, refine=refine, device=dev),
+            dict(grid_update=frames, knn_median_depth=frames),
+            f"eval-pose {name}")
+        poses[name] = dict(r, launches=got)
+    p, v, r5, r15 = (poses[k] for k in ("pca", "vision", "vision_refine5",
+                                        "vision_refine"))
+    if not (p["n_matched"] >= 20 and p["pos_err_median_m"] < 0.10):
+        fail(f"eval-pose pca below tests/test_eval_pose.py's floor: {p}")
+    if not (r5["n_matched"] > 0
+            and r5["pos_err_median_m"] < v["pos_err_median_m"]):
+        fail(f"eval-pose: the refine does not improve the vision poses: "
+             f"{v} {r5}")
+    if not (r15["n_matched"] >= 30 and r15["pos_err_median_m"] < 0.8
+            and r15["pos_err_p90_m"] < 2.5):
+        fail(f"eval-pose refine below tests/test_eval_pose.py's floor: "
+             f"{r15}")
+    res["poses"] = poses
+    res["seconds"] = time.perf_counter() - t_phase
+    phase("eval", **res)
+    return map_launches
+
+
 def kernel_phase(path: str, r: dict) -> None:
     phase("kernel", path=path,
           **{k: v for k, v in r.items() if k not in ("bound", "call")},
@@ -3372,6 +3819,12 @@ def main() -> None:
     served_launches = serve_phases(torch, dev, root, fleet_cfg, nets, pool,
                                    modules, forms, card)
 
+    # training and evaluation: train steps, the CLI's trainers, the fleet
+    # tick on their weights; mAP and pose quality through the kernels
+    trained_launches = train_phases(torch, dev, root, fleet_cfg, fleet_obs,
+                                    engine.extrinsics, modules, forms, card)
+    eval_launches = eval_phases(torch, dev, root, modules, forms, card)
+
     # 8. the kernels line, then the card, then the device JSON
     launches["carve_update"] = ext_launches["carve_update"]
     engine_launches["carve_update"] = ext_engine_launches["carve_update"]
@@ -3400,6 +3853,9 @@ def main() -> None:
             1 if name in forms else 2 if name == "carve_update" else 0][name]
         kernels[-1]["launches_served"] = served_launches[
             1 if name in forms else 0][name]
+        kernels[-1]["launches_trained_fleet"] = trained_launches[
+            1 if name in forms else 0][name]
+        kernels[-1]["launches_eval_map"] = eval_launches[name]
         for key in ("bound_3xtf32_ms", "bound_old_bytes_ms", "gated_off",
                     "bit_equal_share", "toward_zero_share"):
             if key in r:

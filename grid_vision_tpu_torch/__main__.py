@@ -16,9 +16,17 @@
           fuses every rig into one world grid, --track / --forecast add
           the tracker and predictive occupancy, --selftest feeds the rigs
           from synthetic scenes
+  train   fit the detector (train detector) or the orientation net (train
+          orientation) on the card: batches drawn there, a readback a
+          chunk of --scan steps (train/fit_on_device.py,
+          train/fit_orientation.py)
+  eval    detection quality: COCO-style mAP@0.5 on held-out scenes
+          (train/eval_map.py)
+  eval-pose  3D localization error against scene ground truth
+          (train/eval_pose.py)
 
 Every command runs on the card; --cpu runs it on the CPU. Not ported yet:
-view, demo, train, eval, eval-pose, bench.
+view, demo, bench.
 
 Examples:
   python -m grid_vision_tpu_torch run --config config/grid_vision_cfg.yaml
@@ -28,6 +36,10 @@ Examples:
   python -m grid_vision_tpu_torch play drive.gvr --chunk 8
   python -m grid_vision_tpu_torch serve --selftest --rigs 64 --steps 100
   python -m grid_vision_tpu_torch serve --selftest --shared --rigs 8
+  python -m grid_vision_tpu_torch train detector --steps 1000
+  python -m grid_vision_tpu_torch train orientation
+  python -m grid_vision_tpu_torch eval --source scene --images 64
+  python -m grid_vision_tpu_torch eval-pose --mode both --frames 32
 """
 
 from __future__ import annotations
@@ -37,7 +49,7 @@ import logging
 import sys
 import time
 
-NOT_PORTED = ("view", "demo", "train", "eval", "eval-pose", "bench")
+NOT_PORTED = ("view", "demo", "bench")
 
 
 def _run(argv) -> None:
@@ -212,6 +224,22 @@ def main(argv=None) -> None:
     elif cmd == "serve":
         from .runtime.serve import main as serve_main
         serve_main(rest)
+    elif cmd == "train":
+        if not rest or rest[0] not in ("detector", "orientation"):
+            print("usage: train {detector|orientation} [flags]",
+                  file=sys.stderr)
+            sys.exit(2)
+        if rest[0] == "detector":
+            from .train.fit_on_device import main as fit
+        else:
+            from .train.fit_orientation import main as fit
+        fit(rest[1:])
+    elif cmd == "eval":
+        from .train.eval_map import main as eval_main
+        eval_main(rest)
+    elif cmd == "eval-pose":
+        from .train.eval_pose import main as eval_pose_main
+        eval_pose_main(rest)
     elif cmd in NOT_PORTED:
         print(f"{cmd!r} is not ported to grid_vision_tpu_torch yet; "
               f"`python -m grid_vision_tpu {cmd}` runs the JAX package's",

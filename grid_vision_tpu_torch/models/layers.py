@@ -10,18 +10,27 @@ the activation on the bf16 value (flax's leaky slope rounded to bf16). On
 the card the convs are cuDNN's bf16 convs, whose output is rounded to bf16
 before the BatchNorm.
 
+In train mode (``module.train()``) BatchNorm normalizes with the batch's
+own statistics as flax's train-mode BatchNorm does (below) and keeps the
+new running statistics aside for the trainer (``new_batch_stats``).
+
 Module attribute names follow the flax parameter tree (``Conv_0``,
 ``BatchNorm_0``) so a flax path maps onto a state-dict key one to one
-(models/weights.params_from_jax).
+(models/weights.params_from_jax); ``flax_init`` draws flax's init of
+that tree from the same key.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..utils import prng
 
 BN_EPS = 1e-5                       # flax nn.BatchNorm's default epsilon
 _SLOPE = 0.1                        # leaky (flax rounds it to bf16 there)
@@ -70,20 +79,26 @@ def conv2d_same(x: torch.Tensor, weight: torch.Tensor, stride: int,
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm with flax's parameters: weight (flax ``scale``),
-    bias, running_mean / running_var (flax ``batch_stats``)."""
+    """BatchNorm with flax's parameters: weight (flax ``scale``), bias,
+    running_mean / running_var (flax ``batch_stats``). momentum is flax's:
+    the new running value is momentum * old + (1 - momentum) * batch."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, momentum: float = 0.9):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.momentum = momentum
+        self.new_stats = None
 
     def forward(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
         """BN of x in `dtype` (default x's): f32 as F.batch_norm, bf16 as
-        flax's _normalize in f32, rounded to bf16 once."""
+        flax's _normalize in f32, rounded to bf16 once. In train mode with
+        the batch's statistics (train_forward)."""
         dtype = dtype or x.dtype
+        if self.training:
+            return self.train_forward(x, dtype)
         if dtype != torch.float32:
             shape = (1, -1, 1, 1)
             mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
@@ -93,6 +108,75 @@ class BatchNorm(nn.Module):
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight, self.bias, training=False,
                             eps=BN_EPS)
+
+    def train_forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
+        """flax's train-mode BatchNorm: mean and E[x^2] over (N, H, W) in
+        f32 whatever x's dtype, the biased variance E[x^2] - mean^2 clipped
+        at 0, (x - mean) * (rsqrt(var + eps) * scale) + bias rounded to
+        `dtype` once; gradients flow through the statistics. The new running
+        statistics (momentum * running + (1 - momentum) * batch; the biased
+        variance, not F.batch_norm's unbiased one) wait in new_stats for
+        new_batch_stats."""
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                          min=0.0)
+        m = self.momentum
+        with torch.no_grad():
+            self.new_stats = (m * self.running_mean + (1.0 - m) * mean,
+                              m * self.running_var + (1.0 - m) * var)
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(dtype)
+
+
+def new_batch_stats(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """The running statistics that module's last train-mode forward
+    computed, as state-dict entries (flax's mutated ``batch_stats``); each
+    BatchNorm's pending values are taken (cleared)."""
+    out = {}
+    for name, m in module.named_modules():
+        if isinstance(m, BatchNorm) and m.new_stats is not None:
+            out[f"{name}.running_mean"], out[f"{name}.running_var"] = \
+                m.new_stats
+            m.new_stats = None
+    return out
+
+
+# flax's lecun_normal: variance_scaling(1, "fan_in", "truncated_normal"),
+# whose stddev divides by the stddev of a standard normal cut at +-2
+_TRUNC_STD = np.float32(.87962566103423978)
+
+
+@torch.no_grad()
+def flax_init(module: nn.Module, key: torch.Tensor) -> nn.Module:
+    """flax's init of module's parameter tree from the key given to
+    ``model.init`` (module on key's device): every conv and dense kernel
+    lecun-normal (a truncated normal in flax's (kh, kw, in, out) or
+    (in, out) layout, times sqrt(1 / fan_in) / 0.8796), biases zero,
+    BatchNorm the identity. A parameter's key follows flax's rng tree: the
+    key folded in once with the SHA-1 of its module path and the scope's
+    call counter (LazyRng; a kernel is its scope's first parameter, 1)."""
+    for name, p in module.named_parameters():
+        *mods, leaf = name.split(".")
+        if leaf == "weight" and p.dim() > 1:
+            flax_shape = ((p.shape[2], p.shape[3], p.shape[1], p.shape[0])
+                          if p.dim() == 4 else (p.shape[1], p.shape[0]))
+            var = np.float32(1.0 / math.prod(flax_shape[:-1]))
+            std = float(np.sqrt(var) / _TRUNC_STD)
+            w = prng.truncated_normal(prng.fold_in_str(key, *mods, 1),
+                                      -2.0, 2.0, flax_shape) * std
+            p.copy_(w.permute(3, 2, 0, 1) if p.dim() == 4 else w.T)
+        elif leaf == "weight":                     # BatchNorm scale
+            p.fill_(1.0)
+        else:
+            p.zero_()
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+    return module
 
 
 def fold_bn(bn: BatchNorm) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -112,11 +196,12 @@ class ConvBN(nn.Module):
     equivalent (k*block)-square conv at stride*block on the raw pixels."""
 
     def __init__(self, c_in: int, features: int, kernel: int = 3,
-                 stride: int = 1, act: str = "leaky", block: int = 1):
+                 stride: int = 1, act: str = "leaky", block: int = 1,
+                 momentum: float = 0.9):
         super().__init__()
         self.Conv_0 = nn.Conv2d(c_in * block * block, features, kernel,
                                 stride, bias=False)
-        self.BatchNorm_0 = BatchNorm(features)
+        self.BatchNorm_0 = BatchNorm(features, momentum)
         self.stride = stride
         self.act = act
         self.block = block

@@ -1,4 +1,4 @@
-"""Model weights: flax parameter trees -> the port's modules.
+"""Model weights: flax parameter trees <-> the port's modules.
 
 The JAX package keeps weights as flax trees ``{"params": ..., "batch_stats":
 ...}`` and ships them as flat npz files (weights/detector.npz,
@@ -8,7 +8,10 @@ flax names, so a path maps to a key one to one. Conv kernels go HWIO ->
 OIHW, Dense kernels (in, out) -> Linear weights (out, in), BatchNorm scale
 -> weight and batch_stats mean / var -> running_mean / running_var;
 ``flax_tree`` is the inverse. Reference-format ``.onnx`` detector weights
-import through ``onnx_import`` onto that tree.
+import through ``onnx_import`` onto that tree. ``init_all`` is the JAX
+package's random init (flax's, from the same seed, leaf for leaf) and
+``save_all`` writes the JAX package's npz files, which either package's
+``load_all`` reads.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from torch import nn
 
 from ..config import GridVisionConfig
 from ..device import resolve_device
-from ..utils import checkpoint
+from ..utils import checkpoint, prng
 from . import onnx_import, orientation_net, yolov4_tiny
 
 logger = logging.getLogger("grid_vision_tpu_torch.weights")
@@ -92,21 +95,6 @@ def load_module(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
     return module
 
 
-def _init_random(module: nn.Module, generator: torch.Generator) -> None:
-    """Deterministic random init from `generator`: lecun-normal conv and
-    linear weights (flax's default), zero biases, identity BatchNorm."""
-    with torch.no_grad():
-        for name, p in module.named_parameters():
-            if p.dim() > 1:
-                fan_in = p[0].numel()
-                p.copy_(torch.randn(p.shape, generator=generator)
-                        / np.sqrt(fan_in))
-            elif name.endswith("BatchNorm_0.weight"):
-                p.fill_(1.0)
-            else:
-                p.zero_()
-
-
 def detector_config(cfg: GridVisionConfig) -> yolov4_tiny.YoloConfig:
     return yolov4_tiny.YoloConfig(input_size=cfg.resize)
 
@@ -129,33 +117,73 @@ def _resolve(base_dir: str, rel: str, onnx: bool) -> str:
     return path + ".npz"
 
 
+def _init_keys(seed: int, device) -> Dict[str, torch.Tensor]:
+    """The JAX package's init keys: split(PRNGKey(seed)) -> detector,
+    orientation."""
+    kd, ko = prng.split(prng.prng_key(seed, device=device))
+    return {"detector": kd, "orientation": ko}
+
+
+def _init_net(key: str, cfg: GridVisionConfig, rng: torch.Tensor):
+    if key == "detector":
+        return yolov4_tiny.init_params(rng, detector_config(cfg))
+    return orientation_net.init_params(rng, orientation_config(cfg))
+
+
+def init_all(cfg: GridVisionConfig, seed: int = 0,
+             device="cuda") -> Dict[str, nn.Module]:
+    """{"detector", "orientation"} with the JAX package's random init
+    (grid_vision_tpu/models/weights.init_all: flax's init of each net from
+    split(PRNGKey(seed))), on `device` (the card unless the CPU is asked
+    for), eval mode."""
+    device = resolve_device(device)
+    keys = _init_keys(seed, device)
+    return {k: _init_net(k, cfg, keys[k]).eval() for k in keys}
+
+
+def save_all(params: Dict[str, nn.Module], cfg: GridVisionConfig,
+             base_dir: str = ".") -> None:
+    """Write both nets as the JAX package's flat npz checkpoints at the
+    configured paths (weights/detector.npz and weights/orientation.npz
+    where none is configured; a leading '/' is relative to base_dir, and
+    ".npz" is appended where missing), which either package's load_all
+    reads."""
+    for key, rel, default in (
+            ("detector", cfg.detection_weights_file, "weights/detector.npz"),
+            ("orientation", cfg.vision_weights_file,
+             "weights/orientation.npz")):
+        path = os.path.join(base_dir, (rel or default).lstrip("/"))
+        if not path.endswith(".npz"):
+            path += ".npz"
+        checkpoint.save_npz_tree(path, flax_tree(params[key]))
+
+
 def load_all(cfg: GridVisionConfig, base_dir: str = ".", seed: int = 0,
              device="cuda") -> Dict[str, nn.Module]:
     """{"detector": YoloV4Tiny, "orientation": OrientationNetS2D} on
     `device` (the card unless the CPU is asked for), eval mode. Configured
     npz files load, and a detector file ending in .onnx (the reference
     node's own format) is imported by onnx_import.import_yolov4_tiny; a net
-    with no file configured, or a missing file (with a WARNING), gets a
-    deterministic random init from a torch.Generator seeded with `seed`
-    (not the JAX package's flax init: its random weights differ)."""
+    with no file configured, or a missing file (with a WARNING), gets the
+    JAX package's random init from `seed` (init_all's)."""
     device = resolve_device(device)
-    gen = torch.Generator().manual_seed(seed)
-    nets = {"detector": yolov4_tiny.YoloV4Tiny(detector_config(cfg)),
-            "orientation": orientation_net.OrientationNetS2D(
-                orientation_config(cfg))}
+    keys = _init_keys(seed, device)
+    nets = {}
     for key, rel in (("detector", cfg.detection_weights_file),
                      ("orientation", cfg.vision_weights_file)):
         path = _resolve(base_dir, rel, key == "detector") if rel else None
         if path is not None and os.path.exists(path):
+            net = (yolov4_tiny.YoloV4Tiny(detector_config(cfg))
+                   if key == "detector" else
+                   orientation_net.OrientationNetS2D(orientation_config(cfg)))
             if path.endswith(".onnx"):
-                tree = onnx_import.import_yolov4_tiny(
-                    path, flax_tree(nets[key]))
+                tree = onnx_import.import_yolov4_tiny(path, flax_tree(net))
             else:
                 tree = checkpoint.load_npz_tree(path)
-            load_module(nets[key], tree)
+            nets[key] = load_module(net, tree).to(device)
         else:
             if rel:
                 logger.warning("configured %s weights %r not found; using "
                                "random init", key, rel)
-            _init_random(nets[key], gen)
-    return {k: m.to(device).eval() for k, m in nets.items()}
+            nets[key] = _init_net(key, cfg, keys[key])
+    return {k: m.eval() for k, m in nets.items()}

@@ -7,7 +7,9 @@ normalized xyxy and confs (2535, 10) = sigmoid(obj) * sigmoid(cls), the
 13-grid head first, anchor-major. Public inputs are NHWC like the JAX
 package; the convs run NCHW inside. Module names follow the flax tree
 (ConvBN_0..9, CSPBlock_0..2, head_13, head_26) so shipped npz weights load
-key for key.
+key for key, and ``init_params`` draws flax's init. In train mode
+(``model.train()``) every BatchNorm uses the batch's statistics with the
+JAX package's momentum of 0.9 (models/layers.BatchNorm).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import ConvBN, conv2d
+from .layers import ConvBN, conv2d, flax_init
 
 # darknet yolov4-tiny anchors (pixels at 416); head masks (3,4,5)/(1,2,3).
 ANCHORS = np.array([[10, 14], [23, 27], [37, 58],
@@ -32,6 +34,9 @@ SCALE_XY = 1.05
 class YoloConfig:
     num_classes: int = 10
     input_size: int = 416
+    # the trainer's compute dtype (the JAX package's YoloConfig default);
+    # the serving pipeline passes its own (GridVisionConfig.compute_dtype)
+    compute_dtype: torch.dtype = torch.bfloat16
 
     @property
     def num_anchors_total(self) -> int:
@@ -88,6 +93,11 @@ class YoloV4Tiny(nn.Module):
         self.ConvBN_8 = ConvBN(256, 128, 1)
         self.ConvBN_9 = ConvBN(384, 256, 3)
         self.head_26 = nn.Conv2d(256, n_out, 1)
+        # each head's (3, 2) anchors on the net's device, so the decode
+        # copies nothing from the host (a constant of the net: not saved)
+        for name, mask in zip(("anchors_13", "anchors_26"), HEAD_MASKS):
+            self.register_buffer(name, torch.as_tensor(ANCHORS[list(mask)]),
+                                 persistent=False)
 
     def front(self, x: torch.Tensor) -> torch.Tensor:
         """ConvBN_2 + CSPBlock_0 + the first 2x2 max pool, NCHW: what the
@@ -123,7 +133,7 @@ class YoloV4Tiny(nn.Module):
         return conv2d(x, conv.weight, conv.bias).float()
 
 
-def decode_head(raw: torch.Tensor, anchors: np.ndarray, input_size: int,
+def decode_head(raw: torch.Tensor, anchors: torch.Tensor, input_size: int,
                 num_classes: int):
     """One head (B, H, W, 3*(5+C)) -> boxes (B, 3*H*W, 4) normalized xyxy
     and confs (B, 3*H*W, C), flattened anchor-major then row-major."""
@@ -137,9 +147,8 @@ def decode_head(raw: torch.Tensor, anchors: np.ndarray, input_size: int,
     s = SCALE_XY
     bx = (torch.sigmoid(raw[..., 0]) * s - 0.5 * (s - 1.0) + grid_x) / w
     by = (torch.sigmoid(raw[..., 1]) * s - 0.5 * (s - 1.0) + grid_y) / h
-    an = torch.as_tensor(anchors, device=dev)
-    an_w = an[:, 0][None, :, None, None] / input_size
-    an_h = an[:, 1][None, :, None, None] / input_size
+    an_w = anchors[:, 0][None, :, None, None] / input_size
+    an_h = anchors[:, 1][None, :, None, None] / input_size
     bw = torch.exp(raw[..., 2]) * an_w
     bh = torch.exp(raw[..., 3]) * an_h
     boxes = torch.stack([bx - bw / 2, by - bh / 2, bx + bw / 2, by + bh / 2],
@@ -149,13 +158,22 @@ def decode_head(raw: torch.Tensor, anchors: np.ndarray, input_size: int,
     return boxes.reshape(b, n, 4), confs.reshape(b, n, num_classes)
 
 
-def decode(head1: torch.Tensor, head2: torch.Tensor, cfg: YoloConfig):
-    """Both heads -> (B, N, 4) boxes + (B, N, C) confs, 13-grid first."""
-    b1, c1 = decode_head(head1, ANCHORS[list(HEAD_MASKS[0])],
-                         cfg.input_size, cfg.num_classes)
-    b2, c2 = decode_head(head2, ANCHORS[list(HEAD_MASKS[1])],
-                         cfg.input_size, cfg.num_classes)
+def decode(model: YoloV4Tiny, head1: torch.Tensor, head2: torch.Tensor):
+    """Both heads of `model` -> (B, N, 4) boxes + (B, N, C) confs, 13-grid
+    first."""
+    cfg = model.cfg
+    b1, c1 = decode_head(head1, model.anchors_13, cfg.input_size,
+                         cfg.num_classes)
+    b2, c2 = decode_head(head2, model.anchors_26, cfg.input_size,
+                         cfg.num_classes)
     return torch.cat([b1, b2], dim=1), torch.cat([c1, c2], dim=1)
+
+
+def init_params(key: torch.Tensor, cfg: YoloConfig = YoloConfig()
+                ) -> YoloV4Tiny:
+    """flax's ``YoloV4Tiny(cfg).init(key, ...)`` as a module on key's
+    device (layers.flax_init: the same tree, leaf for leaf)."""
+    return flax_init(YoloV4Tiny(cfg).to(key.device), key)
 
 
 def forward(model: YoloV4Tiny, images: torch.Tensor,
@@ -165,4 +183,4 @@ def forward(model: YoloV4Tiny, images: torch.Tensor,
     -> (boxes (B, N, 4), confs (B, N, C)) in f32; the net computes in
     `dtype`."""
     h1, h2 = model(images.to(dtype), stem_external, front_external)
-    return decode(h1, h2, model.cfg)
+    return decode(model, h1, h2)

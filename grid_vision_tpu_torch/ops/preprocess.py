@@ -38,6 +38,14 @@ def _axis_resize_weights(n_in: int, n_out: int) -> np.ndarray:
     return (w * ok[:, None]).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _device_resize_weights(n_in: int, n_out: int,
+                           device: torch.device) -> torch.Tensor:
+    """_axis_resize_weights on `device`, copied there once (a host copy in
+    a loop would synchronize the card)."""
+    return torch.as_tensor(_axis_resize_weights(n_in, n_out), device=device)
+
+
 def einsum_in(dtype, equation: str, a: torch.Tensor, b: torch.Tensor,
               out_dtype=None) -> torch.Tensor:
     """einsum of a and b rounded to `dtype`, summed in f32, returned in
@@ -59,26 +67,29 @@ def einsum_in(dtype, equation: str, a: torch.Tensor, b: torch.Tensor,
 
 def preprocess_detector_image(image: torch.Tensor, size: int,
                               compute_dtype=torch.float32) -> torch.Tensor:
-    """(H, W, 3) float RGB in [0, 255] -> (size, size, 3) in [0, 1]: two
-    interpolation matmuls against the constant weight matrices (the longer
-    x axis contracted first), then /255. In bf16 the frame and the weights
-    are rounded to bf16 and each product's result (f32 sums) too, as the
-    JAX package's bf16 einsums do."""
-    h, w, _ = image.shape
-    wy = torch.as_tensor(_axis_resize_weights(h, size), device=image.device)
-    wx = torch.as_tensor(_axis_resize_weights(w, size), device=image.device)
+    """(..., H, W, 3) float RGB in [0, 255] -> (..., size, size, 3) in
+    [0, 1], a frame or a batch of frames: two interpolation matmuls against
+    the constant weight matrices (the longer x axis contracted first), then
+    /255. In bf16 the frame and the weights are rounded to bf16 and each
+    product's result (f32 sums) too, as the JAX package's bf16 einsums
+    do."""
+    h, w, _ = image.shape[-3:]
+    wy = _device_resize_weights(h, size, image.device)
+    wx = _device_resize_weights(w, size, image.device)
     if compute_dtype != torch.float32:
-        tmp = einsum_in(compute_dtype, "jx,yxc->yjc", wx, image,
+        tmp = einsum_in(compute_dtype, "jx,...yxc->...yjc", wx, image,
                         compute_dtype)
-        resized = einsum_in(compute_dtype, "iy,yjc->ijc", wy, tmp,
+        resized = einsum_in(compute_dtype, "iy,...yjc->...ijc", wy, tmp,
                             compute_dtype)
         # by a tensor: a CUDA tensor divided by a Python scalar is
         # multiplied by its reciprocal
-        return resized / torch.full((), 255.0, dtype=compute_dtype,
-                                    device=image.device)
-    tmp = torch.einsum("jx,yxc->yjc", wx, image.float())
-    resized = torch.einsum("iy,yjc->ijc", wy, tmp)
-    return resized / 255.0
+        return (resized / torch.full((), 255.0, dtype=compute_dtype,
+                                     device=image.device)).contiguous()
+    tmp = torch.einsum("jx,...yxc->...yjc", wx, image.float())
+    resized = torch.einsum("iy,...yjc->...ijc", wy, tmp)
+    # a batch comes out of the einsum frame-minor: the nets' convs take
+    # frames laid out one after another
+    return (resized / 255.0).contiguous()
 
 
 def _bilinear_sample_axis(length_in: int, start, extent, n_out: int):

@@ -1124,3 +1124,139 @@ def test_multi_fleet_streams_equal_fleets_alone(cuda_device):
             assert torch.equal(s.log_odds, rs.log_odds)
             assert torch.equal(o.occupancy_i8, ro.occupancy_i8)
             assert torch.equal(o.boxes.valid, ro.boxes.valid)
+
+
+# --- training and evaluation on the card (train/) ---------------------------
+
+def _sync_free(torch_mod):
+    """A context that fails on any host sync of the card."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        torch_mod.cuda.synchronize()
+        torch_mod.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch_mod.cuda.set_sync_debug_mode("default")
+    return ctx()
+
+
+@pytest.mark.cuda
+def test_render_and_targets_on_card_equal_cpu(cuda_device):
+    """The rendered batch drawn on the card: boxes, labels, valid and the
+    dense targets bit-equal to the CPU's, the pixels to 1e-3; no host
+    sync once the device constants are there."""
+    from grid_vision_tpu_torch.models.yolov4_tiny import YoloConfig
+    from grid_vision_tpu_torch.train import synth_data
+    from grid_vision_tpu_torch.utils import prng
+    cfg = YoloConfig(input_size=128)
+    key, card_key = prng.prng_key(3), prng.prng_key(3, device=cuda_device)
+    synth_data.make_batch_on_device(card_key, 2, cfg, (96, 128))
+    with _sync_free(torch):
+        got = synth_data.make_batch_on_device(card_key, 6, cfg, (96, 128))
+    want = synth_data.make_batch_on_device(key, 6, cfg, (96, 128))
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=1e-5)
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g.cpu(), w)
+    img, boxes, labels, valid = synth_data.render_image(
+        prng.split(card_key, 4), 96, 128)
+    ref = synth_data.render_image(prng.split(key, 4), 96, 128)
+    assert torch.equal(boxes.cpu(), ref[1])
+    assert torch.equal(labels.cpu(), ref[2])
+    assert torch.equal(valid.cpu(), ref[3])
+    torch.testing.assert_close(img.cpu(), ref[0], rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["yolo", "multibin"])
+def test_train_steps_on_card_without_host_sync(cuda_device, kind):
+    """f32 on the card against the CPU from the same weights and batch: one
+    train-mode forward and backward, the loss and aux to rtol 1e-5, the
+    new batch statistics to atol 1e-5 and every gradient to atol 1e-5 /
+    rtol 1e-4 (the bars of tests/test_torch_train_losses.py); then three
+    train steps, the second and third under set_sync_debug_mode("error"),
+    their losses to rtol 1e-4 of the CPU's."""
+    import copy
+    from grid_vision_tpu_torch.models.orientation_net import OrientationConfig
+    from grid_vision_tpu_torch.models.yolov4_tiny import YoloConfig
+    from grid_vision_tpu_torch.train import fit_orientation, synth_data
+    from grid_vision_tpu_torch.train import trainer
+    from grid_vision_tpu_torch.utils import prng
+    if kind == "yolo":
+        cfg = YoloConfig(input_size=64, compute_dtype=torch.float32)
+        batch = synth_data.make_batch_on_device(prng.prng_key(1), 4, cfg,
+                                                (96, 128))
+    else:
+        cfg = OrientationConfig(input_size=32, width=8, s2d_fold=False,
+                                compute_dtype=torch.float32)
+        crops, tgt_bin, off = fit_orientation.render_crop(
+            prng.split(prng.prng_key(1), 8), 32)
+        batch = (crops, torch.zeros((8, 3)), tgt_bin, off)
+    schedule = trainer.warmup_cosine_decay_schedule(0.0, 1e-3, 1, 10)
+    tx = trainer.AdamW(schedule, weight_decay=1e-5)
+    cpu_state = trainer.init_train_state(kind, cfg, tx, prng.prng_key(0))
+    loss_fn = trainer._loss_fn(kind, cfg)
+
+    grads = []
+    for dev in ("cpu", cuda_device):
+        model = copy.deepcopy(cpu_state.model).to(dev)
+        loss, (mutated, aux) = loss_fn(model, *[x.to(dev) for x in batch],
+                                       train=True)
+        loss.backward()
+        grads.append((loss.item(), {k: v.item() for k, v in aux.items()},
+                      {k: v.cpu() for k, v in mutated.items()},
+                      {k: p.grad.cpu() for k, p in model.named_parameters()}))
+    (cl, caux, cstats, cgrad), (gl, gaux, gstats, ggrad) = grads
+    np.testing.assert_allclose(gl, cl, rtol=1e-5)
+    assert gaux.keys() == caux.keys()
+    for k, v in caux.items():
+        np.testing.assert_allclose(gaux[k], v, rtol=1e-5, atol=1e-7,
+                                   err_msg=k)
+    assert gstats.keys() == cstats.keys()
+    for k, v in cstats.items():
+        torch.testing.assert_close(gstats[k], v, rtol=0, atol=1e-5, msg=k)
+    assert ggrad.keys() == cgrad.keys()
+    for k, v in cgrad.items():
+        torch.testing.assert_close(ggrad[k], v, rtol=1e-4, atol=1e-5, msg=k)
+
+    runs = []
+    for dev in ("cpu", cuda_device):
+        tx = trainer.AdamW(schedule, weight_decay=1e-5)
+        state = trainer.init_train_state(kind, cfg, tx,
+                                         prng.prng_key(0, device=dev))
+        step = trainer.make_train_step(kind, cfg, tx)
+        b = [x.to(dev) for x in batch]
+        losses = []
+        for i in range(3):
+            if dev == "cpu" or i == 0:
+                state, m = step(state, *b)
+            else:
+                with _sync_free(torch):
+                    state, m = step(state, *b)
+            losses.append(m["loss"])
+        runs.append([x.item() for x in losses])
+    np.testing.assert_allclose(runs[1], runs[0], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_eval_map_on_card_equals_cpu(cuda_device):
+    """evaluate_detector with the shipped weights on 8 synth frames: the
+    card's pallas2 path (stem and CSP kernels) and its plain path give the
+    CPU's mAP@0.5 within 1e-3 and its prediction count within 2 (at the
+    eval confidence of 0.05 a box near it may cross on another device's
+    rounding)."""
+    from grid_vision_tpu_torch.train import eval_map
+    cfg = GridVisionConfig(detection_weights_file="weights/detector.npz")
+    res = {}
+    for dev, backend in (("cpu", "xla"), (cuda_device, "xla"),
+                         (cuda_device, "pallas2")):
+        c = dataclasses.replace(cfg, detector_stem_backend=backend)
+        nets = weights.load_all(c, device=dev)
+        res[str(dev), backend] = eval_map.evaluate_detector(
+            nets, c, n_images=8, source="synth")
+    ref = res["cpu", "xla"]
+    for key, r in res.items():
+        assert abs(r.n_pred - ref.n_pred) <= 2, (key, r.to_dict())
+        assert abs(r.map50 - ref.map50) <= 1e-3, (key, r.to_dict())

@@ -165,6 +165,16 @@ def test_import_pulls_in_no_jax():
             " grid_vision_tpu_torch.io.font,"
             " grid_vision_tpu_torch.ops.tracking,"
             " grid_vision_tpu_torch.train.eval_tracking,"
+            " grid_vision_tpu_torch.train.targets,"
+            " grid_vision_tpu_torch.train.synth_data,"
+            " grid_vision_tpu_torch.train.losses,"
+            " grid_vision_tpu_torch.train.trainer,"
+            " grid_vision_tpu_torch.train.scene_dataset,"
+            " grid_vision_tpu_torch.train.fit_on_device,"
+            " grid_vision_tpu_torch.train.fit_orientation,"
+            " grid_vision_tpu_torch.train.fit_synthetic,"
+            " grid_vision_tpu_torch.train.eval_map,"
+            " grid_vision_tpu_torch.train.eval_pose,"
             " grid_vision_tpu_torch.parallel,"
             " grid_vision_tpu_torch.runtime.serve,"
             " grid_vision_tpu_torch.__main__; bad = [m for m in sys.modules if m in"
