@@ -111,6 +111,18 @@ device JSON follows. Phases, each printing one line:
    the mailboxes, every published grid against Fleet.__call__, the
    kernels once a served tick, served rig-frames/s beside Engine.fleet's,
    the tracked, forecast and hub modes, the `serve` CLI in a subprocess);
+then the CLI's last three commands and the TF32 check: phase `bench`
+   (bench_phases: a chunk of the port's bench at 64 rigs, at bench.py's
+   defaults and with GV_BENCH_STEM=pallas2 GV_BENCH_ORIENT_STEM=pallas,
+   its digest and grid bit-equal to the same perturbed Obs through
+   Engine.fleet and its kernels once a tick; `python -m
+   grid_vision_tpu_torch bench` in both modes with GV_BENCH_BUDGET_S=12,
+   their rates beside fleet_bf16's), phase `cli` (cli_phase: `demo` in
+   both modes, the net run's last grid equal to replay's; `run
+   --publish` then `view --http`: the PNG equal to the session's last
+   frame, one /grid.gvd record) and phase `tf32_defaults` (tf32_phase:
+   the f32 ticks of a process with torch's default flags bit-equal to
+   this process's, and `run --steps 3` under those defaults);
 8. a `kernels` JSON line for every ported kernel and form (launches: the
    fleet run's counts, the extension fleet run's for the carve kernel, the
    bf16 fleet run's for the bf16 forms, `launches_pca_fleet`, the PCA
@@ -118,8 +130,9 @@ device JSON follows. Phases, each printing one line:
    per-frame packed run's (f32; bf16 for the bf16 forms; extension for the
    carve kernel), `launches_tracked`, the tracked fleet run's (f32;
    bf16 for the bf16 forms; the tracked extension run's for the carve
-   kernel), and `launches_served`, the served fleet run's (f32; bf16 for
-   the bf16 forms); for the
+   kernel), `launches_served`, the served fleet run's (f32; bf16 for
+   the bf16 forms), and `launches_bench`, a bench chunk's (8 ticks) by
+   mode; for the
    tensor-core kernels also `bound_3xtf32_ms`, the bound with three TF32
    products per f32 product at the TF32 rate; for them and the kNN kernel
    `device_ms`, their device time per profiled fleet tick, and
@@ -3316,6 +3329,365 @@ def eval_phases(torch, dev, root, modules, forms, card):
     return map_launches
 
 
+def path_configs(gv):
+    """The single-rig path's configuration at full width (shipped weights,
+    stem / grid / kNN kernels) and the fleet configuration of
+    bench.py:240-245 in f32 (stem "pallas2", orientation "pallas")."""
+    cfg = gv.GridVisionConfig(
+        detection_weights_file="weights/detector.npz",
+        vision_weights_file="weights/orientation.npz",
+        detector_stem_backend="pallas", grid_backend="pallas",
+        knn_backend="pallas")
+    fleet_cfg = dataclasses.replace(
+        cfg, max_points=8192, max_static_depth=16,
+        detector_stem_backend="pallas2", orientation_stem_backend="pallas")
+    return cfg, fleet_cfg
+
+
+def tf32_ticks(torch, root) -> dict:
+    """One f32 single-rig Engine tick (seed-0 scene at t = 0) and one
+    N_RIGS-rig f32 Engine.fleet tick (the fleet pool's tick 0, budget
+    BUDGET) under whatever TF32 flags this process has: both nets' heads
+    (every output of yolov4_tiny.forward and orientation_net.forward in
+    the tick) and the tick's outputs, as host arrays."""
+    import numpy as np
+    import grid_vision_tpu_torch as gv
+    from grid_vision_tpu_torch import pipeline
+    from grid_vision_tpu_torch.demo import default_extrinsics
+    from grid_vision_tpu_torch.io.scene import SyntheticScene
+    from grid_vision_tpu_torch.models import orientation_net, yolov4_tiny
+    from grid_vision_tpu_torch.runtime.stream import FleetPool, obs_from_scene
+    dev = torch.device("cuda", 0)
+    cfg, fleet_cfg = path_configs(gv)
+    engine = pipeline.Engine(cfg, extrinsics=default_extrinsics(dev),
+                             device=dev, base_dir=root)
+    fleet = pipeline.Engine(fleet_cfg, extrinsics=engine.extrinsics,
+                            params={k: engine.params[k]
+                                    for k in ("detector", "orientation")},
+                            device=dev)
+    scene = SyntheticScene(cfg, seed=0, n_ground=15000)
+    scene.add_default_traffic()
+    scene.add_default_statics()
+    obs = obs_from_scene(scene, 0.0, cfg, dev)
+    fobs = FleetPool(fleet_cfg, N_RIGS, device=dev).obs(0)
+    heads = []
+    nets = [(yolov4_tiny, yolov4_tiny.forward),
+            (orientation_net, orientation_net.forward)]
+
+    def recorded(fn, tag):
+        def forward(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            heads.extend((f"{tag}{len(heads)}", t) for t in out)
+            return out
+        return forward
+
+    res = {}
+    try:
+        for mod, fn in nets:
+            mod.forward = recorded(fn, mod.__name__.rsplit(".", 1)[-1])
+        for tag, run in (
+                ("single", lambda: engine(engine.init_state(), obs)),
+                ("fleet", lambda: fleet.fleet(fleet.init_states(N_RIGS),
+                                              fobs, BUDGET))):
+            heads.clear()
+            _, out = run()
+            for name, t in heads:
+                res[f"{tag}/head/{name}"] = t
+            for name, t in (("occupancy_i8", out.occupancy_i8),
+                            ("box_xyxy", out.boxes.xyxy),
+                            ("box_confidence", out.boxes.confidence),
+                            ("box_valid", out.boxes.valid),
+                            ("pose_position", out.poses.position),
+                            ("pose_valid", out.poses.valid),
+                            ("static_depths", out.static_depths)):
+                res[f"{tag}/{name}"] = t
+    finally:
+        for mod, fn in nets:
+            mod.forward = fn
+    torch.cuda.synchronize()
+    return {k: np.asarray(v.detach().float().cpu() if v.is_floating_point()
+                          else v.detach().cpu()) for k, v in res.items()}
+
+
+def compare_tf32(np, got: dict, ref: dict) -> dict:
+    """Whether `got`'s ticks (tf32_ticks) are bit-equal to `ref`'s, and the
+    heads' max |diff| (what a failure prints)."""
+    if set(got) != set(ref):
+        fail(f"tf32 ticks hold other arrays: {sorted(set(got) ^ set(ref))}")
+    heads = [k for k in ref if "/head/" in k]
+    return dict(
+        bit_equal=all(np.array_equal(got[k], ref[k],
+                                     equal_nan=ref[k].dtype.kind == "f")
+                      for k in ref),
+        heads_max_abs_diff=max(float(np.abs(got[k] - ref[k]).max())
+                               for k in heads))
+
+
+def tf32_child(root, out_path):
+    """Run tf32_ticks in a fresh process that leaves torch's flags at their
+    defaults and return its arrays and its cuDNN conv setting."""
+    import numpy as np
+    cmd = [sys.executable, os.path.join(root, "chip_smoke.py"),
+           "--tf32-ticks", out_path]
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=root,
+                          timeout=600)
+    if proc.returncode != 0:
+        fail(f"tf32 child: rc {proc.returncode}, stderr "
+             f"{proc.stderr[-3000:]!r}")
+    with np.load(out_path) as z:
+        return dict(z), proc.stdout.strip()
+
+
+def tf32_main(torch, root, out_path) -> None:
+    """--tf32-ticks OUT: write tf32_ticks to OUT (.npz) under torch's
+    default flags (the child of tf32_phase)."""
+    import numpy as np
+    sys.path.insert(0, root)
+    np.savez(out_path, **tf32_ticks(torch, root))
+    print(json.dumps({"cudnn_conv_tf32": _conv_tf32(torch)}))
+
+
+def _conv_tf32(torch):
+    """cuDNN's f32 conv setting as this process left it."""
+    conv = getattr(torch.backends.cudnn, "conv", None)
+    if conv is not None and hasattr(conv, "fp32_precision"):
+        return conv.fp32_precision
+    return torch.backends.cudnn.allow_tf32
+
+
+def tf32_phase(torch, root, card) -> None:
+    """Phase `tf32_defaults`: tf32_ticks in a process that leaves every
+    torch flag at its default, held bit-equal to this process's (flags
+    off): the port's f32 convs run in IEEE f32 whatever the caller's
+    flags (device.ieee_convs); then the `run` CLI under defaults."""
+    import numpy as np
+    t0 = time.perf_counter()
+    out_dir = os.path.join(root, "build", "chip_smoke_tf32")
+    os.makedirs(out_dir, exist_ok=True)
+    child, flags = tf32_child(root, os.path.join(out_dir, "defaults.npz"))
+    rep = compare_tf32(np, child, tf32_ticks(torch, root))
+    if not rep["bit_equal"]:
+        fail(f"f32 ticks under torch's default flags differ: {rep}")
+    proc = subprocess.run(
+        [sys.executable, "-m", "grid_vision_tpu_torch", "run", "--steps",
+         "3"], capture_output=True, text=True, cwd=root, timeout=600)
+    if proc.returncode != 0 or "replayed 3 steps" not in proc.stderr:
+        fail(f"run under default flags: rc {proc.returncode}, stderr "
+             f"{proc.stderr[-2000:]!r}")
+    phase("tf32_defaults", card=card, child=json.loads(flags),
+          parent_conv_tf32=_conv_tf32(torch), run_cli_rc=proc.returncode,
+          seconds=time.perf_counter() - t0, **rep)
+
+
+BENCH_CHECK_RIGS = N_RIGS
+BENCH_BUDGET_S = 12
+
+
+def bench_phases(torch, dev, root, modules, forms, card, fleet_bf16_rate):
+    """Phase `bench`: the port's bench (grid_vision_tpu_torch/bench.py).
+
+    1. In this process, for bench.py's defaults and for the three bf16
+       kernels (GV_BENCH_STEM=pallas2 GV_BENCH_ORIENT_STEM=pallas): one
+       chunk (8 ticks) at BENCH_CHECK_RIGS rigs, counters from zero, its
+       digest and final grid bit-equal to the same 8 perturbed Obs through
+       Engine.fleet; the bf16 stem (and with pallas2 / pallas the CSP stage
+       and the orientation front) once a tick, nothing else.
+    2. `python -m grid_vision_tpu_torch bench` in a subprocess for each
+       mode with GV_BENCH_BUDGET_S=BENCH_BUDGET_S (128 rigs): exit 0 and a
+       last stdout line {"metric": "fused_frames_per_sec", "value",
+       "unit"}; the rates beside fleet_bf16's rig-frames/s.
+
+    Returns the launches a chunk by mode."""
+    import numpy as np
+    from grid_vision_tpu_torch import bench, pipeline
+    from grid_vision_tpu_torch.utils import prng
+    t_phase = time.perf_counter()
+    res, launches = dict(card=card), {}
+    for mode, env in bench.MODES.items():
+        cfg, _, scan, _, budget = bench.bench_config(
+            dict(env, GV_BENCH_RIGS=str(BENCH_CHECK_RIGS)))
+        eng = pipeline.Engine(cfg, device=dev, base_dir=root)
+        pool = bench.build_pool(cfg, BENCH_CHECK_RIGS, dev)
+        key = prng.prng_key(100, device=dev)
+        want = {"detector_stem_bf16": scan}
+        if mode == "pallas2_pallas":
+            want.update(detector_csp_bf16=scan, orient_front_bf16=scan)
+        (states, acc, _), got = _counted(
+            modules, forms, lambda: bench.run_chunk(
+                eng.params, eng.init_states(BENCH_CHECK_RIGS), pool,
+                eng.extrinsics, cfg, key, scan, budget), want,
+            f"bench chunk ({mode})")
+        torch.cuda.synchronize()
+        launches[mode] = got
+        _, sub = prng.split(key)
+        bright, jitter = bench.draw_perturbations(sub, scan,
+                                                  BENCH_CHECK_RIGS)
+        ref_states = eng.init_states(BENCH_CHECK_RIGS)
+        ref = torch.zeros((), device=dev)
+        for t in range(scan):
+            ref_states, out = eng.fleet(ref_states, bench.apply_perturbation(
+                pool, bright[t], jitter[t]), budget)
+            ref = ref + bench.output_digest(out)
+        digest, ref_digest = acc.item(), ref.item()
+        if not (np.array_equal(np.float32(digest), np.float32(ref_digest),
+                               equal_nan=True)
+                and torch.equal(states.log_odds, ref_states.log_odds)):
+            fail(f"bench chunk ({mode}): digest {digest} / grid differ from "
+                 f"Engine.fleet's ({ref_digest})")
+        res[mode] = dict(rigs=BENCH_CHECK_RIGS, ticks=scan,
+                         launches_per_chunk=got,
+                         digest=digest if math.isfinite(digest) else
+                         str(digest), digest_finite=math.isfinite(digest),
+                         equals_engine_fleet=True)
+        del eng, pool, states, ref_states, out
+        torch.cuda.empty_cache()
+    for mode, env in bench.MODES.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "grid_vision_tpu_torch", "bench"],
+            capture_output=True, text=True, cwd=root, timeout=900,
+            env=dict(os.environ, GV_BENCH_BUDGET_S=str(BENCH_BUDGET_S),
+                     **env))
+        lines = proc.stdout.strip().splitlines()
+        try:
+            doc = json.loads(lines[-1])
+            ok = (doc["metric"] == "fused_frames_per_sec"
+                  and doc["unit"] == "frames/s"
+                  and float(doc["value"]) > 0)
+        except (IndexError, ValueError, KeyError, TypeError):
+            ok = False
+        if proc.returncode != 0 or not ok:
+            fail(f"bench CLI ({mode}): rc {proc.returncode}, stdout "
+                 f"{proc.stdout[-500:]!r}, stderr {proc.stderr[-2000:]!r}")
+        res[mode].update(cli=doc, cli_seconds=time.perf_counter() - t0,
+                         cli_log=proc.stderr.strip().splitlines()[-3:])
+    res["fleet_bf16_rig_frames_per_s"] = fleet_bf16_rate
+    res["seconds"] = time.perf_counter() - t_phase
+    phase("bench", **res)
+    return launches
+
+
+def _unlink_session(name: str) -> None:
+    from grid_vision_tpu_torch.runtime import native, session
+    for ch in (session.GRID_CHANNEL, session.MARKERS_CHANNEL,
+               session.OVERLAY_CHANNEL, session.FORECAST_CHANNEL,
+               session.CLOUDVIZ_CHANNEL):
+        path = native.shm_path(name, ch)
+        if os.path.exists(path):
+            os.remove(path)
+
+
+def cli_phase(torch, dev, root, card) -> None:
+    """Phase `cli`: the CLI's demo and view on the card.
+
+    1. `demo --mode pca --det oracle --steps 6` and `demo --mode vision
+       --det net --steps 6`: exit 0, their PGM / PPM / markers files at
+       ticks 0 and 5; the net run's last grid (grid_005.pgm) equals the
+       PGM of the last tick of runtime/stream.replay on the same scene,
+       weights and configuration in this process.
+    2. `run --steps 6 --publish NAME`, then `view --session NAME --http
+       PORT --seconds 5`: / and /grid.png answer, one /grid.gvd record
+       decodes (gvd_client) to the session's grid, the PNG's pixels equal
+       grid_frame_rgb(the session's last frame, scale=2); every subprocess
+       exits 0."""
+    import socket
+    import urllib.request
+    from grid_vision_tpu_torch import demo, pipeline
+    from grid_vision_tpu_torch.config import GridVisionConfig
+    from grid_vision_tpu_torch.io import png
+    from grid_vision_tpu_torch.io.scene import SyntheticScene
+    from grid_vision_tpu_torch.runtime import native, session, viewer
+    from grid_vision_tpu_torch.runtime.stream import replay
+    t_phase = time.perf_counter()
+    res = dict(card=card)
+    out_root = os.path.join(root, "build", "chip_smoke_cli")
+
+    def cli(*args, timeout=600):
+        proc = subprocess.run([sys.executable, "-m", "grid_vision_tpu_torch",
+                               *args], capture_output=True, text=True,
+                              cwd=root, timeout=timeout)
+        if proc.returncode != 0:
+            fail(f"CLI {' '.join(args)}: rc {proc.returncode}, stderr "
+                 f"{proc.stderr[-2000:]!r}")
+        return proc
+
+    for mode, det in (("pca", "oracle"), ("vision", "net")):
+        out = os.path.join(out_root, f"demo_{mode}_{det}")
+        t0 = time.perf_counter()
+        proc = cli("demo", "--mode", mode, "--det", det, "--steps", "6",
+                   "--out", out)
+        files = sorted(os.listdir(out))
+        want = [f"{kind}_{i:03d}.{ext}" for kind, ext in (
+            ("dets", "ppm"), ("grid", "pgm"), ("markers", "json"))
+            for i in (0, 5)]
+        if files != sorted(want):
+            fail(f"demo {mode}/{det} wrote {files}")
+        res[f"demo_{mode}_{det}"] = dict(
+            seconds=time.perf_counter() - t0,
+            summary=proc.stdout.strip().splitlines())
+    cfg = GridVisionConfig(use_vision_orientation=True, max_points=8192,
+                           detection_weights_file="/weights/detector.npz",
+                           vision_weights_file="/weights/orientation.npz")
+    eng = pipeline.Engine(cfg, extrinsics=demo.default_extrinsics(dev),
+                          seed=0, device=dev, base_dir=root)
+    scene = SyntheticScene(cfg, seed=0)
+    scene.add_default_traffic()
+    last = {}
+    replay(eng, scene, n_steps=6, hz=10.0,
+           on_step=lambda i, s, o: last.update(out=o))
+    ref_pgm = os.path.join(out_root, "replay_005.pgm")
+    native.write_pgm(ref_pgm, last["out"].occupancy_i8.cpu().numpy())
+    with open(ref_pgm, "rb") as f, open(os.path.join(
+            out_root, "demo_vision_net", "grid_005.pgm"), "rb") as g:
+        if f.read() != g.read():
+            fail("the demo's net run's last grid differs from replay's")
+    res["demo_net_grid_equals_replay"] = True
+
+    name = f"gvsmoke-{os.getpid()}-view"
+    cli("run", "--steps", "6", "--publish", name)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    view = subprocess.Popen(
+        [sys.executable, "-m", "grid_vision_tpu_torch", "view", "--session",
+         name, "--http", str(port), "--seconds", "5"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root)
+    try:
+        t_end, index = time.time() + 30, None
+        while index is None and time.time() < t_end:
+            try:
+                index = urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/", timeout=5).read()
+            except OSError:
+                time.sleep(0.1)
+        if index is None or name.encode() not in index:
+            fail(f"view --http: / did not answer with the session")
+        body = urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/grid.png", timeout=10).read()
+        sub = session.SessionSubscriber(name)
+        frame = sub.poll(wait_new=False)
+        sub.close()
+        if not (png.decode_rgb(body) == viewer.grid_frame_rgb(
+                frame, scale=2)).all():
+            fail("view --http: /grid.png is not the session's last frame")
+        grid, step, _ = next(viewer.gvd_client("127.0.0.1", port,
+                                               max_records=1))
+        if not ((grid == frame.grid).all() and step == frame.step == 5):
+            fail("view --http: the /grid.gvd record is not the last frame")
+        out, err = view.communicate(timeout=60)
+    finally:
+        if view.poll() is None:
+            view.kill()
+            view.communicate()
+        _unlink_session(name)
+    if view.returncode != 0:
+        fail(f"view: rc {view.returncode}, stderr {err[-2000:]!r}")
+    res["view"] = dict(session=name, png_bytes=len(body), step=int(step),
+                       occupied_cells=int((frame.grid > 50).sum()), rc=0)
+    res["seconds"] = time.perf_counter() - t_phase
+    phase("cli", **res)
+
+
 def kernel_phase(path: str, r: dict) -> None:
     phase("kernel", path=path,
           **{k: v for k, v in r.items() if k not in ("bound", "call")},
@@ -3323,10 +3695,13 @@ def kernel_phase(path: str, r: dict) -> None:
 
 
 def main() -> None:
-    only = None
-    if len(sys.argv) == 3 and sys.argv[1] == "--kernels":
-        only = set(sys.argv[2].split(","))
-    elif len(sys.argv) > 1:
+    only = tf32 = None
+    argv = sys.argv[1:]
+    if len(argv) == 2 and argv[0] == "--kernels":
+        only = set(argv[1].split(","))
+    elif len(argv) == 2 and argv[0] == "--tf32-ticks":
+        tf32 = argv[1]
+    elif argv:
         fail("usage: chip_smoke.py [--kernels stem,grid,knn,csp,orient,carve,"
              "stem_bf16,csp_bf16,orient_bf16]")
     try:
@@ -3337,6 +3712,8 @@ def main() -> None:
         fail("no CUDA device: torch.cuda.is_available() is False; this "
              "smoke test runs only on a card")
     root = os.path.dirname(os.path.abspath(__file__))
+    if tf32 is not None:
+        return tf32_main(torch, root, tf32)
     sys.path.insert(0, root)
     try:
         import grid_vision_tpu_torch as gv
@@ -3376,12 +3753,9 @@ def main() -> None:
     regs = {n: ptxas_summary(log) for n, log in cuda_build.ptxas_log.items()}
     phase("build", seconds=round(time.perf_counter() - t0, 3), ptxas=regs)
 
-    # the single-rig path's configuration at full width
-    cfg = gv.GridVisionConfig(
-        detection_weights_file="weights/detector.npz",
-        vision_weights_file="weights/orientation.npz",
-        detector_stem_backend="pallas", grid_backend="pallas",
-        knn_backend="pallas")
+    # the single-rig path's configuration at full width; the fleet
+    # configuration of bench.py:240-245 in f32
+    cfg, fleet_cfg = path_configs(gv)
     engine = pipeline.Engine(cfg, extrinsics=default_extrinsics(dev),
                              device=dev, base_dir=root)
     modules = {"detector_stem": cuda_stem, "grid_update": cuda_grid,
@@ -3395,10 +3769,6 @@ def main() -> None:
     scene.add_default_statics()
     obs_seq = [obs_from_scene(scene, i / 10.0, cfg, dev)
                for i in range(ENGINE_TICKS)]
-    # the fleet configuration of bench.py:240-245 in f32
-    fleet_cfg = dataclasses.replace(
-        cfg, max_points=8192, max_static_depth=16,
-        detector_stem_backend="pallas2", orientation_stem_backend="pallas")
     fleet = pipeline.Engine(fleet_cfg, extrinsics=engine.extrinsics,
                             params={k: engine.params[k]
                                     for k in ("detector", "orientation")},
@@ -3630,6 +4000,7 @@ def main() -> None:
                                              BUDGET)
     med, pmed = statistics.median(ftimes), statistics.median(fplain_times)
     f32_med = statistics.median(fleet_times)
+    bf16_rate = N_RIGS / med * 1e3
     phase("fleet_bf16", rigs=N_RIGS, ticks=BF16_FLEET_TICKS, budget=BUDGET,
           launches=bf_launches, median_tick_ms=med,
           plain_median_tick_ms=pmed, f32_median_tick_ms=f32_med,
@@ -3825,6 +4196,12 @@ def main() -> None:
                                     engine.extrinsics, modules, forms, card)
     eval_launches = eval_phases(torch, dev, root, modules, forms, card)
 
+    # the CLI's bench, demo and view; the f32 ticks under torch's defaults
+    bench_launches = bench_phases(torch, dev, root, modules, forms, card,
+                                  bf16_rate)
+    cli_phase(torch, dev, root, card)
+    tf32_phase(torch, root, card)
+
     # 8. the kernels line, then the card, then the device JSON
     launches["carve_update"] = ext_launches["carve_update"]
     engine_launches["carve_update"] = ext_engine_launches["carve_update"]
@@ -3856,6 +4233,8 @@ def main() -> None:
         kernels[-1]["launches_trained_fleet"] = trained_launches[
             1 if name in forms else 0][name]
         kernels[-1]["launches_eval_map"] = eval_launches[name]
+        kernels[-1]["launches_bench"] = {
+            mode: counts[name] for mode, counts in bench_launches.items()}
         for key in ("bound_3xtf32_ms", "bound_old_bytes_ms", "gated_off",
                     "bit_equal_share", "toward_zero_share"):
             if key in r:

@@ -24,9 +24,16 @@
           (train/eval_map.py)
   eval-pose  3D localization error against scene ground truth
           (train/eval_pose.py)
+  view    watch a published session (runtime/viewer.py): the grid and
+          markers in the terminal (--mode 2d|3d), or over HTTP (--http
+          PORT: PNG streams, /markers.json, /grid.gvd); --seconds stops it
+  demo    stream a synthetic sequence through the engine, oracle boxes or
+          the detector (--det), PCA or vision poses (--mode); PGM / PPM /
+          markers JSON snapshots in --out (demo.py)
+  bench   fused frames/s of the fleet tick (bench.py; GV_BENCH_* knobs as
+          the root bench.py's), one JSON line
 
-Every command runs on the card; --cpu runs it on the CPU. Not ported yet:
-view, demo, bench.
+Every command runs on the card; --cpu runs it on the CPU.
 
 Examples:
   python -m grid_vision_tpu_torch run --config config/grid_vision_cfg.yaml
@@ -40,6 +47,9 @@ Examples:
   python -m grid_vision_tpu_torch train orientation
   python -m grid_vision_tpu_torch eval --source scene --images 64
   python -m grid_vision_tpu_torch eval-pose --mode both --frames 32
+  python -m grid_vision_tpu_torch view --session demo --http 8400
+  python -m grid_vision_tpu_torch demo --mode vision --det net --steps 20
+  GV_BENCH_BUDGET_S=60 python -m grid_vision_tpu_torch bench
 """
 
 from __future__ import annotations
@@ -48,8 +58,6 @@ import argparse
 import logging
 import sys
 import time
-
-NOT_PORTED = ("view", "demo", "bench")
 
 
 def _run(argv) -> None:
@@ -209,6 +217,23 @@ def _play(argv) -> None:
     print(f"played {n} frames from {a.path}")
 
 
+def _view(argv) -> None:
+    ap = argparse.ArgumentParser(prog="grid_vision_tpu_torch view")
+    ap.add_argument("--session", required=True)
+    ap.add_argument("--http", type=int, default=None, metavar="PORT")
+    ap.add_argument("--seconds", type=float, default=None,
+                    help="stop after N seconds (default: run forever)")
+    ap.add_argument("--mode", choices=("2d", "3d"), default="2d",
+                    help="terminal surface: top-down grid (2d) or the "
+                         "RViz-style orbit view (3d)")
+    a = ap.parse_args(argv)
+    from .runtime import viewer
+    if a.http is not None:
+        viewer.http_view(a.session, a.http, max_seconds=a.seconds)
+    else:
+        viewer.terminal_view(a.session, max_seconds=a.seconds, mode=a.mode)
+
+
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else list(argv)
     if not argv or argv[0] in ("-h", "--help"):
@@ -240,11 +265,14 @@ def main(argv=None) -> None:
     elif cmd == "eval-pose":
         from .train.eval_pose import main as eval_pose_main
         eval_pose_main(rest)
-    elif cmd in NOT_PORTED:
-        print(f"{cmd!r} is not ported to grid_vision_tpu_torch yet; "
-              f"`python -m grid_vision_tpu {cmd}` runs the JAX package's",
-              file=sys.stderr)
-        sys.exit(2)
+    elif cmd == "view":
+        _view(rest)
+    elif cmd == "demo":
+        from .demo import main as demo_main
+        demo_main(rest)
+    elif cmd == "bench":
+        from .bench import main as bench_main
+        bench_main(rest)
     else:
         print(f"unknown command {cmd!r}\n{__doc__}", file=sys.stderr)
         sys.exit(2)

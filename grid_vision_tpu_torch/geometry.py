@@ -26,6 +26,13 @@ def intrinsic_inverse(K: torch.Tensor) -> torch.Tensor:
     ])
 
 
+def projection_matrix_3x4(fx, fy, cx, cy, device=None) -> torch.Tensor:
+    """The MultiBin solver's 3x4 projection [K | 0]
+    (vision_orientation.cpp:19-20)."""
+    K = intrinsic_matrix(fx, fy, cx, cy, device)
+    return torch.cat([K, K.new_zeros((3, 1))], dim=1)
+
+
 def project_points(xyz: torch.Tensor, K: torch.Tensor):
     """(..., 3) camera-frame points -> (u, v, z); only an exact-zero z is
     guarded, callers mask the rest. Each row of K @ p is summed as
@@ -60,6 +67,15 @@ def transform_points(T: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
     if T.dim() == 3:
         return torch.stack([transform_points(t, x) for t, x in zip(T, xyz)])
     return xyz @ T[:3, :3].T + T[:3, 3]
+
+
+def make_transform(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """The 4x4 f32 rigid transform [[R, t], [0, 1]] on R's device."""
+    R = torch.as_tensor(R, dtype=torch.float32)
+    T = torch.eye(4, dtype=torch.float32, device=R.device)
+    T[:3, :3] = R
+    T[:3, 3] = torch.as_tensor(t, dtype=torch.float32, device=R.device)
+    return T
 
 
 def quat_from_pitch(angle: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..device import ieee_convs
 from .layers import ConvBN, flax_init
 
 _MOMENTUM = 0.99                    # flax nn.BatchNorm's default
@@ -125,9 +126,10 @@ def init_params(key: torch.Tensor,
     return flax_init(OrientationNetS2D(cfg).to(key.device), key)
 
 
+@ieee_convs()
 def forward(model: OrientationNetS2D, crops: torch.Tensor,
             stem_external: bool = False, dtype=torch.float32):
     """crops (N, S, S, 3) (or ConvBN_0's output with stem_external) ->
     (orient (N, 2, 2), conf (N, 2), dims (N, 3)) in f32; the convs compute
-    in `dtype`."""
+    in `dtype`, f32 ones in IEEE f32 (device.ieee_convs)."""
     return model(crops.to(dtype), stem_external)

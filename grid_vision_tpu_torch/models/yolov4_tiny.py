@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..device import ieee_convs
 from .layers import ConvBN, conv2d, flax_init
 
 # darknet yolov4-tiny anchors (pixels at 416); head masks (3,4,5)/(1,2,3).
@@ -176,11 +177,12 @@ def init_params(key: torch.Tensor, cfg: YoloConfig = YoloConfig()
     return flax_init(YoloV4Tiny(cfg).to(key.device), key)
 
 
+@ieee_convs()
 def forward(model: YoloV4Tiny, images: torch.Tensor,
             stem_external: bool = False, front_external: bool = False,
             dtype=torch.float32):
     """images (B, S, S, 3) in [0, 1] (or the stem / CSP-stage activation)
     -> (boxes (B, N, 4), confs (B, N, C)) in f32; the net computes in
-    `dtype`."""
+    `dtype`, its f32 convs in IEEE f32 (device.ieee_convs)."""
     h1, h2 = model(images.to(dtype), stem_external, front_external)
     return decode(model, h1, h2)

@@ -34,6 +34,7 @@ import torch
 
 import torch.nn.functional as F
 
+from ..device import ieee_convs
 from ..models.layers import fold_bn
 from . import bf16mma, cuda_build, tf32x3
 
@@ -160,6 +161,7 @@ def _csp_plain_bf16(x: torch.Tensor, consts) -> torch.Tensor:
     return out.permute(0, 2, 3, 1).contiguous()
 
 
+@ieee_convs()
 def detector_csp_plain(x: torch.Tensor, detector, consts=None
                        ) -> torch.Tensor:
     """The kernel's plain twin, NHWC in and out: f32, the module's

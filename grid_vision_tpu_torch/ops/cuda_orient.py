@@ -37,6 +37,7 @@ import torch
 
 import torch.nn.functional as F
 
+from ..device import ieee_convs
 from ..models.layers import fold_bn, same_pad
 from ..types import Boxes
 from . import bf16mma, cuda_build, tf32x3
@@ -184,6 +185,7 @@ def _orient_plain_bf16(images, xyxy, valid, rig, consts, size):
     return y.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
 
 
+@ieee_convs()
 def orient_front_plain(images: torch.Tensor, xyxy: torch.Tensor,
                        valid: torch.Tensor, rig: torch.Tensor, model,
                        size: int, consts=None) -> torch.Tensor:

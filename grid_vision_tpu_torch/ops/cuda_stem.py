@@ -33,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import ieee_convs
 from ..models.layers import fold_bn, same_pad
 from . import bf16mma, cuda_build, tf32x3
 from .preprocess import (_axis_resize_weights, einsum_in,
@@ -147,6 +148,7 @@ def _stem_plain_bf16(images: torch.Tensor, consts, size: int):
     return x.permute(0, 2, 3, 1).contiguous()
 
 
+@ieee_convs()
 def detector_stem_plain(images: torch.Tensor, consts, size: int):
     """The kernel's plain twin: resize matmuls + F.conv2d (the form of
     `consts`)."""

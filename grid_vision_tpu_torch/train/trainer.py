@@ -30,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..device import ieee_convs
 from ..models import orientation_net, yolov4_tiny
 from . import losses
 
@@ -114,8 +115,11 @@ def make_train_step(loss_kind: str, model_cfg, tx: AdamW,
     def train_step(state: TrainState, *batch):
         model, opt = state.model, state.opt
         opt.zero_grad(set_to_none=True)
-        loss, (mutated, aux) = loss_fn(model, *batch, train=True)
-        loss.backward()
+        # the backward's convs run when backward() is called: one scope
+        # holds the forward and the backward out of TF32
+        with ieee_convs():
+            loss, (mutated, aux) = loss_fn(model, *batch, train=True)
+            loss.backward()
         for group in opt.param_groups:
             group["lr"] = tx.lr(state.step)
         opt.step()

@@ -89,6 +89,10 @@ class Boxes(_Tensors):
     def capacity(self) -> int:
         return self.xyxy.shape[-2]
 
+    def count(self) -> torch.Tensor:
+        """Valid boxes (int32), per rig where boxes carry a rig axis."""
+        return self.valid.sum(dim=-1, dtype=torch.int32)
+
     def take(self, idx: torch.Tensor, valid=None) -> "Boxes":
         """Slots idx of every field (valid overridable). idx indexes the
         slot axis and may carry leading rig axes: (R, K) picks K slots of
@@ -551,6 +555,14 @@ class SaturationStats(_Tensors):
     box_cloud_truncated: torch.Tensor
     orientation_dropped: torch.Tensor
     static_depth_clamped: torch.Tensor
+
+    @staticmethod
+    def zeros(device=None) -> "SaturationStats":
+        """Every counter an int32 zero scalar."""
+        z = torch.zeros((), dtype=torch.int32, device=device)
+        return SaturationStats(prenms_overflow=z, orientation_clamped=z,
+                               box_cloud_truncated=z, orientation_dropped=z,
+                               static_depth_clamped=z)
 
 
 @dataclasses.dataclass(frozen=True)

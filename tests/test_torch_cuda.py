@@ -1260,3 +1260,84 @@ def test_eval_map_on_card_equals_cpu(cuda_device):
     for key, r in res.items():
         assert abs(r.n_pred - ref.n_pred) <= 2, (key, r.to_dict())
         assert abs(r.map50 - ref.map50) <= 1e-3, (key, r.to_dict())
+
+
+_DEFAULT_FLAGS_TICK = r"""
+import sys
+import numpy as np
+import torch
+from grid_vision_tpu_torch import pipeline
+from grid_vision_tpu_torch.config import GridVisionConfig
+from grid_vision_tpu_torch.demo import default_extrinsics
+from grid_vision_tpu_torch.io.scene import SyntheticScene
+from grid_vision_tpu_torch.runtime.stream import obs_from_scene
+if sys.argv[2] == "off":
+    torch.backends.cudnn.allow_tf32 = False
+cfg = GridVisionConfig(detection_weights_file="weights/detector.npz",
+                       vision_weights_file="weights/orientation.npz",
+                       detector_stem_backend="pallas")
+eng = pipeline.Engine(cfg, extrinsics=default_extrinsics("cuda"))
+scene = SyntheticScene(cfg, seed=0)
+scene.add_default_traffic()
+state, out = eng(eng.init_state(), obs_from_scene(scene, 0.0, cfg, "cuda"))
+np.savez(sys.argv[1], lo=state.log_odds.cpu().numpy(),
+         occ=out.occupancy_i8.cpu().numpy(), box=out.boxes.xyxy.cpu().numpy(),
+         pos=out.poses.position.cpu().numpy(),
+         legacy=np.asarray(torch.backends.cudnn.allow_tf32))
+"""
+
+
+@pytest.mark.cuda
+def test_f32_tick_bit_equal_under_default_flags(cuda_device, tmp_path):
+    """An f32 Engine tick in a process that leaves torch's TF32 flags at
+    their defaults equals the tick of a process that turns them off, bit
+    for bit (device.ieee_convs scopes the convs), and leaves the legacy
+    flag readable."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = {}
+    for flags in ("default", "off"):
+        path = str(tmp_path / f"{flags}.npz")
+        r = subprocess.run([sys.executable, "-c", _DEFAULT_FLAGS_TICK, path,
+                            flags], capture_output=True, text=True,
+                           cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                           timeout=600)
+        assert r.returncode == 0, r.stderr[-3000:]
+        res[flags] = dict(np.load(path))
+    assert bool(res["default"]["legacy"]) and not bool(res["off"]["legacy"])
+    for k in ("lo", "occ", "box", "pos"):
+        np.testing.assert_array_equal(res["default"][k], res["off"][k],
+                                      err_msg=k)
+
+
+@pytest.mark.cuda
+def test_bench_chunk_digest_equals_engine_fleet(cuda_device):
+    """One chunk of the bench (bench.py's configuration at 8 rigs, 2 ticks)
+    equals the same perturbed observations through Engine.fleet: digest
+    and grid bit for bit; the bf16 stem once a tick."""
+    from grid_vision_tpu_torch import bench, pipeline
+    from grid_vision_tpu_torch.utils import prng
+    cfg, n_rigs, scan, _, budget = bench.bench_config(
+        {"GV_BENCH_RIGS": "8", "GV_BENCH_SCAN": "2"})
+    eng = pipeline.Engine(cfg, device=cuda_device)
+    pool = bench.build_pool(cfg, n_rigs, cuda_device)
+    key = prng.prng_key(100, device=cuda_device)
+    n0 = cuda_stem.launches_bf16
+    states, acc, _ = bench.run_chunk(eng.params, eng.init_states(n_rigs),
+                                     pool, eng.extrinsics, cfg, key, scan,
+                                     budget)
+    torch.cuda.synchronize()
+    assert cuda_stem.launches_bf16 == n0 + scan
+    _, sub = prng.split(key)
+    bright, jitter = bench.draw_perturbations(sub, scan, n_rigs)
+    ref_states, ref = eng.init_states(n_rigs), torch.zeros((),
+                                                          device=cuda_device)
+    for t in range(scan):
+        ref_states, out = eng.fleet(
+            ref_states, bench.apply_perturbation(pool, bright[t], jitter[t]),
+            budget)
+        ref = ref + bench.output_digest(out)
+    np.testing.assert_array_equal(acc.cpu().numpy(), ref.cpu().numpy())
+    assert torch.equal(states.log_odds, ref_states.log_odds)

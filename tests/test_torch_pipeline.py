@@ -177,6 +177,13 @@ def test_import_pulls_in_no_jax():
             " grid_vision_tpu_torch.train.eval_pose,"
             " grid_vision_tpu_torch.parallel,"
             " grid_vision_tpu_torch.runtime.serve,"
+            " grid_vision_tpu_torch.bench,"
+            " grid_vision_tpu_torch.runtime.viewer,"
+            " grid_vision_tpu_torch.io.viz3d,"
+            " grid_vision_tpu_torch.io.png,"
+            " grid_vision_tpu_torch.io.grid_msg,"
+            " grid_vision_tpu_torch.utils.guards,"
+            " grid_vision_tpu_torch.device,"
             " grid_vision_tpu_torch.__main__; bad = [m for m in sys.modules if m in"
             " ('jax', 'flax', 'optax', 'grid_vision_tpu') or m.startswith("
             "('jax.', 'flax.', 'optax.', 'grid_vision_tpu.'))]; print(bad);"

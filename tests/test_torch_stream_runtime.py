@@ -395,7 +395,12 @@ def test_cli_refuses_what_is_not_ported():
     r = _cli("run", "--cpu", "--track", "--steps", "3", cwd=ROOT)
     assert r.returncode == 0, r.stderr
     assert r.stderr.count("confirmed tracks") == 3, r.stderr
-    # serve is ported since the parallel layer (tests/test_torch_serve.py);
-    # the viewer is not yet
+    # serve is ported since the parallel layer (tests/test_torch_serve.py),
+    # view, demo and bench since the CLI's last slice
+    # (tests/test_torch_demo_cli.py): view asks for its session
     r = _cli("view", cwd=ROOT)
-    assert r.returncode == 2 and "not ported" in r.stderr
+    assert r.returncode == 2 and "--session" in r.stderr
+    assert "not ported" not in r.stderr
+    # the resnet orientation arch is still refused
+    r = _cli("train", "orientation", "--arch", "resnet", "--cpu", cwd=ROOT)
+    assert r.returncode != 0 and "not in the torch port" in r.stderr
