@@ -3688,6 +3688,483 @@ def cli_phase(torch, dev, root, card) -> None:
     phase("cli", **res)
 
 
+INT8_ENGINE_TICKS = 5
+INT8_FLEET_TICKS = 3
+INT8_EVAL = 50                  # synth frames; tests/test_int8_detector.py:52
+INT8_GEMM_WORDS = ("gemm", "imma", "igmma", "s8", "i8", "int8", "xmma")
+KNOB_TICKS = 2
+MESH_STEPS = 3
+MESH_DET = dict(size=64, batch=4)      # tests/test_torch_train_mesh.py's
+MESH_ORI = dict(size=32, width=8, batch=8)
+MESH_FULL = (dict(size=416, batch=8), dict(size=224, width=32, batch=16))
+
+
+def kernel_breakdown(torch, fn, iters: int = 5, top: int = 12):
+    """torch.profiler over `iters` calls of fn(): device ms a call, the
+    top kernels by device time (ms a call, launches a call), and the ms
+    of the kernels whose names mark an int8 GEMM (INT8_GEMM_WORDS)."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+    by_name, launches = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            continue
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.elapsed_us() / 1e3 / iters
+        launches[e.name] = launches.get(e.name, 0) + 1 / iters
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    gemm = sum(ms for n, ms in by_name.items()
+               if any(w in n.lower() for w in INT8_GEMM_WORDS))
+    return dict(device_ms=sum(by_name.values()),
+                launches=sum(launches.values()), gemm_ms=gemm,
+                top_kernels=[dict(name=n[:90], ms=ms, launches=launches[n])
+                             for n, ms in ranked[:top]])
+
+
+def int8_phases(torch, dev, root, cfg, fleet_cfg, nets, extrinsics, obs_seq,
+                fleet_obs, modules, forms, card):
+    """Phase `int8`: the int8 detector (models/yolov4_int8.py,
+    detector_precision="int8") on the card, with the shipped weights.
+
+    1. Every layer's int32 accumulator from torch._int_mm (the tap matrix
+       of the padded NHWC int8 activation) bit-equal to the plain f64 conv
+       on the same int8 values, at the fleet's 64 frames (the 19 sites of
+       a forward); each layer's GEMM shape and the time of its tap gather
+       + GEMM, of the GEMM alone and of the f64 conv (CUDA events).
+    2. The extension-mode tick (compat=False, raycast_free_space, depth
+       refine, class-aware NMS; stem "xla", as validate() ties int8 to
+       it): INT8_ENGINE_TICKS single-rig ticks and INT8_FLEET_TICKS fleet
+       ticks of 64 rigs, counters from zero (the carve and kNN kernels once
+       a tick, the fleet's orientation front once a tick, 19 GEMMs a
+       tick), each against the same ticks with the int8 conv's plain
+       version: occupancy_i8 bit-equal, box counts equal.
+    3. mAP@0.5 on INT8_EVAL held-out synth frames (eval_map), int8 against
+       the float detector: at least the float's - 0.03.
+    4. The detector alone on the fleet's 64 frames (416): the int8
+       forward's device ms and launches beside the f32 and bf16 forwards',
+       the int8 GEMMs' share of it, and its top kernels (torch.profiler).
+
+    Returns the GEMM launches of the fleet run."""
+    from grid_vision_tpu_torch import pipeline
+    from grid_vision_tpu_torch.config import GridVisionConfig
+    from grid_vision_tpu_torch.models import weights, yolov4_int8, yolov4_tiny
+    from grid_vision_tpu_torch.ops.preprocess import preprocess_detector_image
+    from grid_vision_tpu_torch.train import eval_map
+    t_phase = time.perf_counter()
+    res = dict(card=card)
+    q = yolov4_int8.quantize_detector(nets["detector"])
+    ycfg = yolov4_tiny.YoloConfig(input_size=cfg.resize)
+    net_in = preprocess_detector_image(fleet_obs[0].image, cfg.resize)
+
+    # 1. every layer: _int_mm against the f64 conv
+    layers = {}
+
+    def both(x, site, layer, stride):
+        sx = yolov4_int8.act_scale(x)
+        xq = yolov4_int8.quantize_act(x, sx)
+        acc = yolov4_int8.int8_conv(xq, layer, stride)
+        ref = yolov4_int8.int8_conv_plain(xq, layer["wq"], stride)
+        if acc.dtype != torch.int32 or not torch.equal(acc, ref):
+            fail(f"int8 {site}: the _int_mm accumulator differs from the "
+                 "f64 conv")
+        k = layer["wq"].shape[-1]
+        a = yolov4_int8.tap_matrix(xq, k, stride, layer["wt"].shape[1])
+        wt = layer["wt"].t()
+        layers[site] = dict(
+            m=a.shape[0], k=a.shape[1], n=wt.shape[1],
+            max_abs_acc=int(acc.abs().max()),
+            conv_ms=cuda_time_ms(
+                lambda: yolov4_int8.int8_conv(xq, layer, stride), 10, 2),
+            gemm_ms=cuda_time_ms(lambda: torch._int_mm(a, wt), 10, 2),
+            plain_ms=cuda_time_ms(lambda: yolov4_int8.int8_conv_plain(
+                xq, layer["wq"], stride), 3, 1))
+        return yolov4_int8.requant(acc, sx, layer)
+
+    yolov4_int8._topology(q, net_in, ycfg, both)
+    if sorted(layers) != sorted(yolov4_int8.LAYERS):
+        fail(f"int8: sites {sorted(layers)}")
+    res["layers"] = layers
+    res["layers_bit_equal"] = len(layers)
+
+    # 2. the extension-mode ticks against the plain int8 conv
+    ext = dict(compat=False, raycast_free_space=True,
+               vision_depth_refine=True, class_aware_nms=True,
+               detector_precision="int8", detector_stem_backend="xla")
+    params = dict(nets, detector_q=q)
+    real_conv = yolov4_int8.int8_conv
+
+    def plain_conv(xq, layer, stride):
+        return yolov4_int8.int8_conv_plain(xq, layer["wq"], stride)
+
+    n_layers = len(yolov4_int8.LAYERS)
+    for path, base, ticks, run, want in (
+            ("engine", cfg, INT8_ENGINE_TICKS,
+             lambda e, o: run_ticks(torch, e, o),
+             dict(knn_median_depth=INT8_ENGINE_TICKS,
+                  carve_update=INT8_ENGINE_TICKS)),
+            ("fleet", fleet_cfg, INT8_FLEET_TICKS,
+             lambda e, o: run_fleet(torch, e, o, BUDGET),
+             dict(knn_median_depth=INT8_FLEET_TICKS,
+                  carve_update=INT8_FLEET_TICKS,
+                  orient_front=INT8_FLEET_TICKS))):
+        c = dataclasses.replace(base, **ext)
+        eng = pipeline.Engine(c, extrinsics=extrinsics, params=params,
+                              device=dev)
+        seq = (obs_seq if path == "engine" else fleet_obs)[:ticks]
+        run(eng, seq[:1])                                  # warm
+        yolov4_int8.launches = 0
+        (_, outs, times), got = _counted(
+            modules, forms, lambda: run(eng, seq), want, f"int8 {path}")
+        gemms = yolov4_int8.launches
+        if gemms != n_layers * ticks:
+            fail(f"int8 {path}: {gemms} GEMMs in {ticks} ticks")
+        yolov4_int8.int8_conv = plain_conv
+        try:
+            _, plain_outs, plain_times = run(eng, seq)
+        finally:
+            yolov4_int8.int8_conv = real_conv
+        _same_ticks(torch, f"int8 {path}", outs, plain_outs)
+        res[path] = dict(
+            rigs=int(seq[0].image.shape[0]) if path == "fleet" else 1,
+            ticks=ticks, launches=got, gemm_launches=gemms,
+            median_tick_ms=statistics.median(times), tick_ms=times,
+            plain_median_tick_ms=statistics.median(plain_times),
+            boxes_per_tick=[int(o.boxes.valid.sum()) for o in outs],
+            occupancy_i8_bit_equal=True)
+        if path == "fleet":
+            fleet_gemms = gemms
+        del eng, outs, plain_outs
+    torch.cuda.empty_cache()
+
+    # 3. mAP: int8 against the float detector
+    base = GridVisionConfig(
+        detection_weights_file=os.path.join(root, "weights/detector.npz"))
+    dnets = weights.load_all(base, device=dev)
+    r_f = eval_map.evaluate_detector(dnets, base, n_images=INT8_EVAL)
+    r_i = eval_map.evaluate_detector(
+        dnets, dataclasses.replace(base, detector_precision="int8",
+                                   compat=False), n_images=INT8_EVAL)
+    if not r_i.map50 >= r_f.map50 - 0.03:
+        fail(f"int8 mAP@0.5 {r_i.map50} below the float's {r_f.map50} - "
+             "0.03")
+    res["map50"] = dict(int8=r_i.map50, float=r_f.map50, frames=INT8_EVAL)
+
+    # 4. the detector alone at 64 frames: int8, f32, bf16
+    det = nets["detector"]
+    forwards = {
+        "int8": lambda: yolov4_int8.forward_int8(q, net_in, ycfg),
+        "f32": lambda: yolov4_tiny.forward(det, net_in,
+                                           dtype=torch.float32),
+        "bf16": lambda: yolov4_tiny.forward(det, net_in,
+                                            dtype=torch.bfloat16)}
+    detector = {}
+    for name, fn in forwards.items():
+        with torch.no_grad():
+            host = cuda_time_ms(fn, 5, 2)
+        detector[name] = dict(kernel_breakdown(torch, fn), event_ms=host)
+    d8 = detector["int8"]
+    res["detector_64"] = dict(
+        frames=int(net_in.shape[0]), size=cfg.resize, **detector,
+        int8_gemm_share=d8["gemm_ms"] / d8["device_ms"])
+    res["seconds"] = time.perf_counter() - t_phase
+    phase("int8", **res)
+    return fleet_gemms
+
+
+def knobs_phases(torch, dev, root, cfg, fleet_cfg, nets, extrinsics,
+                 fleet_obs, modules, forms, card):
+    """Phase `knobs`: the five configuration knobs on the card, each in
+    the fleet tick (64 rigs, KNOB_TICKS ticks, budget 320) against its
+    default counterpart, counters from zero:
+
+    - detector_s2d_stem (stem "xla") and detector_stem_backend="im2col"
+      against the "xla" stem: the detector's input activation (the
+      post-ConvBN_1 (64, 104, 104, 64) of the fleet's frames) within 1e-4,
+      equal box counts, occupancy_i8 >= 99.9 % per rig;
+    - knn_backend="approx" against "xla": medians (static depths) equal,
+      occupancy_i8 bit-equal;
+    - orientation_s2d_fold=False against the folded stem (orientation
+      "xla"): the net on 320 crops within tests/test_models.py:77's bars
+      (1e-4 orientation, 1e-3 confidence and dims); the ticks as the
+      first row;
+    - orientation_arch="resnet" (the flax-exact init at seed 7, width 32;
+      no resnet checkpoint ships): its tick on the detector, grid and kNN
+      kernels against the same tick all plain, at the f32 rows of PERF.md
+      section 2 (compare_outputs).
+    """
+    from grid_vision_tpu_torch import pipeline
+    from grid_vision_tpu_torch.device import ieee_convs
+    from grid_vision_tpu_torch.models import orientation_net
+    from grid_vision_tpu_torch.ops import preprocess, stem_im2col
+    from grid_vision_tpu_torch.utils import prng
+    t_phase = time.perf_counter()
+    res = dict(card=card, rigs=N_RIGS, ticks=KNOB_TICKS)
+    T = KNOB_TICKS
+    obs = fleet_obs[:T]
+    det = nets["detector"]
+    frames = obs[0].image
+
+    # the detector's input activation three ways
+    with torch.no_grad(), ieee_convs():
+        x = preprocess.preprocess_detector_image(frames, cfg.resize)
+        x = x.permute(0, 3, 1, 2)
+        ref = det.ConvBN_1(det.ConvBN_0(x)).permute(0, 2, 3, 1)
+        s2d = det.ConvBN_1(det.ConvBN_0(x, s2d=True), s2d=True).permute(
+            0, 2, 3, 1)
+        im2col = stem_im2col.detector_stem_im2col(
+            frames, stem_im2col.prepare_im2col_constants(det), cfg.resize)
+    for name, act in (("s2d_stem", s2d), ("im2col_stem", im2col)):
+        err = (act - ref).abs()
+        if not bool((err <= 1e-4 + 1e-4 * ref.abs()).all()):
+            fail(f"knobs {name}: the detector's input activation is "
+                 f"{float(err.max())} off the xla stem's")
+        res[f"{name}_activation_max_abs_err"] = float(err.max())
+    del x, ref, s2d, im2col
+
+    xla_stem = dataclasses.replace(fleet_cfg, detector_stem_backend="xla")
+    folded = dataclasses.replace(fleet_cfg, orientation_stem_backend="xla")
+    plain = dataclasses.replace(
+        fleet_cfg, detector_stem_backend="xla",
+        orientation_stem_backend="xla", grid_backend="xla",
+        knn_backend="xla")
+    resnet_net = orientation_net.init_params(
+        prng.prng_key(7, device=dev), orientation_net.OrientationConfig(
+            input_size=fleet_cfg.network_height,
+            width=fleet_cfg.orientation_width, arch="resnet")).eval()
+    rest = dict(grid_update=T, knn_median_depth=T)
+    cases = (
+        ("s2d_stem", dataclasses.replace(xla_stem, detector_s2d_stem=True),
+         xla_stem, nets, dict(rest, orient_front=T)),
+        ("im2col_stem", dataclasses.replace(
+            fleet_cfg, detector_stem_backend="im2col"), xla_stem, nets,
+         dict(rest, orient_front=T)),
+        ("approx_knn", dataclasses.replace(fleet_cfg, knn_backend="approx"),
+         dataclasses.replace(fleet_cfg, knn_backend="xla"), nets,
+         dict(detector_stem=T, detector_csp=T, orient_front=T,
+              grid_update=T)),
+        ("unfolded_orientation", dataclasses.replace(
+            folded, orientation_s2d_fold=False), folded, nets,
+         dict(rest, detector_stem=T, detector_csp=T)),
+        ("resnet", dataclasses.replace(
+            folded, orientation_arch="resnet"), dataclasses.replace(
+            plain, orientation_arch="resnet"),
+         dict(nets, orientation=resnet_net),
+         dict(rest, detector_stem=T, detector_csp=T)))
+    for name, kcfg, rcfg, knets, want in cases:
+        kern = pipeline.Engine(kcfg, extrinsics=extrinsics, params=knets,
+                               device=dev)
+        other = pipeline.Engine(rcfg, extrinsics=extrinsics, params=knets,
+                                device=dev)
+        (_, outs, times), got = _counted(
+            modules, forms, lambda: run_fleet(torch, kern, obs, BUDGET),
+            want, f"knobs {name}")
+        _, refs, ref_times = run_fleet(torch, other, obs, BUDGET)
+        agree, n_boxes, n_poses = compare_outputs(torch, fleet_cfg, outs,
+                                                  refs, per_rig=True)
+        row = dict(launches=got, median_tick_ms=statistics.median(times),
+                   counterpart_median_tick_ms=statistics.median(ref_times),
+                   min_occupancy_i8_agreement_per_rig=agree,
+                   boxes_per_tick=n_boxes, poses_per_tick=n_poses)
+        if name == "approx_knn":
+            for o, r in zip(outs, refs):
+                if not (torch.equal(o.static_depths, r.static_depths)
+                        and torch.equal(o.occupancy_i8, r.occupancy_i8)):
+                    fail("knobs approx_knn: medians or grid differ from "
+                         "the exact backend's")
+            row["medians_equal"] = True
+        res[name] = row
+        del kern, other, outs, refs
+
+    # the unfolded orientation stem on crops of the fleet's frames
+    crops = torch.randn((BUDGET, fleet_cfg.network_height,
+                         fleet_cfg.network_height, 3), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+    with torch.no_grad():
+        a = orientation_net.forward(nets["orientation"], crops,
+                                    s2d_fold=False)
+        b = orientation_net.forward(nets["orientation"], crops,
+                                    s2d_fold=True)
+    errs = [float((u - v).abs().max()) for u, v in zip(a, b)]
+    for e, u, v, tol in zip(errs, a, b, (1e-4, 1e-3, 1e-3)):
+        if not torch.allclose(u, v, rtol=tol, atol=tol):
+            fail(f"knobs unfolded_orientation: the net's outputs {errs}")
+    res["unfolded_orientation"]["net_max_abs_err"] = errs
+    res["seconds"] = time.perf_counter() - t_phase
+    phase("knobs", **res)
+
+
+def mesh_phase(torch, dev, card):
+    """Phase `mesh`: the training mesh on the card (parallel/mesh.py,
+    trainer.make_train_step(..., mesh=)), a (2, 2) grid of logical shards
+    of the card, SGD(1e-2), f32.
+
+    1. tests/test_parallel.py:105-146's contract: MESH_STEPS steps of the
+       detector (input 32, batch 8) on the mesh finite and falling, step
+       == 3; a wide conv weight split over tp.
+    2. The sharded step against the unsharded one from the same init and
+       batch, MESH_STEPS steps, at tests/test_torch_train_mesh.py's sizes
+       (MESH_DET: detector 64, batch 4; MESH_ORI: orientation 32 / 8,
+       batch 8) and tests/test_torch_train_steps.py's bars (losses rtol
+       1e-5; parameters within 1e-4 and >= 99.99 % within atol 1e-6 / rtol
+       1e-4; running statistics atol 1e-5).
+    3. At the CLI's sizes (MESH_FULL: detector 416, batch 8; orientation
+       224 / 32, batch 16): the sharded step held against the unsharded
+       one by the run's own control, the unsharded step on the batch in
+       reverse order (the sensitivity of these nets to the order of the
+       sums: SGD(1e-2) moves them far in a step). The sharded losses'
+       largest relative error, and the largest error of a parameter and
+       of a running statistic, must not exceed the reversed batch's; a
+       dropped, doubled or misordered shard moves a parameter by about
+       lr x its gradient, far beyond that. Also the sharded and the
+       unsharded steps' ms (host clock, synchronized, the last step).
+    Steps 2 and 3 run with cuDNN deterministic (restored after): on one
+    device the sharded step runs the unsharded step's backward, so a
+    difference can only be the mesh path's own."""
+    import numpy as np
+    from grid_vision_tpu_torch.models import orientation_net, yolov4_tiny
+    from grid_vision_tpu_torch.parallel.mesh import (make_mesh, replicate,
+                                                     shard_params)
+    from grid_vision_tpu_torch.train import trainer
+    from grid_vision_tpu_torch.utils import prng
+    t_phase = time.perf_counter()
+    res = dict(card=card)
+    mesh = make_mesh(4, ("dp", "tp"), tp=2, device=dev)
+    f32 = torch.float32
+
+    def yolo_batch(cfg, b):
+        n = cfg.num_anchors_total
+        images = prng.uniform(prng.prng_key(1, device=dev),
+                              (b, cfg.input_size, cfg.input_size, 3))
+        tgt_boxes = torch.tensor([[0.2, 0.2, 0.6, 0.6]],
+                                 device=dev).repeat(b, n, 1)
+        tgt_pos = torch.zeros((b, n), device=dev)
+        tgt_pos[:, 0] = 1.0
+        return (images, tgt_boxes,
+                torch.zeros((b, n), dtype=torch.int32, device=dev), tgt_pos)
+
+    def multibin_batch(size, b):
+        rng = np.random.default_rng(6)
+        return tuple(torch.tensor(a, device=dev) for a in (
+            rng.normal(size=(b, size, size, 3)).astype(np.float32),
+            (rng.normal(size=(b, 3)) * 0.3).astype(np.float32),
+            rng.integers(0, 2, b).astype(np.int32),
+            rng.uniform(-1, 1, b).astype(np.float32)))
+
+    def cases(det, ori):
+        ycfg = yolov4_tiny.YoloConfig(input_size=det["size"],
+                                      compute_dtype=f32)
+        ocfg = orientation_net.OrientationConfig(
+            input_size=ori["size"], width=ori["width"], s2d_fold=False,
+            compute_dtype=f32)
+        return (("yolo", ycfg, yolo_batch(ycfg, det["batch"])),
+                ("multibin", ocfg, multibin_batch(ori["size"],
+                                                  ori["batch"])))
+
+    def run(kind, cfg, batch, m):
+        tx = trainer.SGD(1e-2)
+        state = trainer.init_train_state(kind, cfg, tx,
+                                         prng.prng_key(0, device=dev))
+        step = trainer.make_train_step(kind, cfg, tx, m)
+        losses, times = [], []
+        for _ in range(MESH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, *batch)
+            losses.append(metrics["loss"].item())
+            times.append((time.perf_counter() - t0) * 1e3)
+        return state, losses, times
+
+    def apart(s0, s1):
+        """(max |dparam|, share of parameters off atol 1e-6 / rtol 1e-4,
+        max |d running statistic|)."""
+        want, got = s0.model.state_dict(), s1.model.state_dict()
+        n = off = 0
+        worst = stats = 0.0
+        for k, r in want.items():
+            err = (got[k].double() - r.double()).abs()
+            if "running" in k:
+                stats = max(stats, float(err.max()))
+                continue
+            worst = max(worst, float(err.max()))
+            n += r.numel()
+            off += int((err > 1e-6 + 1e-4 * r.double().abs()).sum())
+        return worst, off / n, stats
+
+    # 1. the JAX package's contract
+    cfg32 = yolov4_tiny.YoloConfig(input_size=32, compute_dtype=f32)
+    state, losses, _ = run("yolo", cfg32, yolo_batch(cfg32, 8), mesh)
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
+            and state.step == MESH_STEPS):
+        fail(f"mesh: SGD on the mesh {losses}, step {state.step}")
+    placements = shard_params(state.model, mesh)
+    replicate(state.model, mesh)
+    sharded = sorted(k for k, p in placements.items() if p.tp_sharded)
+    if not any(dict(state.model.named_parameters())[k].dim() == 4
+               for k in sharded):
+        fail("mesh: no wide conv weight is tp-sharded")
+    res["contract"] = dict(losses=losses, step=state.step,
+                           tp_sharded_leaves=len(sharded),
+                           leaves=len(placements))
+
+    # 2. sharded against unsharded at the tests' sizes, at their bars
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for kind, cfg, batch in cases(MESH_DET, MESH_ORI):
+            (s0, want, _), (s1, got, _) = (run(kind, cfg, batch, m)
+                                           for m in (None, mesh))
+            worst, off, stats = apart(s0, s1)
+            if not (np.allclose(got, want, rtol=1e-5, atol=0)
+                    and worst <= 1e-4 and off <= 1e-4 and stats <= 1e-5):
+                fail(f"mesh {kind}: losses {got} vs {want}, parameters "
+                     f"{worst} max, {off} off, statistics {stats}")
+            res[kind] = dict(batch=int(batch[0].shape[0]),
+                             input_size=int(batch[0].shape[1]),
+                             losses=got, unsharded_losses=want,
+                             max_param_err=worst, off_share=off,
+                             max_stat_err=stats, dp=mesh.dp, tp=mesh.tp)
+            del s0, s1
+
+        # 3. the CLI's sizes, against the reversed batch's control
+        for kind, cfg, batch in cases(*MESH_FULL):
+            perm = torch.arange(batch[0].shape[0] - 1, -1, -1, device=dev)
+            (s0, want, t0), (s1, got, t1), (s2, other, _) = (
+                run(kind, cfg, b, m) for b, m in (
+                    (batch, None), (batch, mesh),
+                    (tuple(x[perm] for x in batch), None)))
+
+            def rel(v):
+                return max(abs(a - b) / abs(b) for a, b in zip(v, want))
+
+            err, control = apart(s0, s1), apart(s0, s2)
+            r = res[f"{kind}_full"] = dict(
+                batch=int(batch[0].shape[0]),
+                input_size=int(batch[0].shape[1]),
+                losses=got, unsharded_losses=want, step_ms=t1[-1],
+                unsharded_step_ms=t0[-1], loss_rel_err=rel(got),
+                reordered_loss_rel_err=rel(other), param_err=err,
+                reordered_param_err=control)
+            if not (r["loss_rel_err"] <= r["reordered_loss_rel_err"]
+                    and err[0] <= control[0] and err[2] <= control[2]):
+                fail(f"mesh {kind} at {r['input_size']} / {r['batch']}: "
+                     f"sharded losses {r['loss_rel_err']} and (parameter, "
+                     f"off share, statistic) errors {err} beyond the "
+                     f"reversed batch's {r['reordered_loss_rel_err']} and "
+                     f"{control}")
+            del s0, s1, s2
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    phase("mesh", **res)
+
+
 def kernel_phase(path: str, r: dict) -> None:
     phase("kernel", path=path,
           **{k: v for k, v in r.items() if k not in ("bound", "call")},
@@ -4201,6 +4678,14 @@ def main() -> None:
                                   bf16_rate)
     cli_phase(torch, dev, root, card)
     tf32_phase(torch, root, card)
+
+    # the last modules: the int8 detector, the five knobs, the training
+    # mesh
+    int8_phases(torch, dev, root, cfg, fleet_cfg, nets, engine.extrinsics,
+                obs_seq, fleet_obs, modules, forms, card)
+    knobs_phases(torch, dev, root, cfg, fleet_cfg, nets, engine.extrinsics,
+                 fleet_obs, modules, forms, card)
+    mesh_phase(torch, dev, card)
 
     # 8. the kernels line, then the card, then the device JSON
     launches["carve_update"] = ext_launches["carve_update"]

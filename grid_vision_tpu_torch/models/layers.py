@@ -78,6 +78,25 @@ def conv2d_same(x: torch.Tensor, weight: torch.Tensor, stride: int,
     return conv2d(x, weight, bias, stride, round_out)
 
 
+def s2d_conv(x: torch.Tensor, weight: torch.Tensor,
+             round_out: bool = True) -> torch.Tensor:
+    """A 3x3/s2 SAME conv on an even-sized NCHW input as space-to-depth(2)
+    and a 2x2/s1 conv: x[2p + dy, 2q + dx] lies in phase (dy % 2, dx % 2)
+    at offset (dy // 2, dx // 2), so the (F, C, 3, 3) kernel maps onto a
+    (F, 4C, 2, 2) one over the four phase images (channel (py * 2 + px) * C
+    + c; the (odd, offset 1) quarter is zero). flax's SAME padding, (0, 1),
+    falls on the high edge of the even phases."""
+    b, c, h, w = x.shape
+    w2 = weight.new_zeros((weight.shape[0], 4 * c, 2, 2))
+    for dy in range(3):
+        for dx in range(3):
+            ci = ((dy % 2) * 2 + dx % 2) * c
+            w2[:, ci:ci + c, dy // 2, dx // 2] = weight[:, :, dy, dx]
+    xs = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
+    xs = xs.reshape(b, 4 * c, h // 2, w // 2)
+    return conv2d(F.pad(xs, (0, 1, 0, 1)), w2, round_out=round_out)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm with flax's parameters: weight (flax ``scale``), bias,
     running_mean / running_var (flax ``batch_stats``). momentum is flax's:
@@ -193,7 +212,9 @@ class ConvBN(nn.Module):
     block > 1 (the orientation net's s2d_fold stem): the input is the RAW
     (N, C, H, W) image, Conv_0 holds the canonical post-space-to-depth
     (F, C*block*block, k, k) kernel, and the conv runs as the exact
-    equivalent (k*block)-square conv at stride*block on the raw pixels."""
+    equivalent (k*block)-square conv at stride*block on the raw pixels. A
+    call may pass its own block (1: the unfolded stem on the repacked
+    image), as the parameter is the same either way."""
 
     def __init__(self, c_in: int, features: int, kernel: int = 3,
                  stride: int = 1, act: str = "leaky", block: int = 1,
@@ -206,9 +227,9 @@ class ConvBN(nn.Module):
         self.act = act
         self.block = block
 
-    def conv_weight(self) -> torch.Tensor:
+    def conv_weight(self, block: int | None = None) -> torch.Tensor:
         w = self.Conv_0.weight
-        b = self.block
+        b = self.block if block is None else block
         if b == 1:
             return w
         f, cbb, k, _ = w.shape
@@ -218,10 +239,19 @@ class ConvBN(nn.Module):
         big = hwio.permute(0, 2, 1, 3, 4, 5).reshape(k * b, k * b, cin, f)
         return big.permute(3, 2, 0, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, block: int | None = None,
+                s2d: bool = False) -> torch.Tensor:
+        """block: the stem's fold for this call (default the module's).
+        s2d: a 3x3/s2 conv on an even-sized input runs as s2d_conv (the
+        detector's detector_s2d_stem; the same math)."""
         dtype = x.dtype
-        x = conv2d_same(x, self.conv_weight(), self.stride * self.block,
-                        block=self.block, round_out=False)
+        b = self.block if block is None else block
+        w = self.conv_weight(b)
+        if (s2d and self.stride == 2 and w.shape[-1] == 3 and b == 1
+                and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0):
+            x = s2d_conv(x, w, round_out=False)
+        else:
+            x = conv2d_same(x, w, self.stride * b, block=b, round_out=False)
         x = self.BatchNorm_0(x, dtype)
         if self.act != "leaky":
             return F.relu(x)

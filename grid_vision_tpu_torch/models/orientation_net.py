@@ -4,14 +4,18 @@ contract of the reference's TensorRT engine, vision_orientation.cpp:
 192-239): standardized (N, S, S, 3) crops -> orientation (N, 2, 2) cos/sin
 per bin, bin confidence (N, 2), dimension residuals (N, 3).
 
-The port has the "s2d" arch: a space-to-depth(4) stem conv (with
-s2d_fold=True, the serving default, run as the exact equivalent 12x12/s8
-conv on raw crops; with s2d_fold=False, the form the JAX trainer builds,
-the repack then a 3x3/s2 conv), then a stride-2 conv ladder down to 7 (or
-less), one stride-1 conv, global mean, and the three MultiBin heads. Names
-follow the flax tree (ConvBN_i, MultiBinHeads_0), the same either way, and
-``init_params`` draws flax's init. Every BatchNorm has flax's default
-momentum of 0.99 (train mode, models/layers.BatchNorm).
+Two archs, as in the JAX package (``make_model``). "s2d" (the default): a
+space-to-depth(4) stem conv (with s2d_fold=True, the serving default, run
+as the exact equivalent 12x12/s8 conv on raw crops; with s2d_fold=False,
+the form the JAX trainer builds, the repack then a 3x3/s2 conv; a forward
+call may pick either, the parameter is the same), then a stride-2 conv
+ladder down to 7 (or less), one stride-1 conv, global mean, and the three
+MultiBin heads. "resnet": a ResNet-18 (7x7/s2 stem, 3x3/s2 max pool, four
+stages of two ResBlocks) and the same heads, kept for checkpoints trained
+against it. Names follow the flax tree (ConvBN_i / Conv_0, BatchNorm_0,
+ResBlock_i, MultiBinHeads_0), and ``init_params`` draws flax's init. Every
+BatchNorm has flax's default momentum of 0.99 (train mode,
+models/layers.BatchNorm).
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import ieee_convs
-from .layers import ConvBN, flax_init
+from .layers import BatchNorm, ConvBN, conv2d_same, flax_init, same_pad
 
 _MOMENTUM = 0.99                    # flax nn.BatchNorm's default
 
@@ -69,9 +73,6 @@ class OrientationNetS2D(nn.Module):
 
     def __init__(self, cfg: OrientationConfig = OrientationConfig()):
         super().__init__()
-        if cfg.arch != "s2d":
-            raise NotImplementedError(
-                "the torch port has the s2d arch only")
         self.cfg = cfg
         w = cfg.width
         stage_ch = (4 * w, 8 * w, 8 * w, 8 * w, 8 * w)
@@ -93,20 +94,110 @@ class OrientationNetS2D(nn.Module):
         self.n_conv = i + 1
         self.MultiBinHeads_0 = MultiBinHeads(8 * w, cfg.bins)
 
-    def forward(self, x: torch.Tensor, stem_external: bool = False):
+    def forward(self, x: torch.Tensor, stem_external: bool = False,
+                s2d_fold: bool | None = None):
         """x: (N, S, S, 3) standardized crops (NHWC), or with stem_external
         ConvBN_0's (N, S/8, S/8, 4w) output (the orientation-front kernel,
-        ops/cuda_orient.py); the parameter tree is the same either way. The
+        ops/cuda_orient.py); the parameter tree is the same either way.
+        s2d_fold: the stem's form for this call (default cfg.s2d_fold). The
         convs compute in x's dtype; the pooled features go to the heads in
         f32 (in bf16 the pool is rounded to bf16 first, as jnp.mean of a
         bf16 array is)."""
-        if not (stem_external or self.cfg.s2d_fold):
+        fold = self.cfg.s2d_fold if s2d_fold is None else s2d_fold
+        if not (stem_external or fold):
             x = space_to_depth(x, 4)
         x = x.permute(0, 3, 1, 2)
-        for i in range(1 if stem_external else 0, self.n_conv):
+        if not stem_external:
+            x = self.ConvBN_0(x, block=4 if fold else 1)
+        for i in range(1, self.n_conv):
             x = getattr(self, f"ConvBN_{i}")(x)
-        pooled = x.float().mean(dim=(2, 3)).to(x.dtype).float()
-        return self.MultiBinHeads_0(pooled)
+        return self.MultiBinHeads_0(_pool(x))
+
+
+def _pool(x: torch.Tensor) -> torch.Tensor:
+    """Global mean of NCHW features as f32 (in bf16 rounded to bf16 first,
+    as jnp.mean of a bf16 array is)."""
+    return x.float().mean(dim=(2, 3)).to(x.dtype).float()
+
+
+class ResBlock(nn.Module):
+    """3x3 conv (stride) + BN + relu -> 3x3 conv + BN, plus the input (a
+    1x1 conv at stride + BN where the shapes differ), relu; NCHW in the
+    input's dtype."""
+
+    def __init__(self, c_in: int, features: int, stride: int = 1):
+        super().__init__()
+        self.stride = stride
+        self.Conv_0 = nn.Conv2d(c_in, features, 3, stride, bias=False)
+        self.BatchNorm_0 = BatchNorm(features, _MOMENTUM)
+        self.Conv_1 = nn.Conv2d(features, features, 3, bias=False)
+        self.BatchNorm_1 = BatchNorm(features, _MOMENTUM)
+        # the JAX block projects where residual.shape != y.shape: a stride
+        # of 2 here always comes with doubled channels
+        self.project = stride != 1 or c_in != features
+        if self.project:
+            self.Conv_2 = nn.Conv2d(c_in, features, 1, stride, bias=False)
+            self.BatchNorm_2 = BatchNorm(features, _MOMENTUM)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = x.dtype
+        y = conv2d_same(x, self.Conv_0.weight, self.stride, round_out=False)
+        y = F.relu(self.BatchNorm_0(y, dtype))
+        y = conv2d_same(y, self.Conv_1.weight, 1, round_out=False)
+        y = self.BatchNorm_1(y, dtype)
+        if self.project:
+            x = conv2d_same(x, self.Conv_2.weight, self.stride,
+                            round_out=False)
+            x = self.BatchNorm_2(x, dtype)
+        return F.relu(y + x)
+
+
+class OrientationNet(nn.Module):
+    """The "resnet" arch: 7x7/s2 conv + BN + relu, 3x3/s2 max pool (SAME,
+    -inf padding), stages of width w * (1, 2, 4, 8) with two ResBlocks each
+    (the first of stages 2-4 at stride 2), global mean, MultiBin heads."""
+
+    def __init__(self, cfg: OrientationConfig = OrientationConfig()):
+        super().__init__()
+        self.cfg = cfg
+        w = cfg.width
+        self.Conv_0 = nn.Conv2d(3, w, 7, 2, bias=False)
+        self.BatchNorm_0 = BatchNorm(w, _MOMENTUM)
+        c = w
+        for i, mult in enumerate((1, 2, 4, 8)):
+            setattr(self, f"ResBlock_{2 * i}",
+                    ResBlock(c, w * mult, 1 if i == 0 else 2))
+            setattr(self, f"ResBlock_{2 * i + 1}", ResBlock(w * mult,
+                                                            w * mult))
+            c = w * mult
+        self.MultiBinHeads_0 = MultiBinHeads(c, cfg.bins)
+
+    def forward(self, x: torch.Tensor, stem_external: bool = False,
+                s2d_fold: bool | None = None):
+        """x: (N, S, S, 3) standardized crops (NHWC); the convs compute in
+        x's dtype. The resnet has no external stem; s2d_fold does not
+        apply to it (ignored, as the JAX net ignores it)."""
+        if stem_external:
+            raise ValueError("the resnet arch has no external stem")
+        dtype = x.dtype
+        x = x.permute(0, 3, 1, 2)
+        x = conv2d_same(x, self.Conv_0.weight, 2, round_out=False)
+        x = F.relu(self.BatchNorm_0(x, dtype))
+        py, px = same_pad(x.shape[2], 3, 2), same_pad(x.shape[3], 3, 2)
+        x = F.max_pool2d(F.pad(x, (px[0], px[1], py[0], py[1]),
+                               value=float("-inf")), 3, 2)
+        for i in range(8):
+            x = getattr(self, f"ResBlock_{i}")(x)
+        return self.MultiBinHeads_0(_pool(x))
+
+
+def make_model(cfg: OrientationConfig) -> nn.Module:
+    """The net of cfg.arch ("s2d" or "resnet")."""
+    if cfg.arch == "s2d":
+        return OrientationNetS2D(cfg)
+    if cfg.arch == "resnet":
+        return OrientationNet(cfg)
+    raise ValueError(f"unknown orientation arch {cfg.arch!r}")
 
 
 def space_to_depth(x: torch.Tensor, block: int) -> torch.Tensor:
@@ -119,17 +210,19 @@ def space_to_depth(x: torch.Tensor, block: int) -> torch.Tensor:
 
 
 def init_params(key: torch.Tensor,
-                cfg: OrientationConfig = OrientationConfig()
-                ) -> OrientationNetS2D:
+                cfg: OrientationConfig = OrientationConfig()) -> nn.Module:
     """flax's ``make_model(cfg).init(key, ...)`` as a module on key's
     device (layers.flax_init: the same tree, leaf for leaf)."""
-    return flax_init(OrientationNetS2D(cfg).to(key.device), key)
+    return flax_init(make_model(cfg).to(key.device), key)
 
 
 @ieee_convs()
-def forward(model: OrientationNetS2D, crops: torch.Tensor,
-            stem_external: bool = False, dtype=torch.float32):
+def forward(model: nn.Module, crops: torch.Tensor,
+            stem_external: bool = False, dtype=torch.float32,
+            s2d_fold: bool | None = None):
     """crops (N, S, S, 3) (or ConvBN_0's output with stem_external) ->
     (orient (N, 2, 2), conf (N, 2), dims (N, 3)) in f32; the convs compute
-    in `dtype`, f32 ones in IEEE f32 (device.ieee_convs)."""
-    return model(crops.to(dtype), stem_external)
+    in `dtype`, f32 ones in IEEE f32 (device.ieee_convs). s2d_fold: the s2d
+    stem's form (default the model's; GridVisionConfig.orientation_s2d_fold
+    in the pipeline)."""
+    return model(crops.to(dtype), stem_external, s2d_fold)

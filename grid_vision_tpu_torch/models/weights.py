@@ -27,7 +27,7 @@ from torch import nn
 from ..config import GridVisionConfig
 from ..device import resolve_device
 from ..utils import checkpoint, prng
-from . import onnx_import, orientation_net, yolov4_tiny
+from . import onnx_import, orientation_net, yolov4_int8, yolov4_tiny
 
 logger = logging.getLogger("grid_vision_tpu_torch.weights")
 
@@ -159,9 +159,11 @@ def save_all(params: Dict[str, nn.Module], cfg: GridVisionConfig,
 
 
 def load_all(cfg: GridVisionConfig, base_dir: str = ".", seed: int = 0,
-             device="cuda") -> Dict[str, nn.Module]:
-    """{"detector": YoloV4Tiny, "orientation": OrientationNetS2D} on
-    `device` (the card unless the CPU is asked for), eval mode. Configured
+             device="cuda") -> Dict[str, Any]:
+    """{"detector": YoloV4Tiny, "orientation": the orientation_arch's net}
+    on `device` (the card unless the CPU is asked for), eval mode, and with
+    detector_precision="int8" "detector_q", the detector quantized by
+    yolov4_int8.quantize_detector (the JAX package's load_all). Configured
     npz files load, and a detector file ending in .onnx (the reference
     node's own format) is imported by onnx_import.import_yolov4_tiny; a net
     with no file configured, or a missing file (with a WARNING), gets the
@@ -175,7 +177,7 @@ def load_all(cfg: GridVisionConfig, base_dir: str = ".", seed: int = 0,
         if path is not None and os.path.exists(path):
             net = (yolov4_tiny.YoloV4Tiny(detector_config(cfg))
                    if key == "detector" else
-                   orientation_net.OrientationNetS2D(orientation_config(cfg)))
+                   orientation_net.make_model(orientation_config(cfg)))
             if path.endswith(".onnx"):
                 tree = onnx_import.import_yolov4_tiny(path, flax_tree(net))
             else:
@@ -186,4 +188,8 @@ def load_all(cfg: GridVisionConfig, base_dir: str = ".", seed: int = 0,
                 logger.warning("configured %s weights %r not found; using "
                                "random init", key, rel)
             nets[key] = _init_net(key, cfg, keys[key])
-    return {k: m.eval() for k, m in nets.items()}
+    params: Dict[str, Any] = {k: m.eval() for k, m in nets.items()}
+    if cfg.detector_precision == "int8":
+        params["detector_q"] = yolov4_int8.quantize_detector(
+            params["detector"])
+    return params

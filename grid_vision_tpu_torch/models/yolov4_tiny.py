@@ -72,6 +72,9 @@ class YoloV4Tiny(nn.Module):
     front_external=True: the input is the post-first-max-pool
     (B, S/8, S/8, 128) activation of the CSP-stage kernel
     (ops/cuda_csp.py), which also ran ConvBN_2, CSPBlock_0 and the pool.
+    s2d_stem=True: ConvBN_0 and ConvBN_1 (3x3/s2) run as space-to-depth
+    and a 2x2 conv (layers.s2d_conv; the same math and parameters; the
+    JAX package's YoloConfig.s2d_stem).
     The net computes in its input's dtype (f32, or bf16 as the JAX
     package's compute_dtype="bfloat16"); the heads come back in f32."""
 
@@ -107,11 +110,12 @@ class YoloV4Tiny(nn.Module):
         return F.max_pool2d(x, 2, 2)
 
     def forward(self, x: torch.Tensor, stem_external: bool = False,
-                front_external: bool = False):
+                front_external: bool = False, s2d_stem: bool = False):
         x = x.permute(0, 3, 1, 2)
         if not front_external:
             if not stem_external:
-                x = self.ConvBN_1(self.ConvBN_0(x))         # 104
+                x = self.ConvBN_0(x, s2d=s2d_stem)
+                x = self.ConvBN_1(x, s2d=s2d_stem)          # 104
             x = self.front(x)                               # 52, 128ch
         x = self.ConvBN_3(x)
         x, _ = self.CSPBlock_1(x)
@@ -180,9 +184,9 @@ def init_params(key: torch.Tensor, cfg: YoloConfig = YoloConfig()
 @ieee_convs()
 def forward(model: YoloV4Tiny, images: torch.Tensor,
             stem_external: bool = False, front_external: bool = False,
-            dtype=torch.float32):
+            dtype=torch.float32, s2d_stem: bool = False):
     """images (B, S, S, 3) in [0, 1] (or the stem / CSP-stage activation)
     -> (boxes (B, N, 4), confs (B, N, C)) in f32; the net computes in
     `dtype`, its f32 convs in IEEE f32 (device.ieee_convs)."""
-    h1, h2 = model(images.to(dtype), stem_external, front_external)
+    h1, h2 = model(images.to(dtype), stem_external, front_external, s2d_stem)
     return decode(model, h1, h2)

@@ -4,7 +4,10 @@ grid_vision_tpu/ops/association.py; reference cloud_detections.cpp:8-87).
 The KD-tree k-NN of computeDepthForBoundingBoxes becomes an exact
 brute-force search over the projected cloud, keeping the reference's 3D
 metric quirk: the tree stores (u, v, depth) and the query has depth 0, so
-depth^2 takes part in the distance. This is the ``knn_backend="xla"`` path;
+depth^2 takes part in the distance. This is the ``knn_backend="xla"`` path
+and the ``"approx"`` one (the JAX package's jax.lax.approx_min_k, a TPU
+partial reduction, is exact with ties to the lowest index on the CPU: this
+search; torch.topk's tie order on CUDA is unspecified, so a stable sort);
 ``ops/cuda_knn.py`` holds the kernel. Every function takes leading rig
 axes (the fleet path's (R, P, 3) clouds and (R, D) boxes).
 """

@@ -1,5 +1,6 @@
-"""The rig mesh: logical shards of a fleet's rigs, each on a device
-(counterpart of grid_vision_tpu/parallel/mesh.py's rig_mesh).
+"""The rig mesh, logical shards of a fleet's rigs, each on a device, and
+the dp x tp training mesh (counterpart of grid_vision_tpu/parallel/mesh.py:
+rig_mesh, make_mesh, shard_params, replicate).
 
 The JAX package shards rigs over a 1-D ``rig`` axis of a device mesh, and
 some of its results depend on the number of shards: the fleet's
@@ -12,13 +13,24 @@ H100, and compute what 8 devices of the JAX mesh compute. Shard s holds
 rigs [s * n / S, (s + 1) * n / S). As in the JAX package all shards run in
 one process (its mesh has no DCN path).
 
-The dp x tp training mesh (make_mesh, shard_params, replicate) belongs to
-the trainer, which the port does not have yet.
+The training mesh (``make_mesh``: a (dp, tp) grid of logical shards)
+shards the batch over dp and the wide conv and dense kernels' output
+channels over tp (``shard_params``; the rest is ``replicate``d), as the
+JAX package's jit over its mesh does. That mesh too is one process. Its
+shards here are logical shards of one device, so the sharding changes
+where nothing lives; it fixes what the sharded train step computes
+(train/trainer.make_train_step(..., mesh=)): the forward on the whole
+batch, BatchNorm moments and loss over all of it, and the gradients
+summed over the dp shards, as the JAX mesh's psum sums them. On one
+device that sum is the whole batch's gradient, which the step's plain
+backward computes. tp changes no number: each output channel's sums are the same
+whichever shard holds it.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
@@ -90,3 +102,75 @@ def nets_on(params: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
     from them)."""
     return {k: copy.deepcopy(params[k]).to(device)
             for k in ("detector", "orientation") if k in params}
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainMesh:
+    """A (dp, tp) grid of logical shards, all on one device: shard (i, j)
+    is dp row i, tp column j. axis_names names the two axes (the JAX
+    package's ("dp", "tp"))."""
+    device: torch.device
+    dp: int
+    tp: int
+    axis_names: Tuple[str, str] = ("dp", "tp")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, (self.dp, self.tp)))
+
+    @property
+    def size(self) -> int:
+        return self.dp * self.tp
+
+
+def make_mesh(n_devices: Optional[int] = None,
+              axis_names: Sequence[str] = ("dp", "tp"), tp: int = 1,
+              device="cuda") -> TrainMesh:
+    """A training mesh of n_devices logical shards (default 1) on `device`
+    (the card unless the CPU is asked for; CUDA without a card raises),
+    shaped (n_devices // tp, tp)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    n = n_devices or 1
+    if n % tp:
+        raise ValueError(f"n_devices {n} not divisible by tp {tp}")
+    return TrainMesh(dev, n // tp, tp, tuple(axis_names))
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where a leaf lives on a TrainMesh: split along `dim` into mesh.tp
+    equal pieces over the tp axis (each dp row holds all of them), or
+    replicated on every shard (dim None)."""
+    mesh: TrainMesh
+    dim: Optional[int]
+
+    @property
+    def tp_sharded(self) -> bool:
+        return self.dim is not None
+
+
+def shard_params(params, mesh: TrainMesh, tp_axis: str = "tp"
+                 ) -> Dict[str, Placement]:
+    """The JAX package's tensor-parallel rule, leaf by leaf of a module's
+    parameters (or a {name: tensor} dict): a conv or dense weight (2-D or
+    more) whose output-channel dim (torch's first, flax's last) divides by
+    the tp size and is at least 8 x the tp size is split over tp_axis;
+    everything else is replicated."""
+    tp = mesh.shape[tp_axis]
+    leaves = (dict(params.named_parameters())
+              if isinstance(params, torch.nn.Module) else params)
+    return {name: Placement(mesh, 0 if (leaf.dim() >= 2
+                                        and leaf.shape[0] % tp == 0
+                                        and leaf.shape[0] >= 8 * tp)
+                            else None)
+            for name, leaf in leaves.items()}
+
+
+def replicate(tree, mesh: TrainMesh) -> Dict[str, Placement]:
+    """Every leaf of a module's buffers (the BatchNorm statistics) or of a
+    {name: tensor} dict replicated on every shard."""
+    leaves = (dict(tree.named_buffers())
+              if isinstance(tree, torch.nn.Module) else tree)
+    return {name: Placement(mesh, None) for name in leaves}

@@ -39,17 +39,18 @@ detector ``"pallas2"`` / ``"pallas3"``, which add the CSP-stage kernel)
 runs this package's CUDA kernels (ops/cuda_*.py), ``"xla"`` the
 plain-torch port of the JAX package's XLA function.
 
-This port covers both pose branches (use_vision_orientation true and
-false) in f32 and in bf16 (compute_dtype="bfloat16", with every
-orientation_compute): the shipped default config, the fleet configuration
-of bench.py, the extension flags (raycast_free_space,
-yaw_aware_rasterization, vision_depth_refine, class_aware_nms) and every
-kernel backend. In bf16 the detector and the orientation branch (crops,
-net) compute in bf16 as the JAX package does; MultiBin, decode, NMS, the
-kNN, the PCA branch (from the f32 cloud), the grid and the carve stay f32.
-Options it does not port yet (int8, the s2d detector stem,
-knn_backend="approx", the resnet orientation arch) raise
-NotImplementedError rather than run something else.
+This port covers every configuration the JAX package's validate() accepts:
+both pose branches (use_vision_orientation true and false) in f32 and in
+bf16 (compute_dtype="bfloat16", with every orientation_compute), the
+shipped default config, the fleet configuration of bench.py, the extension
+flags (raycast_free_space, yaw_aware_rasterization, vision_depth_refine,
+class_aware_nms), every kernel backend, the int8 detector
+(detector_precision="int8": models/yolov4_int8.py, on the plain resize
+path), the s2d and im2col detector stems, knn_backend="approx", both
+orientation archs and both forms of the s2d orientation stem. In bf16 the
+detector and the orientation branch (crops, net) compute in bf16 as the JAX
+package does; MultiBin, decode, NMS, the kNN, the PCA branch (from the f32
+cloud), the grid and the carve stay f32.
 """
 
 from __future__ import annotations
@@ -64,10 +65,10 @@ from .config import GridVisionConfig
 from .device import resolve_device
 from .geometry import (intrinsic_inverse, intrinsic_matrix, pixel_to_3d,
                        transform_points, transform_pose)
-from .models import orientation_net, weights, yolov4_tiny
+from .models import orientation_net, weights, yolov4_int8, yolov4_tiny
 from .ops import (association, cuda_csp, cuda_grid, cuda_knn, cuda_orient,
                   cuda_raycast, cuda_stem, lshape, multibin, plane,
-                  preprocess, rasterize, raycast, tracking)
+                  preprocess, rasterize, raycast, stem_im2col, tracking)
 from .ops.decode import extract_boxes, top_k
 from .taxonomy import is_dynamic
 from .types import (Boxes, Extrinsics, GridState, LShapePoses, Obs,
@@ -76,12 +77,11 @@ from .types import (Boxes, Extrinsics, GridState, LShapePoses, Obs,
 from .utils import prng
 
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
 def compute_dtype(cfg: GridVisionConfig) -> torch.dtype:
-    """The detector's compute dtype."""
-    return _DTYPES[cfg.compute_dtype]
+    """The detector's compute dtype: bf16 for "bfloat16", else f32 (as the
+    JAX package reads compute_dtype)."""
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else \
+        torch.float32
 
 
 def _orientation_dtype(cfg: GridVisionConfig) -> torch.dtype:
@@ -99,43 +99,43 @@ def _consts_key(name: str, dtype: torch.dtype) -> str:
     return name if dtype == torch.float32 else name + "_bf16"
 
 
-def check_slice(cfg: GridVisionConfig) -> None:
-    """Raise NotImplementedError for options this port does not run yet."""
-    unported = {
-        "compute_dtype": cfg.compute_dtype not in _DTYPES,
-        "detector_precision": cfg.detector_precision != "float",
-        "detector_s2d_stem": cfg.detector_s2d_stem,
-        "detector_stem_backend": cfg.detector_stem_backend not in (
-            "xla", "pallas", "pallas2", "pallas3"),
-        "knn_backend": cfg.knn_backend not in ("xla", "pallas"),
-        "orientation_arch": cfg.orientation_arch != "s2d",
-        "orientation_s2d_fold": not cfg.orientation_s2d_fold,
-        "orientation_stem_backend": cfg.orientation_stem_backend not in (
-            "xla", "pallas"),
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(
-            f"not in the torch port yet: {', '.join(bad)} = "
-            + ", ".join(repr(getattr(cfg, k)) for k in bad))
-
-
 def _detector_forward(params, images: torch.Tensor, cfg: GridVisionConfig):
     """(B, H, W, 3) [0, 255] frames -> (boxes (B, N, 4), confs (B, N, C)).
 
+    "xla" resizes the frames (preprocess_detector_image) and runs the whole
+    net, or with detector_precision="int8" the quantized net
+    (yolov4_int8.forward_int8 on params["detector_q"], which
+    weights.load_all and Engine init prepare; a KeyError without it);
+    detector_s2d_stem runs its ConvBN_0/1 as space-to-depth convs.
     "pallas" feeds the net the stem kernel's stage-2 activation
     (stem_external); "pallas2" and "pallas3", two TPU layouts of one CSP
-    stage, both add the CSP-stage kernel (front_external). The folded
-    constants ride in params when the Engine prepared them. The net
-    computes in compute_dtype; the frames go to the stem kernel in it (as
-    pallas_stem casts them)."""
+    stage, both add the CSP-stage kernel (front_external); "im2col" feeds
+    it the stem's matmul form (ops/stem_im2col.py). The folded constants
+    ride in params when the Engine prepared them. The net computes in compute_dtype; the frames go
+    to the stem kernel in it (as pallas_stem casts them)."""
     backend = cfg.detector_stem_backend
     detector = params["detector"]
     dt = compute_dtype(cfg)
     if backend == "xla":
         net_in = torch.stack([preprocess.preprocess_detector_image(
             im, cfg.resize, dt) for im in images])
-        return yolov4_tiny.forward(detector, net_in, dtype=dt)
+        if cfg.detector_precision == "int8":
+            if "detector_q" not in params:
+                raise KeyError("detector_precision='int8' needs "
+                               "params['detector_q'], the quantized "
+                               "detector: load the params with "
+                               "weights.load_all(cfg) or through Engine")
+            return yolov4_int8.forward_int8(
+                params["detector_q"], net_in,
+                yolov4_tiny.YoloConfig(input_size=cfg.resize))
+        return yolov4_tiny.forward(detector, net_in, dtype=dt,
+                                   s2d_stem=cfg.detector_s2d_stem)
+    if backend == "im2col":
+        consts = params.get("detector_im2col")
+        if consts is None:
+            consts = stem_im2col.prepare_im2col_constants(detector)
+        x = stem_im2col.detector_stem_im2col(images, consts, cfg.resize, dt)
+        return yolov4_tiny.forward(detector, x, stem_external=True, dtype=dt)
     consts = params.get(_consts_key("detector_stem", dt))
     if consts is None:
         consts = cuda_stem.prepare_stem_constants(detector, dt)
@@ -190,8 +190,9 @@ def _vision_orientation_poses(params, image: torch.Tensor, boxes: Boxes,
     gdtype = _orientation_dtype(cfg)
     crops = preprocess.crop_resize_standardize(
         image, dyn_boxes, cfg.network_height, compute_dtype=gdtype)
-    orient, conf, dims = orientation_net.forward(params["orientation"], crops,
-                                                 dtype=gdtype)
+    orient, conf, dims = orientation_net.forward(
+        params["orientation"], crops, dtype=gdtype,
+        s2d_fold=cfg.orientation_s2d_fold)
     return multibin.multibin_poses(orient, conf, dims, dyn_boxes, K, cfg)
 
 
@@ -245,8 +246,8 @@ def _fleet_vision_poses(params, images: torch.Tensor, boxes_b: Boxes,
             for r in range(n_rigs)])
         crops = preprocess._standardize(crops_raw[top_idx], g_boxes.valid,
                                         out_dtype=gdtype)
-        orient, conf, dims = orientation_net.forward(model, crops,
-                                                     dtype=gdtype)
+        orient, conf, dims = orientation_net.forward(
+            model, crops, dtype=gdtype, s2d_fold=cfg.orientation_s2d_fold)
     poses_g = multibin.multibin_poses(orient, conf, dims, g_boxes, K, cfg)
 
     def scatter(x, fill):
@@ -375,7 +376,7 @@ def _fuse_rigs(state: GridState, obs: Obs, boxes: Boxes,
     if cfg.knn_backend == "pallas":
         q_depths = cuda_knn.knn_median_depth_cuda(uvd, uvd_valid, q_boxes,
                                                   cfg.k_near)
-    else:
+    else:                               # "xla" and "approx": the same search
         q_depths = association.knn_median_depth(uvd, uvd_valid, q_boxes,
                                                 cfg.k_near)
     if knn_take is None:
@@ -504,7 +505,6 @@ def _refine_depth(poses_cam: LShapePoses, boxes: Boxes,
 def step(params: Dict[str, Any], state: GridState, obs: Obs,
          extrinsics: Extrinsics, cfg: GridVisionConfig):
     """One fused tick. Returns (new GridState, StepOutput)."""
-    check_slice(cfg)
     boxes, prenms_overflow = detect_with_stats(params, obs.image, cfg)
     return fuse(params, state, obs, boxes, extrinsics, cfg,
                 prenms_overflow=prenms_overflow)
@@ -547,7 +547,6 @@ def fuse(params: Dict[str, Any], state: GridState, obs: Obs, boxes: Boxes,
     (pose_branch's, one rig, with its box_cloud_truncated) in place of the
     pose branch. params["carve_maps"], where present, must be
     raycast.cell_polar_maps of these extrinsics (the Engine's are)."""
-    check_slice(cfg)
     dev = state.log_odds.device
     zero = torch.zeros((1,), dtype=torch.int32, device=dev)
     state1, obs1, boxes1 = (stack([v]) for v in (state, obs, boxes))
@@ -582,7 +581,6 @@ def fleet_step(params: Dict[str, Any], states: GridState, obs_b: Obs,
     branch ignores the budget (every rig's poses: per-rig step, as the JAX
     package's vmap of step). Returns (states', StepOutput with a rig
     axis)."""
-    check_slice(cfg)
     n_rigs = obs_b.image.shape[0]
     dev = obs_b.image.device
     boxes_b, overflow_b = detect_batch(params, obs_b.image, cfg)
@@ -621,7 +619,6 @@ class Engine:
                  params: Dict[str, Any] | None = None, seed: int = 0,
                  device="cuda", base_dir: str = "."):
         cfg.validate()
-        check_slice(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.extrinsics = (extrinsics or Extrinsics.identity()).to(
@@ -634,7 +631,8 @@ class Engine:
         # kernel runs in
         dt, gdt = compute_dtype(cfg), _orientation_dtype(cfg)
         for used, key, prepare, net in (
-                (cfg.detector_stem_backend != "xla",
+                (cfg.detector_stem_backend in ("pallas", "pallas2",
+                                               "pallas3"),
                  _consts_key("detector_stem", dt),
                  cuda_stem.prepare_stem_constants, "detector"),
                 (cfg.detector_stem_backend in ("pallas2", "pallas3"),
@@ -647,6 +645,15 @@ class Engine:
             if used and key not in params:
                 params[key] = prepare(params[net],
                                       dt if net == "detector" else gdt)
+        # the im2col stem's constants (f32, cast at use) and the quantized
+        # detector, folded once on the host
+        if (cfg.detector_stem_backend == "im2col"
+                and "detector_im2col" not in params):
+            params["detector_im2col"] = stem_im2col.prepare_im2col_constants(
+                params["detector"])
+        if cfg.detector_precision == "int8" and "detector_q" not in params:
+            params["detector_q"] = yolov4_int8.quantize_detector(
+                params["detector"])
         # the carve's per-cell polar maps depend only on the extrinsics and
         # the grid geometry, which this engine fixes
         if cfg.raycast_free_space and "carve_maps" not in params:

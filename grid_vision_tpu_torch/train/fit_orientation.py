@@ -9,7 +9,8 @@ cos/sin offset). Dimension targets are zero residuals (the class-average
 fallback: a standardized synthetic crop carries no metric size cue), unless
 --scene-crops mixes in metric crops from the scene renderer. Produces the
 weights of the engine's use_vision_orientation path (s2d arch; the stem
-trains unfolded, s2d_fold=False, and serves folded: the same parameters).
+trains unfolded, s2d_fold=False, and serves folded: the same parameters;
+--arch resnet trains the ResNet-18 net, orientation_arch="resnet").
 
 The MultiBin target convention matches ops/multibin.compute_alpha:
 alpha = atan2(sin, cos) + bin_center - pi, so the trained offset for a bin
@@ -192,9 +193,6 @@ def main(argv=None):
                     help="fraction of each batch drawn from the metric "
                          "scene crops")
     args = ap.parse_args(argv)
-    if args.arch != "s2d":
-        raise NotImplementedError(
-            "the resnet orientation arch is not in the torch port yet")
     device = resolve_device("cpu" if args.cpu else "cuda")
 
     from ..models.orientation_net import OrientationConfig

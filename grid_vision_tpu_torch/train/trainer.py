@@ -10,7 +10,17 @@ JAX step's plain XLA: no kernel of the JAX package serves training, which
 normalizes with batch statistics) and reads nothing back, so a loop of
 steps runs without synchronizing the card.
 
-``AdamW`` is the counterpart of ``optax.adamw(schedule, weight_decay)``:
+With ``mesh=`` (parallel/mesh.make_mesh: a dp x tp grid of logical
+shards of one device) the step computes what the JAX package's step jitted
+over that mesh computes on the global batch: the forward on the whole
+batch (BatchNorm moments and the loss over all of it) and the gradients
+summed over the dp shards. The shards share one device, where the sum of
+the per-shard gradients is the whole batch's gradient, so the step runs
+the same backward as the unsharded one, after checking that the batch is
+on the mesh's device and splits into its dp shards.
+
+``SGD`` is ``optax.sgd(learning_rate)`` (no momentum); ``AdamW`` is the
+counterpart of ``optax.adamw(schedule, weight_decay)``:
 torch.optim.AdamW (the same update: decoupled weight decay on every
 parameter, BatchNorm's and the biases included, eps added outside the
 square root) with the learning rate set before each step from the
@@ -64,22 +74,31 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
 
 
 @dataclasses.dataclass(frozen=True)
-class AdamW:
-    """optax.adamw(learning_rate, weight_decay=...) with optax's b1, b2 and
-    eps, as a torch.optim.AdamW factory: learning_rate is a float or a
-    schedule (count -> lr)."""
+class SGD:
+    """optax.sgd(learning_rate): p - lr * g, no momentum, as a
+    torch.optim.SGD factory: learning_rate is a float or a schedule (count
+    -> lr)."""
     learning_rate: Union[float, Callable[[int], float]]
-    weight_decay: float = 1e-4
 
-    def init(self, module: nn.Module) -> torch.optim.AdamW:
-        return torch.optim.AdamW(module.parameters(), lr=self.lr(0),
-                                 betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=self.weight_decay)
+    def init(self, module: nn.Module) -> torch.optim.Optimizer:
+        return torch.optim.SGD(module.parameters(), lr=self.lr(0))
 
     def lr(self, count: int) -> float:
         if callable(self.learning_rate):
             return self.learning_rate(count)
         return float(self.learning_rate)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW(SGD):
+    """optax.adamw(learning_rate, weight_decay=...) with optax's b1, b2 and
+    eps, as a torch.optim.AdamW factory (SGD's learning_rate)."""
+    weight_decay: float = 1e-4
+
+    def init(self, module: nn.Module) -> torch.optim.Optimizer:
+        return torch.optim.AdamW(module.parameters(), lr=self.lr(0),
+                                 betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=self.weight_decay)
 
 
 @dataclasses.dataclass
@@ -99,17 +118,14 @@ def _loss_fn(loss_kind: str, model_cfg):
     raise ValueError(loss_kind)
 
 
-def make_train_step(loss_kind: str, model_cfg, tx: AdamW,
-                    mesh=None) -> Callable:
+def make_train_step(loss_kind: str, model_cfg, tx, mesh=None) -> Callable:
     """train_step(state, *batch) -> (state, metrics), updating state's
     module and optimizer in place. loss_kind: "yolo" (batch = images,
     tgt_boxes, tgt_class, tgt_pos) or "multibin" (batch = crops, tgt_dims,
-    tgt_bin, tgt_angle_offset[, dim_weight, angle_weight]). metrics: the
-    loss and the loss's aux terms, detached on the device."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded train step (the training mesh: make_mesh, "
-            "shard_params, replicate) is a later slice of the port")
+    tgt_bin, tgt_angle_offset[, dim_weight, angle_weight]); tx: AdamW or
+    SGD. mesh: a parallel.mesh.TrainMesh, whose device the module and the
+    batch must be on, the batch a whole number of its dp shards.
+    metrics: the loss and the loss's aux terms, detached on the device."""
     loss_fn = _loss_fn(loss_kind, model_cfg)
 
     def train_step(state: TrainState, *batch):
@@ -118,6 +134,13 @@ def make_train_step(loss_kind: str, model_cfg, tx: AdamW,
         # the backward's convs run when backward() is called: one scope
         # holds the forward and the backward out of TF32
         with ieee_convs():
+            if mesh is not None:
+                if batch[0].device != mesh.device:
+                    raise ValueError(f"the batch is on {batch[0].device}, "
+                                     f"the mesh on {mesh.device}")
+                if batch[0].shape[0] % mesh.dp:
+                    raise ValueError(f"batch {batch[0].shape[0]} does not "
+                                     f"split into {mesh.dp} dp shards")
             loss, (mutated, aux) = loss_fn(model, *batch, train=True)
             loss.backward()
         for group in opt.param_groups:
@@ -134,7 +157,7 @@ def make_train_step(loss_kind: str, model_cfg, tx: AdamW,
     return train_step
 
 
-def init_train_state(loss_kind: str, model_cfg, tx: AdamW,
+def init_train_state(loss_kind: str, model_cfg, tx,
                      rng: torch.Tensor) -> TrainState:
     """The net of model_cfg with flax's init from `rng` (on rng's device,
     train mode) and tx's optimizer over its parameters."""

@@ -264,7 +264,13 @@ def test_bench_config_defaults_and_knobs():
     assert (cfg.detector_stem_backend, cfg.orientation_stem_backend,
             cfg.orientation_compute, cfg.knn_backend) == (
         "pallas2", "pallas", "float32", "pallas")
-    pipeline.check_slice(cfg)
+    cfg.validate()
+    # bench.py's documented im2col stem and approx kNN switches
+    cfg, *_ = bench.bench_config(dict(GV_BENCH_STEM="im2col",
+                                      GV_BENCH_KNN="approx"))
+    assert (cfg.detector_stem_backend, cfg.knn_backend) == ("im2col",
+                                                            "approx")
+    cfg.validate()
 
 
 class _Clock:

@@ -214,8 +214,10 @@ def _inject_jax_nets(monkeypatch, tree, jcfg):
     jnet = jax.jit(lambda v, x: jorient.forward(v, x.astype(jnp.bfloat16),
                                                 ocfg))
 
-    def orientation(model, crops, stem_external=False, dtype=None):
+    def orientation(model, crops, stem_external=False, dtype=None,
+                    s2d_fold=None):
         assert not stem_external and crops.dtype == torch.bfloat16
+        assert s2d_fold                 # the config's folded stem
         outs = jnet(tree["orientation"], jnp.asarray(crops.float().numpy()))
         return tuple(torch.tensor(np.asarray(o)) for o in outs)
 
@@ -254,21 +256,22 @@ def test_step_with_jax_nets_injected_is_exact(nets, monkeypatch, mode):
 @pytest.mark.parametrize("orient", ["follow", "float32", "bfloat16"])
 def test_orientation_compute_mixes_run(nets, monkeypatch, compute, orient):
     """Every orientation_compute under every compute_dtype passes
-    check_slice and runs step and fleet_step; the orientation net sees
+    validate() and runs step and fleet_step; the orientation net sees
     crops (or the front kernel's activation) in _orientation_dtype."""
     _, port = nets
     flags = dict(SMALL, compute_dtype=compute, orientation_compute=orient)
     cfg = GridVisionConfig(**flags, **KERNELS)
-    pipeline.check_slice(cfg)
+    cfg.validate()
     want = torch.bfloat16 if (orient == "bfloat16" or (
         orient == "follow" and compute == "bfloat16")) else torch.float32
     assert pipeline._orientation_dtype(cfg) == want
     seen = []
     real = orientation_net.forward
 
-    def spy(model, x, stem_external=False, dtype=torch.float32):
+    def spy(model, x, stem_external=False, dtype=torch.float32,
+            s2d_fold=None):
         seen.append((x.dtype, dtype))
-        return real(model, x, stem_external, dtype)
+        return real(model, x, stem_external, dtype, s2d_fold)
 
     monkeypatch.setattr(pipeline.orientation_net, "forward", spy)
     eng = pipeline.Engine(cfg, extrinsics=demo.default_extrinsics("cpu"),

@@ -1341,3 +1341,59 @@ def test_bench_chunk_digest_equals_engine_fleet(cuda_device):
         ref = ref + bench.output_digest(out)
     np.testing.assert_array_equal(acc.cpu().numpy(), ref.cpu().numpy())
     assert torch.equal(states.log_odds, ref_states.log_odds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,size", [(1, 416), (3, 416), (2, 160)])
+def test_int8_gemm_bit_equal_to_f64_conv_at_every_layer(cuda_device, batch,
+                                                        size):
+    """The int8 detector's torch._int_mm convs against the plain f64 conv
+    on the same int8 activations, at every layer's shape (the 19 sites of
+    a forward), bit for bit; one GEMM a conv."""
+    from grid_vision_tpu_torch.models import yolov4_int8, yolov4_tiny
+    cfg = GridVisionConfig(detection_weights_file="weights/detector.npz",
+                           detection_network_input_size=size)
+    det = weights.load_all(cfg, device=cuda_device)["detector"]
+    q = yolov4_int8.quantize_detector(det)
+    seen = []
+
+    def both(x, site, layer, stride):
+        sx = yolov4_int8.act_scale(x)
+        xq = yolov4_int8.quantize_act(x, sx)
+        acc = yolov4_int8.int8_conv(xq, layer, stride)
+        ref = yolov4_int8.int8_conv_plain(xq, layer["wq"], stride)
+        assert acc.dtype == torch.int32 and torch.equal(acc, ref), site
+        seen.append(site)
+        return yolov4_int8.requant(acc, sx, layer)
+
+    images = torch.rand((batch, size, size, 3), generator=torch.Generator(
+        device="cuda").manual_seed(batch), device=cuda_device)
+    n0 = yolov4_int8.launches
+    yolov4_int8._topology(q, images, yolov4_tiny.YoloConfig(input_size=size),
+                          both)
+    assert sorted(seen) == sorted(yolov4_int8.LAYERS)
+    assert yolov4_int8.launches - n0 == len(yolov4_int8.LAYERS)
+    boxes, confs = yolov4_int8.forward_int8(
+        q, images, yolov4_tiny.YoloConfig(input_size=size))
+    assert torch.isfinite(boxes).all() and torch.isfinite(confs).all()
+
+
+@pytest.mark.cuda
+def test_int8_gemm_refuses_what_int_mm_refuses(cuda_device):
+    """16 rows or fewer raise before torch._int_mm is called; the plain
+    conv takes any shape."""
+    from grid_vision_tpu_torch.models import yolov4_int8
+    cfg = GridVisionConfig(detection_weights_file="weights/detector.npz")
+    q = yolov4_int8.quantize_detector(
+        weights.load_all(cfg, device=cuda_device)["detector"])
+    xq = torch.ones((1, 4, 4, 512), dtype=torch.int8, device=cuda_device)
+    n0 = yolov4_int8.launches
+    with pytest.raises(ValueError, match="16 rows"):
+        yolov4_int8.int8_conv(xq, q["ConvBN_5"], 1)          # M = 16
+    assert yolov4_int8.launches == n0
+    assert yolov4_int8.int8_conv_plain(xq, q["ConvBN_5"]["wq"], 1).shape \
+        == (1, 4, 4, 512)
+    big = torch.ones((1, 5, 4, 512), dtype=torch.int8, device=cuda_device)
+    assert torch.equal(yolov4_int8.int8_conv(big, q["ConvBN_5"], 1),
+                       yolov4_int8.int8_conv_plain(big, q["ConvBN_5"]["wq"],
+                                                   1))

@@ -275,22 +275,68 @@ def test_carve_takes_precedence_over_yaw_aware(fleet):
 @pytest.mark.parametrize("flag", ["raycast_free_space",
                                   "yaw_aware_rasterization",
                                   "vision_depth_refine", "class_aware_nms"])
-def test_check_slice_accepts_the_extension_flags(flag):
-    cfg = GridVisionConfig(compat=False, **{flag: True})
+def test_check_slice_accepts_the_extension_flags(fleet, flag):
+    """Each extension flag alone passes validate() and runs the fleet tick
+    (the port refuses no configuration validate() accepts; the name is
+    the one it had when a check of the port's own, gone since, stood
+    beside validate())."""
+    _, _, eng, obs_seq = fleet
+    cfg = dataclasses.replace(GridVisionConfig(**SMALL), **{flag: True})
     cfg.validate()
-    pipeline.check_slice(cfg)
+    run = pipeline.Engine(cfg, extrinsics=eng.extrinsics,
+                          params={k: eng.params[k]
+                                  for k in ("detector", "orientation")},
+                          device="cpu")
+    _, out = run.fleet(run.init_states(R), obs_seq[0])
+    assert torch.isfinite(out.poses.position[out.poses.valid]).all()
 
 
 @pytest.mark.parametrize("overrides,name", [
-    (dict(detector_precision="int8"), "detector_precision"),
-    (dict(detector_s2d_stem=True), "detector_s2d_stem"),
+    (dict(detector_precision="int8", detector_stem_backend="xla"),
+     "detector_precision"),
+    (dict(detector_s2d_stem=True, detector_stem_backend="xla"),
+     "detector_s2d_stem"),
     (dict(orientation_s2d_fold=False), "orientation_s2d_fold"),
     (dict(detector_stem_backend="im2col"), "detector_stem_backend"),
     (dict(knn_backend="approx"), "knn_backend"),
     (dict(orientation_arch="resnet"), "orientation_arch"),
 ])
-def test_check_slice_still_refuses_the_unported(overrides, name):
-    cfg = GridVisionConfig(compat=False, raycast_free_space=True,
-                           **overrides)
-    with pytest.raises(NotImplementedError, match=name):
-        pipeline.check_slice(cfg)
+def test_check_slice_still_refuses_the_unported(fleet, overrides, name):
+    """The knobs the port once refused now run the extension tick, single
+    rig and fleet, with the carve kernel's twin. The s2d stem, the unfolded
+    orientation stem, the im2col stem and the approx kNN compute the
+    default's math (tests/test_torch_knobs.py holds each to the JAX
+    package): their ticks keep the default's boxes and box validity. int8
+    and the resnet (the flax init at seed 1) are other nets: their outputs
+    are finite (tests/test_torch_int8_detector.py and
+    tests/test_torch_knobs.py hold them to the JAX package). The test
+    keeps the name it had when the port refused these knobs."""
+    _, _, eng, obs_seq = fleet
+    base = GridVisionConfig(**dict(SMALL, raycast_free_space=True,
+                                   detector_stem_backend=overrides.get(
+                                       "detector_stem_backend", "pallas")))
+    cfg = dataclasses.replace(base, **overrides)
+    cfg.validate()
+    assert getattr(cfg, name) != getattr(GridVisionConfig(), name)
+    nets = {k: eng.params[k] for k in ("detector", "orientation")}
+    if name == "orientation_arch":
+        nets = dict(nets, orientation=weights.init_all(
+            cfg, seed=1, device="cpu")["orientation"])
+    outs = []
+    for c in (cfg, base):
+        run = pipeline.Engine(c, extrinsics=eng.extrinsics, params=nets,
+                              device="cpu")
+        _, out = run(run.init_state(), obs_seq[0].select(0))
+        _, fout = run.fleet(run.init_states(R), obs_seq[0])
+        outs.append((out, fout))
+    for got, ref in zip(*outs):
+        assert torch.isfinite(got.poses.position[got.poses.valid]).all()
+        assert torch.isfinite(got.boxes.xyxy).all()
+        assert got.occupancy_i8.shape == ref.occupancy_i8.shape
+        if name in ("detector_precision", "orientation_arch"):
+            continue
+        assert torch.equal(got.boxes.valid, ref.boxes.valid)
+        torch.testing.assert_close(got.boxes.xyxy, ref.boxes.xyxy,
+                                   rtol=1e-4, atol=1e-3)
+        if name == "knn_backend":
+            assert torch.equal(got.static_depths, ref.static_depths)

@@ -33,7 +33,7 @@ from grid_vision_tpu.types import Obs as JaxObs
 from grid_vision_tpu.types import PointCloud as JaxCloud
 from grid_vision_tpu_torch import demo, pipeline
 from grid_vision_tpu_torch.config import GridVisionConfig
-from grid_vision_tpu_torch.models import weights
+from grid_vision_tpu_torch.models import weights, yolov4_int8
 from grid_vision_tpu_torch.runtime.stream import FleetPool
 
 torch.set_num_threads(1)
@@ -186,14 +186,32 @@ def test_pool_matches_bench_pool(fleet):
 
 def test_fleet_rejects_unported_modes(fleet):
     """The PCA branch runs on the fleet path (tests/test_torch_pca_fleet.py
-    holds it to the JAX package); int8 is still refused."""
+    holds it to the JAX package); so does the int8 detector (extension
+    mode, the plain resize path; tests/test_torch_int8_detector.py holds it
+    to the JAX package): its fleet tick equals its single-rig ticks. Params
+    without the quantized detector (a float config's) are refused, never
+    quantized again on each tick. The test keeps the name it had when the
+    port refused these modes on the fleet path."""
     _, cfg, _, eng, _, obs_seq = fleet
     pca = dataclasses.replace(cfg, use_vision_orientation=False)
     _, out = pipeline.fleet_step(eng.params, eng.init_states(R), obs_seq[0],
                                  eng.extrinsics, pca)
     assert out.poses.capacity == out.boxes.capacity    # every box
     assert not out.saturation.orientation_dropped.any()
-    int8 = dataclasses.replace(cfg, detector_precision="int8")
-    with pytest.raises(NotImplementedError, match="detector_precision"):
-        pipeline.fleet_step(eng.params, eng.init_states(R), obs_seq[0],
-                            eng.extrinsics, int8)
+    int8 = dataclasses.replace(cfg, detector_precision="int8", compat=False,
+                               detector_stem_backend="xla")
+    int8.validate()
+    states = eng.init_states(R)
+    assert "detector_q" not in eng.params
+    with pytest.raises(KeyError, match="load_all"):
+        pipeline.fleet_step(eng.params, states, obs_seq[0], eng.extrinsics,
+                            int8)
+    q = dict(eng.params, detector_q=yolov4_int8.quantize_detector(
+        eng.params["detector"]))
+    _, fout = pipeline.fleet_step(q, states, obs_seq[0], eng.extrinsics,
+                                  int8)
+    for r in range(R):
+        _, out = pipeline.step(q, states.select(r), obs_seq[0].select(r),
+                               eng.extrinsics, int8)
+        assert torch.equal(out.boxes.xyxy, fout.boxes.xyxy[r])
+        assert torch.equal(out.occupancy_i8, fout.occupancy_i8[r])

@@ -280,9 +280,20 @@ def test_pca_engine_holds_no_orientation_constants():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_check_slice_accepts_pca(dtype):
-    cfg = GridVisionConfig(use_vision_orientation=False, compute_dtype=dtype)
+    """The PCA branch in either dtype, and with the int8 detector
+    (extension mode), passes validate() and runs a tick. The test keeps
+    the name it had when a check of the port's own, gone since, stood
+    beside validate()."""
+    kw = dict(SMALL, use_vision_orientation=False, compute_dtype=dtype)
+    cfg = GridVisionConfig(**kw)
     cfg.validate()
-    pipeline.check_slice(cfg)
-    with pytest.raises(NotImplementedError, match="detector_precision"):
-        pipeline.check_slice(dataclasses.replace(cfg,
-                                                 detector_precision="int8"))
+    int8 = dataclasses.replace(cfg, detector_precision="int8", compat=False)
+    int8.validate()
+    nets = weights.load_all(cfg, device="cpu")
+    eng = pipeline.Engine(int8, params=nets, device="cpu")
+    assert "detector_q" in eng.params
+    scene = SyntheticScene(int8, seed=0, n_ground=200)
+    scene.add_default_traffic()
+    _, out = eng(eng.init_state(), obs_from_scene(scene, 0.0, int8, "cpu"))
+    assert torch.isfinite(out.poses.position[out.poses.valid]).all()
+    assert out.occupancy_i8.dtype == torch.int8

@@ -141,8 +141,20 @@ def test_helpers_default_to_the_card():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="detector_precision"):
-        pipeline.check_slice(GridVisionConfig(detector_precision="int8"))
+    """The port has no check of its own left: what validate() refuses (int8
+    in compat mode, int8 with a stem kernel) the Engine refuses, and what it
+    accepts the Engine builds (int8 quantized once at init). The test
+    keeps the name it had when the port refused options of its own."""
+    assert not hasattr(pipeline, "check_slice")
+    for bad in (dict(detector_precision="int8"),
+                dict(detector_precision="int8", compat=False)):
+        with pytest.raises(ValueError):    # SMALL's stem is "pallas"
+            pipeline.Engine(GridVisionConfig(**dict(SMALL, **bad)),
+                            device="cpu")
+    cfg = GridVisionConfig(**dict(SMALL, detector_precision="int8",
+                                  compat=False, detector_stem_backend="xla"))
+    eng = pipeline.Engine(cfg, device="cpu")
+    assert eng.params["detector_q"]["ConvBN_0"]["wq"].dtype == torch.int8
 
 
 def test_import_pulls_in_no_jax():

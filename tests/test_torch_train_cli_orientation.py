@@ -59,6 +59,20 @@ def test_train_orientation_cli_both_packages(tmp_path, capsys):
         np.testing.assert_array_equal(v.numpy(), want[k].numpy(), err_msg=k)
 
 
-def test_resnet_arch_is_refused():
-    with pytest.raises(NotImplementedError, match="resnet"):
-        cli(["train", "orientation", "--cpu", "--arch", "resnet"])
+def test_resnet_arch_is_refused(tmp_path, capsys):
+    """`train orientation --arch resnet` runs (the ResNet-18 net, its
+    train-mode BatchNorm in the ResBlocks) and saves the JAX package's tree
+    of that arch, which both packages' load_all read back. The test
+    keeps the name it had when the port refused the resnet arch."""
+    out = str(tmp_path / "r.npz")
+    cli(["train", "orientation", *ARGS, "--arch", "resnet", "--out", out])
+    log = capsys.readouterr().out
+    assert "steps 2-3: loss" in log and "angle recovery: median" in log
+    kw = dict(network_height=32, network_width=32, orientation_width=8,
+              orientation_arch="resnet", vision_weights_file=out)
+    mine = weights.load_all(GridVisionConfig(**kw), device="cpu")
+    assert type(mine["orientation"]).__name__ == "OrientationNet"
+    jback = jweights.load_all(JaxConfig(**kw))
+    jflat = weights.params_from_jax(jback["orientation"])
+    for k, v in mine["orientation"].state_dict().items():
+        np.testing.assert_array_equal(jflat[k].numpy(), v.numpy(), err_msg=k)

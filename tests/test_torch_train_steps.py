@@ -190,6 +190,25 @@ def test_overfit_single_batch():
 
 
 def test_mesh_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        trainer.make_train_step("yolo", yolov4_tiny.YoloConfig(),
-                                trainer.AdamW(1e-3), mesh=object())
+    """make_train_step takes mesh= (parallel/mesh.make_mesh; the sharded
+    step is held to the unsharded one in tests/test_torch_train_mesh.py): a
+    step on a (2, 2) mesh runs, and a batch on another device than the
+    mesh's raises. The test keeps the name it had when the port refused
+    mesh=."""
+    from grid_vision_tpu_torch.parallel.mesh import make_mesh
+    cfg = yolov4_tiny.YoloConfig(input_size=32, compute_dtype=torch.float32)
+    tx = trainer.SGD(1e-2)
+    state = trainer.init_train_state("yolo", cfg, tx, prng.prng_key(0))
+    mesh = make_mesh(4, tp=2, device="cpu")
+    step = trainer.make_train_step("yolo", cfg, tx, mesh=mesh)
+    gt = {"x_min": 0.25, "y_min": 0.25, "x_max": 0.75, "y_max": 0.75,
+          "label": 9}
+    tb, tc, tp = assign_targets([gt], cfg)
+    batch = (prng.uniform(prng.prng_key(1), (4, 32, 32, 3)),
+             *(torch.tensor(a)[None].repeat((4,) + (1,) * a.ndim)
+               for a in (tb, tc, tp)))
+    state, metrics = step(state, *batch)
+    assert state.step == 1 and torch.isfinite(metrics["loss"])
+    meta = make_mesh(4, tp=2, device="meta")
+    with pytest.raises(ValueError, match="mesh"):
+        trainer.make_train_step("yolo", cfg, tx, mesh=meta)(state, *batch)
