@@ -210,6 +210,7 @@ PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12        # H100 SXM FP32 outside the tensor cores
 PEAK_TF32_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 PEAK_BF16_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+PEAK_INT8_PER_S = 1979e12      # H100 SXM int8 tensor cores, dense
 BF16_TOL = dict(rtol=0.06, atol=0.06)   # tests/test_pallas_orient.py:59-62
 
 
@@ -249,6 +250,14 @@ def bound_bf16_ms(n_bytes: float, n_ops: float):
     cores' rate."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_BF16_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_int8_ms(n_bytes: float, n_ops: float):
+    """The bound of an int8 form: bytes, or operations at the int8 tensor
+    cores' rate."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_INT8_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -316,7 +325,8 @@ def ptxas_summary(log: str):
                 rest = name[short.end():]
                 args = re.findall(r"Li(\d+)E", rest)
                 kind = ("bf16" if "bfloat16" in rest
-                        else "f32" if rest.startswith("If") else "")
+                        else "f32" if rest.startswith("If")
+                        else "s8" if rest.startswith("Ia") else "")
                 name = short.group(0) + (
                     f"<{','.join([kind] + args) if kind else ','.join(args)}>"
                     if kind or args else "")
@@ -710,6 +720,92 @@ def check_orient_bf16(torch, dev, net, cfg, rigs, n_crops):
                        "buf_rows", "shared_bytes", "resident_clusters"),
                       plan)),
         library_max_abs_err=lib_err, **t, bound=bound_bf16_ms(n_bytes, ops))
+
+
+def check_int8(torch, dev, detector, cfg, batch, images=None,
+               timing=True):
+    """The int8 conv kernel (csrc/cuda_int8.cu) at the 19 conv sites of an
+    int8 forward (models/yolov4_int8.py, the shipped weights quantized) on
+    `batch` frames at cfg.resize (random in [0, 1] unless `images` are
+    given): every site's accumulators (mode acc) bit-equal to the f64 conv,
+    its fused f32 output (mode requant, as the path runs it) bit-equal to
+    requant of them, and the library yardstick (tap_matrix + torch._int_mm
+    + requant) equal too. With `timing`, per site and summed over a
+    forward: the kernel's ms (requant mode), the acc mode's, the plain
+    version's (f64 conv + requant), the library's, _int_mm's alone, and the
+    bound (the int8 in, the weights, the f32 out; 2 M N K operations at the
+    int8 peak)."""
+    from grid_vision_tpu_torch.models import yolov4_int8, yolov4_tiny
+    from grid_vision_tpu_torch.ops import cuda_int8
+    q = yolov4_int8.quantize_detector(detector)
+    size = cfg.resize
+    ycfg = yolov4_tiny.YoloConfig(input_size=size)
+    if images is None:
+        g = torch.Generator(device=dev).manual_seed(8)
+        images = torch.rand((batch, size, size, 3), generator=g, device=dev)
+    sites, err = {}, 0.0
+
+    def hook(x, site, layer, stride):
+        nonlocal err
+        sx = yolov4_int8.act_scale(x)
+        xq = yolov4_int8.quantize_act(x, sx)
+        k, kp = layer["wq"].shape[-1], layer["wt"].shape[1]
+        acc = cuda_int8.int8_conv(xq, layer, stride)
+        ref = cuda_int8.int8_conv_plain(xq, layer["wq"], stride)
+        if acc.dtype != torch.int32 or not torch.equal(acc, ref):
+            fail(f"int8 {site}: the kernel's accumulators differ from the "
+                 "f64 conv")
+        y = cuda_int8.int8_conv_requant(xq, sx, layer, stride)
+        y_ref = cuda_int8.requant(ref, sx, layer)
+        if not torch.equal(y, y_ref):
+            fail(f"int8 {site}: the kernel's requant differs from requant")
+        err = max(err, (y - y_ref).abs().max().item())
+        wt = layer["wt"].t()
+
+        def library():
+            a = yolov4_int8.tap_matrix(xq, k, stride, kp)
+            return cuda_int8.requant(torch._int_mm(a, wt).view(acc.shape),
+                                     sx, layer)
+
+        if not torch.equal(library(), y_ref):
+            fail(f"int8 {site}: the library yardstick differs")
+        b, ho, wo, n = acc.shape
+        m, kk = b * ho * wo, k * k * xq.shape[-1]
+        n_bytes = xq.numel() + layer["wt"].numel() + y.numel() * 4 \
+            + (b + 2 * n) * 4
+        row = dict(m=m, k=kk, n=n, kernel=k, stride=stride,
+                   tile_n=cuda_int8.tile_n(m, n, kk),
+                   max_abs_acc=int(acc.abs().max()), bytes=n_bytes,
+                   ops=2 * m * n * kk)
+        if timing:
+            a = yolov4_int8.tap_matrix(xq, k, stride, kp)
+            row.update(timed(
+                lambda: cuda_int8.int8_conv_requant(xq, sx, layer, stride),
+                lambda: cuda_int8.int8_conv_requant_plain(xq, sx, layer,
+                                                          stride),
+                library, iters=10))
+            row.update(
+                acc_ms=cuda_time_ms(
+                    lambda: cuda_int8.int8_conv(xq, layer, stride), 10, 2),
+                gemm_ms=cuda_time_ms(lambda: torch._int_mm(a, wt), 10, 2),
+                bound_ms=bound_int8_ms(n_bytes, row["ops"])[0])
+        sites[site] = row
+        return y
+
+    yolov4_int8._topology(q, images, ycfg, hook)
+    if sorted(sites) != sorted(yolov4_int8.LAYERS):
+        fail(f"int8: sites {sorted(sites)}")
+    total = {key: sum(r[key] for r in sites.values())
+             for key in ("bytes", "ops") + (
+                 ("ms", "plain_ms", "library_ms", "acc_ms", "gemm_ms")
+                 if timing else ())}
+    return dict(
+        call=lambda: yolov4_int8.forward_int8(q, images, ycfg),
+        name="int8_conv", source="grid_vision_tpu_torch/csrc/cuda_int8.cu",
+        replaces="tools/bench_int8_mxu.py:42",
+        also_replaces="tools/bench_int8_mxu.py:58",
+        shape=list(images.shape), max_abs_err=err, sites=sites, **total,
+        bound=bound_int8_ms(total["bytes"], total["ops"]))
 
 
 def random_grid_case(torch, dev, cfg, rigs, seed):
@@ -3691,7 +3787,7 @@ def cli_phase(torch, dev, root, card) -> None:
 INT8_ENGINE_TICKS = 5
 INT8_FLEET_TICKS = 3
 INT8_EVAL = 50                  # synth frames; tests/test_int8_detector.py:52
-INT8_GEMM_WORDS = ("gemm", "imma", "igmma", "s8", "i8", "int8", "xmma")
+INT8_KERNEL = "gv_int8_"        # the int8 conv kernel (csrc/cuda_int8.cu)
 KNOB_TICKS = 2
 MESH_STEPS = 3
 MESH_DET = dict(size=64, batch=4)      # tests/test_torch_train_mesh.py's
@@ -3702,7 +3798,7 @@ MESH_FULL = (dict(size=416, batch=8), dict(size=224, width=32, batch=16))
 def kernel_breakdown(torch, fn, iters: int = 5, top: int = 12):
     """torch.profiler over `iters` calls of fn(): device ms a call, the
     top kernels by device time (ms a call, launches a call), and the ms
-    of the kernels whose names mark an int8 GEMM (INT8_GEMM_WORDS)."""
+    of the int8 conv kernel (INT8_KERNEL)."""
     from torch.profiler import ProfilerActivity, profile
     with torch.no_grad():
         fn()
@@ -3719,10 +3815,10 @@ def kernel_breakdown(torch, fn, iters: int = 5, top: int = 12):
             + e.time_range.elapsed_us() / 1e3 / iters
         launches[e.name] = launches.get(e.name, 0) + 1 / iters
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
-    gemm = sum(ms for n, ms in by_name.items()
-               if any(w in n.lower() for w in INT8_GEMM_WORDS))
     return dict(device_ms=sum(by_name.values()),
-                launches=sum(launches.values()), gemm_ms=gemm,
+                launches=sum(launches.values()),
+                int8_kernel_ms=sum(ms for n, ms in by_name.items()
+                                   if INT8_KERNEL in n),
                 top_kernels=[dict(name=n[:90], ms=ms, launches=launches[n])
                              for n, ms in ranked[:top]])
 
@@ -3732,28 +3828,28 @@ def int8_phases(torch, dev, root, cfg, fleet_cfg, nets, extrinsics, obs_seq,
     """Phase `int8`: the int8 detector (models/yolov4_int8.py,
     detector_precision="int8") on the card, with the shipped weights.
 
-    1. Every layer's int32 accumulator from torch._int_mm (the tap matrix
-       of the padded NHWC int8 activation) bit-equal to the plain f64 conv
-       on the same int8 values, at the fleet's 64 frames (the 19 sites of
-       a forward); each layer's GEMM shape and the time of its tap gather
-       + GEMM, of the GEMM alone and of the f64 conv (CUDA events).
+    1. Every layer through the int8 conv kernel (csrc/cuda_int8.cu) on the
+       fleet's 64 real frames (check_int8, the 19 sites of a forward): the
+       accumulators bit-equal to the plain f64 conv, the fused requant
+       bit-equal to requant; each site's shape, tile and max |acc|.
     2. The extension-mode tick (compat=False, raycast_free_space, depth
        refine, class-aware NMS; stem "xla", as validate() ties int8 to
        it): INT8_ENGINE_TICKS single-rig ticks and INT8_FLEET_TICKS fleet
        ticks of 64 rigs, counters from zero (the carve and kNN kernels once
-       a tick, the fleet's orientation front once a tick, 19 GEMMs a
-       tick), each against the same ticks with the int8 conv's plain
-       version: occupancy_i8 bit-equal, box counts equal.
+       a tick, the fleet's orientation front once a tick, the int8 conv
+       kernel 19 times a tick), each against the same ticks with the int8
+       conv's plain version: occupancy_i8 bit-equal, box counts equal.
     3. mAP@0.5 on INT8_EVAL held-out synth frames (eval_map), int8 against
        the float detector: at least the float's - 0.03.
     4. The detector alone on the fleet's 64 frames (416): the int8
        forward's device ms and launches beside the f32 and bf16 forwards',
-       the int8 GEMMs' share of it, and its top kernels (torch.profiler).
+       the int8 kernel's share of it, and its top kernels (torch.profiler).
 
-    Returns the GEMM launches of the fleet run."""
+    Returns the launch counts of the engine and the fleet runs."""
     from grid_vision_tpu_torch import pipeline
     from grid_vision_tpu_torch.config import GridVisionConfig
     from grid_vision_tpu_torch.models import weights, yolov4_int8, yolov4_tiny
+    from grid_vision_tpu_torch.ops import cuda_int8
     from grid_vision_tpu_torch.ops.preprocess import preprocess_detector_image
     from grid_vision_tpu_torch.train import eval_map
     t_phase = time.perf_counter()
@@ -3762,57 +3858,32 @@ def int8_phases(torch, dev, root, cfg, fleet_cfg, nets, extrinsics, obs_seq,
     ycfg = yolov4_tiny.YoloConfig(input_size=cfg.resize)
     net_in = preprocess_detector_image(fleet_obs[0].image, cfg.resize)
 
-    # 1. every layer: _int_mm against the f64 conv
-    layers = {}
-
-    def both(x, site, layer, stride):
-        sx = yolov4_int8.act_scale(x)
-        xq = yolov4_int8.quantize_act(x, sx)
-        acc = yolov4_int8.int8_conv(xq, layer, stride)
-        ref = yolov4_int8.int8_conv_plain(xq, layer["wq"], stride)
-        if acc.dtype != torch.int32 or not torch.equal(acc, ref):
-            fail(f"int8 {site}: the _int_mm accumulator differs from the "
-                 "f64 conv")
-        k = layer["wq"].shape[-1]
-        a = yolov4_int8.tap_matrix(xq, k, stride, layer["wt"].shape[1])
-        wt = layer["wt"].t()
-        layers[site] = dict(
-            m=a.shape[0], k=a.shape[1], n=wt.shape[1],
-            max_abs_acc=int(acc.abs().max()),
-            conv_ms=cuda_time_ms(
-                lambda: yolov4_int8.int8_conv(xq, layer, stride), 10, 2),
-            gemm_ms=cuda_time_ms(lambda: torch._int_mm(a, wt), 10, 2),
-            plain_ms=cuda_time_ms(lambda: yolov4_int8.int8_conv_plain(
-                xq, layer["wq"], stride), 3, 1))
-        return yolov4_int8.requant(acc, sx, layer)
-
-    yolov4_int8._topology(q, net_in, ycfg, both)
-    if sorted(layers) != sorted(yolov4_int8.LAYERS):
-        fail(f"int8: sites {sorted(layers)}")
-    res["layers"] = layers
-    res["layers_bit_equal"] = len(layers)
+    # 1. every layer: the kernel against the f64 conv, both modes
+    r = check_int8(torch, dev, nets["detector"], cfg, None, images=net_in,
+                   timing=False)
+    res["layers"] = r["sites"]
+    res["layers_bit_equal"] = len(r["sites"])
 
     # 2. the extension-mode ticks against the plain int8 conv
     ext = dict(compat=False, raycast_free_space=True,
                vision_depth_refine=True, class_aware_nms=True,
                detector_precision="int8", detector_stem_backend="xla")
     params = dict(nets, detector_q=q)
-    real_conv = yolov4_int8.int8_conv
-
-    def plain_conv(xq, layer, stride):
-        return yolov4_int8.int8_conv_plain(xq, layer["wq"], stride)
-
+    real_conv = yolov4_int8.int8_conv_requant
     n_layers = len(yolov4_int8.LAYERS)
+    counts = {}
     for path, base, ticks, run, want in (
             ("engine", cfg, INT8_ENGINE_TICKS,
              lambda e, o: run_ticks(torch, e, o),
              dict(knn_median_depth=INT8_ENGINE_TICKS,
-                  carve_update=INT8_ENGINE_TICKS)),
+                  carve_update=INT8_ENGINE_TICKS,
+                  int8_conv=n_layers * INT8_ENGINE_TICKS)),
             ("fleet", fleet_cfg, INT8_FLEET_TICKS,
              lambda e, o: run_fleet(torch, e, o, BUDGET),
              dict(knn_median_depth=INT8_FLEET_TICKS,
                   carve_update=INT8_FLEET_TICKS,
-                  orient_front=INT8_FLEET_TICKS))):
+                  orient_front=INT8_FLEET_TICKS,
+                  int8_conv=n_layers * INT8_FLEET_TICKS))):
         c = dataclasses.replace(base, **ext)
         eng = pipeline.Engine(c, extrinsics=extrinsics, params=params,
                               device=dev)
@@ -3821,24 +3892,24 @@ def int8_phases(torch, dev, root, cfg, fleet_cfg, nets, extrinsics, obs_seq,
         yolov4_int8.launches = 0
         (_, outs, times), got = _counted(
             modules, forms, lambda: run(eng, seq), want, f"int8 {path}")
-        gemms = yolov4_int8.launches
-        if gemms != n_layers * ticks:
-            fail(f"int8 {path}: {gemms} GEMMs in {ticks} ticks")
-        yolov4_int8.int8_conv = plain_conv
+        convs = yolov4_int8.launches
+        if convs != n_layers * ticks:
+            fail(f"int8 {path}: the detector's convs launched {convs} "
+                 f"kernels in {ticks} ticks")
+        yolov4_int8.int8_conv_requant = cuda_int8.int8_conv_requant_plain
         try:
             _, plain_outs, plain_times = run(eng, seq)
         finally:
-            yolov4_int8.int8_conv = real_conv
+            yolov4_int8.int8_conv_requant = real_conv
         _same_ticks(torch, f"int8 {path}", outs, plain_outs)
         res[path] = dict(
             rigs=int(seq[0].image.shape[0]) if path == "fleet" else 1,
-            ticks=ticks, launches=got, gemm_launches=gemms,
+            ticks=ticks, launches=got, conv_kernel_launches=convs,
             median_tick_ms=statistics.median(times), tick_ms=times,
             plain_median_tick_ms=statistics.median(plain_times),
             boxes_per_tick=[int(o.boxes.valid.sum()) for o in outs],
             occupancy_i8_bit_equal=True)
-        if path == "fleet":
-            fleet_gemms = gemms
+        counts[path] = got
         del eng, outs, plain_outs
     torch.cuda.empty_cache()
 
@@ -3871,10 +3942,75 @@ def int8_phases(torch, dev, root, cfg, fleet_cfg, nets, extrinsics, obs_seq,
     d8 = detector["int8"]
     res["detector_64"] = dict(
         frames=int(net_in.shape[0]), size=cfg.resize, **detector,
-        int8_gemm_share=d8["gemm_ms"] / d8["device_ms"])
+        int8_kernel_share=d8["int8_kernel_ms"] / d8["device_ms"])
     res["seconds"] = time.perf_counter() - t_phase
     phase("int8", **res)
-    return fleet_gemms
+    return counts
+
+
+INT8_MMA_SHAPE = (8192, 2304, 256)      # tools/bench_int8_mxu.py's defaults
+
+
+def int8_mma_phase(torch, dev, card):
+    """Phase `int8_mma`: the counterpart of tools/bench_int8_mxu.py, the
+    kernel's GEMM form (ops/cuda_int8.int8_matmul, bf16_matmul) at the
+    tool's default shape: each result held against its plain version (s8
+    bit-equal to it and to torch._int_mm; bf16 on unit-normal inputs
+    within cuda_int8.f32_sum_bound, and within 1e-4 at the CPU tests'
+    shape, M 256, K 384, N 256), then the s8 kernel's TOPS, the bf16 kernel's TFLOP/s and their
+    ratio beside torch._int_mm's and torch.matmul's (CUDA events, b in the
+    kernel's weight layout: column-major)."""
+    from grid_vision_tpu_torch.ops import cuda_int8
+    m, k, n = INT8_MMA_SHAPE
+    g = torch.Generator(device=dev).manual_seed(0)
+    a8 = torch.randint(-127, 127, (m, k), generator=g, device=dev,
+                       dtype=torch.int8)
+    b8 = torch.randint(-127, 127, (n, k), generator=g, device=dev,
+                       dtype=torch.int8).t()
+    a16 = torch.randn((m, k), generator=g, device=dev).bfloat16()
+    b16 = torch.randn((n, k), generator=g, device=dev).bfloat16().t()
+    got = cuda_int8.int8_matmul(a8, b8)
+    if not (torch.equal(got, cuda_int8.int8_matmul_plain(a8, b8))
+            and torch.equal(got, torch._int_mm(a8, b8))):
+        fail("int8_mma: the s8 kernel differs from its plain version or "
+             "torch._int_mm")
+    d = cuda_int8.bf16_matmul(a16, b16) - cuda_int8.bf16_matmul_plain(
+        a16, b16)
+    err = d.abs().max().item()
+    if not (d.abs() <= cuda_int8.f32_sum_bound(a16, b16)).all():
+        fail(f"int8_mma: the bf16 kernel is {err} off its plain version, "
+             "beyond the f32 sum bound")
+    # the CPU tests' bar at their shape (M 256, K 384, N 256)
+    a_cpu, b_cpu = a16[:256, :384].contiguous(), b16[:384]
+    cpu_bar_err = (cuda_int8.bf16_matmul(a_cpu, b_cpu)
+                   - cuda_int8.bf16_matmul_plain(a_cpu, b_cpu)
+                   ).abs().max().item()
+    if not cpu_bar_err <= 1e-4:
+        fail(f"int8_mma: the bf16 kernel is {cpu_bar_err} off its plain "
+             "version at the CPU tests' shape, beyond 1e-4")
+    ops = 2.0 * m * k * n
+    ms = {}
+    for name, fn in (("int8", lambda: cuda_int8.int8_matmul(a8, b8)),
+                     ("bf16", lambda: cuda_int8.bf16_matmul(a16, b16)),
+                     ("int_mm", lambda: torch._int_mm(a8, b8)),
+                     ("matmul", lambda: torch.matmul(a16, b16))):
+        ms[name] = cuda_time_ms(fn, 50, 5)
+    plain = dict(int8=cuda_time_ms(
+        lambda: cuda_int8.int8_matmul_plain(a8, b8), 5, 1),
+        bf16=cuda_time_ms(lambda: cuda_int8.bf16_matmul_plain(a16, b16),
+                          5, 1))
+    phase("int8_mma", card=card, m=m, k=k, n=n,
+          tile_n=cuda_int8.tile_n(m, n, k), ms=ms, plain_ms=plain,
+          int8_tops=ops / ms["int8"] / 1e9,
+          bf16_tflops=ops / ms["bf16"] / 1e9,
+          int8_speedup_vs_bf16=ms["bf16"] / ms["int8"],
+          int_mm_tops=ops / ms["int_mm"] / 1e9,
+          matmul_tflops=ops / ms["matmul"] / 1e9,
+          library_int8_speedup_vs_bf16=ms["matmul"] / ms["int_mm"],
+          bf16_max_abs_err=err, bf16_max_abs_err_cpu_shape=cpu_bar_err,
+          bound_int8_ms=bound_int8_ms(m * k + n * k + m * n * 4, ops)[0],
+          bound_bf16_ms=bound_bf16_ms(2 * (m * k + n * k) + m * n * 4,
+                                      ops)[0])
 
 
 def knobs_phases(torch, dev, root, cfg, fleet_cfg, nets, extrinsics,
@@ -4180,7 +4316,7 @@ def main() -> None:
         tf32 = argv[1]
     elif argv:
         fail("usage: chip_smoke.py [--kernels stem,grid,knn,csp,orient,carve,"
-             "stem_bf16,csp_bf16,orient_bf16]")
+             "stem_bf16,csp_bf16,orient_bf16,int8]")
     try:
         import torch
     except ImportError:
@@ -4197,9 +4333,9 @@ def main() -> None:
         from grid_vision_tpu_torch import pipeline
         from grid_vision_tpu_torch.io.scene import SyntheticScene
         from grid_vision_tpu_torch.ops import (cuda_build, cuda_csp,
-                                               cuda_grid, cuda_knn,
-                                               cuda_orient, cuda_raycast,
-                                               cuda_stem)
+                                               cuda_grid, cuda_int8,
+                                               cuda_knn, cuda_orient,
+                                               cuda_raycast, cuda_stem)
         from grid_vision_tpu_torch.runtime.stream import (FleetPool,
                                                           obs_from_scene)
         from grid_vision_tpu_torch.demo import default_extrinsics
@@ -4237,7 +4373,8 @@ def main() -> None:
                              device=dev, base_dir=root)
     modules = {"detector_stem": cuda_stem, "grid_update": cuda_grid,
                "knn_median_depth": cuda_knn, "detector_csp": cuda_csp,
-               "orient_front": cuda_orient, "carve_update": cuda_raycast}
+               "orient_front": cuda_orient, "carve_update": cuda_raycast,
+               "int8_conv": cuda_int8}
     forms = {"detector_stem_bf16": cuda_stem, "detector_csp_bf16": cuda_csp,
              "orient_front_bf16": cuda_orient}
     nets = {k: engine.params[k] for k in ("detector", "orientation")}
@@ -4274,7 +4411,9 @@ def main() -> None:
         ("fleet", "csp_bf16", check_csp_bf16, (det, fleet_cfg, N_RIGS)),
         ("engine", "orient_bf16", check_orient_bf16, (net, fleet_cfg, 1, 5)),
         ("fleet", "orient_bf16", check_orient_bf16,
-         (net, fleet_cfg, N_RIGS, BUDGET))]
+         (net, fleet_cfg, N_RIGS, BUDGET)),
+        ("engine", "int8", check_int8, (det, cfg, 1)),
+        ("fleet", "int8", check_int8, (det, fleet_cfg, N_RIGS))]
     for path, rigs, c, obs in (("extension", None, cfg, obs_seq[0]),
                                ("extension_fleet", N_RIGS, fleet_cfg,
                                 fleet_obs[0])):
@@ -4318,7 +4457,7 @@ def main() -> None:
                for name in ("detector_stem", "detector_csp", "orient_front",
                             "grid_update", "knn_median_depth",
                             "detector_stem_bf16", "detector_csp_bf16",
-                            "orient_front_bf16")}
+                            "orient_front_bf16", "int8_conv")}
     results["carve_update"] = checked["extension_fleet", "carve_update"]
     carve_single = checked["extension", "carve_update"]
     knn_other = [dict({k: r[k] for k in (
@@ -4360,7 +4499,8 @@ def main() -> None:
     fleet_times = ftimes
     launches = {name: m.launches for name, m in modules.items()}
     for name, n in launches.items():
-        if n != (0 if name == "carve_update" else FLEET_TICKS):
+        if n != (0 if name in ("carve_update", "int8_conv")
+                 else FLEET_TICKS):
             fail(f"{name} launched {n} times in {FLEET_TICKS} fleet ticks")
     fplain_cfg = dataclasses.replace(
         fleet_cfg, detector_stem_backend="xla", orientation_stem_backend="xla",
@@ -4586,7 +4726,8 @@ def main() -> None:
     ext_fobs = fleet_obs[:EXT_FLEET_TICKS]
     (_, fouts, ftimes), ext_launches = count_run(
         lambda: run_fleet(torch, ext_fleet, ext_fobs, BUDGET),
-        dict({name: EXT_FLEET_TICKS for name in modules}, grid_update=0))
+        dict({name: EXT_FLEET_TICKS for name in modules}, grid_update=0,
+             int8_conv=0))
     _, fplain_outs, fplain_times = run_fleet(torch, ext_fplain, ext_fobs,
                                              BUDGET)
     fagree, f_boxes, f_poses = compare_outputs(torch, fleet_cfg, fouts,
@@ -4679,10 +4820,12 @@ def main() -> None:
     cli_phase(torch, dev, root, card)
     tf32_phase(torch, root, card)
 
-    # the last modules: the int8 detector, the five knobs, the training
-    # mesh
-    int8_phases(torch, dev, root, cfg, fleet_cfg, nets, engine.extrinsics,
-                obs_seq, fleet_obs, modules, forms, card)
+    # the last modules: the int8 detector (and the int8 Pallas tool's
+    # counterpart), the five knobs, the training mesh
+    int8_launches = int8_phases(torch, dev, root, cfg, fleet_cfg, nets,
+                                engine.extrinsics, obs_seq, fleet_obs,
+                                modules, forms, card)
+    int8_mma_phase(torch, dev, card)
     knobs_phases(torch, dev, root, cfg, fleet_cfg, nets, engine.extrinsics,
                  fleet_obs, modules, forms, card)
     mesh_phase(torch, dev, card)
@@ -4690,6 +4833,8 @@ def main() -> None:
     # 8. the kernels line, then the card, then the device JSON
     launches["carve_update"] = ext_launches["carve_update"]
     engine_launches["carve_update"] = ext_engine_launches["carve_update"]
+    launches["int8_conv"] = int8_launches["fleet"]["int8_conv"]
+    engine_launches["int8_conv"] = int8_launches["engine"]["int8_conv"]
     for name in forms:
         launches[name] = bf_launches[name]
         engine_launches[name] = bf_engine_launches[name]
@@ -4727,6 +4872,17 @@ def main() -> None:
         if name == "knn_median_depth":
             kernels[-1].update(queries=r["queries"], slices=r["slices"],
                                other_shapes=knn_other)
+        if name == "int8_conv":
+            # a forward's 19 launches at 64 frames; its paths: the int8
+            # ticks (phase int8); one frame beside it
+            one = checked["engine", "int8_conv"]
+            kernels[-1].update(
+                also_replaces=r["also_replaces"], path="int8 ticks",
+                check_device_ms=r["check_device_ms"], acc_ms=r["acc_ms"],
+                gemm_ms=r["gemm_ms"], single_rig=dict(
+                    {k: one[k] for k in ("ms", "plain_ms", "library_ms",
+                                         "shape")},
+                    bound_ms=one["bound"][0]))
     kernels[-1].update(single_rig={
         k: carve_single[k] for k in ("ms", "plain_ms", "shape")},
         single_rig_bound_ms=carve_single["bound"][0],

@@ -9,15 +9,19 @@ conv's input quantizes at run time with a per-sample max-abs scale
 (``_qconv``). The two 1x1 heads stay float, and the decode is the float
 net's (yolov4_tiny.decode_head): the 2535-anchor output contract holds.
 
-The int8 conv: on a CUDA tensor the 3x3 taps are sliced from the padded
-NHWC int8 activation and concatenated along channels, a (B*Ho*Wo, 9*Cin)
-int8 matrix that ``torch._int_mm`` multiplies with the (9*Cin, Cout)
-weights (cuBLASLt's int8 GEMM, exact int32 sums; ConvBN_0's K = 27 padded
-to 32 with zero taps). The JAX package runs this conv as a plain
-lax.conv_general_dilated outside any Pallas kernel, so the port's form is
-a library GEMM too; ``launches`` counts its calls. On a CPU tensor, and as
-the card's reference, ``int8_conv_plain``: the same conv in float64
-F.conv2d on the int8 values, exact (|acc| <= 127^2 * 4608 < 2^27).
+The int8 conv: on a CUDA tensor each conv is one launch of the
+hand-written s8 implicit-GEMM kernel of ``ops/cuda_int8.py``
+(``csrc/cuda_int8.cu``, the counterpart of tools/bench_int8_mxu.py's
+Pallas GEMM): the taps gathered from the NHWC int8 activation into shared
+memory, exact int32 sums on the tensor cores, and in ``_qconv`` the
+requant and leaky in the kernel's epilogue (``int8_conv_requant``, f32
+out, 19 launches a forward); ``int8_conv`` writes the int32 accumulators.
+``launches`` counts the kernel launches these convs make. On a CPU tensor,
+and as the card's reference, the plain versions: ``int8_conv_plain``, the
+same conv in float64 F.conv2d on the int8 values, exact (|acc| <= 127^2 *
+4608 < 2^27), then ``requant``. ``tap_matrix`` (the (M, K) tap matrix
+that torch._int_mm multiplies) is on no path: it is the library
+yardstick's gather.
 
 Rounding follows jitted XLA, which the JAX package's pipeline runs this
 under: the requant ``acc.f32 * (sx * sw) + b`` is one fused multiply-add
@@ -37,10 +41,13 @@ import torch
 import torch.nn.functional as F
 
 from ..device import ieee_convs
+from ..ops import cuda_int8
+# the plain versions, named here too: the model's reference on the card
+from ..ops.cuda_int8 import int8_conv_plain, out_size, requant  # noqa: F401
 from .layers import BN_EPS, same_pad
 from .yolov4_tiny import ANCHORS, HEAD_MASKS, YoloConfig, decode_head
 
-# torch._int_mm calls made by int8_conv (one per conv on a CUDA tensor)
+# kernel launches made by the convs (one per conv on a CUDA tensor)
 launches = 0
 
 # the quantized convs in the JAX module's order: the 19 calibration sites
@@ -83,11 +90,12 @@ def _quantize_np(w: np.ndarray):
 
 
 def _gemm_weights(wq: torch.Tensor) -> torch.Tensor:
-    """OIHW int8 -> the (cout, K) matrix whose transpose _int_mm takes, k
-    in (ty, tx, c) order, K padded with zero columns to a multiple of 8."""
+    """OIHW int8 -> the kernel's (cout, Kp) weight matrix, k in (ty, tx, c)
+    order, K padded with zero columns to a multiple of 16 (the kernel's
+    16-byte copies)."""
     cout = wq.shape[0]
     wt = wq.permute(0, 2, 3, 1).reshape(cout, -1)
-    return F.pad(wt, (0, -wt.shape[1] % 8)).contiguous()
+    return F.pad(wt, (0, -wt.shape[1] % 16)).contiguous()
 
 
 def _device_layers(q_np: Dict[str, Dict[str, np.ndarray]],
@@ -150,29 +158,14 @@ def quantize_act(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x / sx), -127, 127).to(torch.int8)
 
 
-def _out_size(n: int, stride: int) -> int:
-    return -(-n // stride)
-
-
-def int8_conv_plain(xq: torch.Tensor, wq: torch.Tensor,
-                    stride: int) -> torch.Tensor:
-    """The int8 conv's plain version: (B, H, W, Cin) int8 with OIHW int8
-    weights, SAME as flax pads -> (B, Ho, Wo, Cout) int32, computed in
-    float64 F.conv2d (exact: every sum is an integer below 2^53)."""
-    k = wq.shape[-1]
-    py = same_pad(xq.shape[1], k, stride)
-    px = same_pad(xq.shape[2], k, stride)
-    x = F.pad(xq.permute(0, 3, 1, 2).double(), (px[0], px[1], py[0], py[1]))
-    y = F.conv2d(x, wq.double(), stride=stride)
-    return y.permute(0, 2, 3, 1).to(torch.int32)
-
-
 def tap_matrix(xq: torch.Tensor, k: int, stride: int,
                k_pad: int) -> torch.Tensor:
     """(B, H, W, C) int8 -> the (B*Ho*Wo, k_pad) int8 matrix of the conv's
-    taps, k in (ty, tx, c) order, zero columns up to k_pad."""
+    taps, k in (ty, tx, c) order, zero columns up to k_pad: what
+    torch._int_mm would multiply with the layer's wt.t() (the library
+    yardstick of the conv; on no path)."""
     b, h, w, c = xq.shape
-    ho, wo = _out_size(h, stride), _out_size(w, stride)
+    ho, wo = out_size(h, stride), out_size(w, stride)
     if k == 1 and stride == 1:
         cols = [xq]
     else:
@@ -190,35 +183,26 @@ def tap_matrix(xq: torch.Tensor, k: int, stride: int,
 def int8_conv(xq: torch.Tensor, layer: Dict[str, torch.Tensor],
               stride: int) -> torch.Tensor:
     """(B, H, W, Cin) int8 -> (B, Ho, Wo, Cout) int32 accumulator of the
-    layer's SAME conv: torch._int_mm on the tap matrix on a CUDA tensor,
-    int8_conv_plain on a CPU tensor. A shape _int_mm refuses (16 rows or
-    fewer, K or N not a multiple of 8) raises."""
-    if xq.device.type == "cpu":
-        return int8_conv_plain(xq, layer["wq"], stride)
-    if xq.device.type != "cuda":
-        raise ValueError(f"unsupported device {xq.device}")
+    layer's SAME conv: the kernel on a CUDA tensor (any shape),
+    int8_conv_plain on a CPU tensor."""
     global launches
-    wt = layer["wt"]
-    n, k_pad = wt.shape
-    b, h, w, _ = xq.shape
-    ho, wo = _out_size(h, stride), _out_size(w, stride)
-    if b * ho * wo <= 16 or k_pad % 8 or n % 8:
-        raise ValueError(
-            f"torch._int_mm takes more than 16 rows and K, N multiples of 8;"
-            f" got M={b * ho * wo}, K={k_pad}, N={n}")
-    a = tap_matrix(xq, layer["wq"].shape[-1], stride, k_pad)
-    y = torch._int_mm(a, wt.t())
-    launches += 1
-    return y.reshape(b, ho, wo, n)
+    n0 = cuda_int8.launches
+    acc = cuda_int8.int8_conv(xq, layer, stride)
+    launches += cuda_int8.launches - n0
+    return acc
 
 
-def requant(acc: torch.Tensor, sx: torch.Tensor,
-            layer: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """int32 accumulator -> leaky_0.1(acc.f32 * (sx * sw) + b), the
-    multiply-add rounded once (jitted XLA fuses it)."""
-    scale = (sx * layer["sw"]).double()
-    y = acc.float().double() * scale + layer["b"].double()
-    return F.leaky_relu(y.float(), 0.1)
+def int8_conv_requant(xq: torch.Tensor, sx: torch.Tensor,
+                      layer: Dict[str, torch.Tensor],
+                      stride: int) -> torch.Tensor:
+    """requant(int8_conv(xq, layer, stride), sx, layer): one kernel launch
+    on a CUDA tensor (the requant in its epilogue), the plain versions on
+    a CPU tensor. sx: (B, 1, 1, 1) per sample, or a 0-d static scale."""
+    global launches
+    n0 = cuda_int8.launches
+    y = cuda_int8.int8_conv_requant(xq, sx, layer, stride)
+    launches += cuda_int8.launches - n0
+    return y
 
 
 def _qconv(x: torch.Tensor, layer: Dict[str, torch.Tensor],
@@ -227,7 +211,7 @@ def _qconv(x: torch.Tensor, layer: Dict[str, torch.Tensor],
     (B, H, W, C) float. The scale is per sample, so a frame quantizes alike
     alone and in a fleet batch."""
     sx = act_scale(x)
-    return requant(int8_conv(quantize_act(x, sx), layer, stride), sx, layer)
+    return int8_conv_requant(quantize_act(x, sx), sx, layer, stride)
 
 
 def _fconv(x: torch.Tensor, layer: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -308,8 +292,7 @@ def forward_int8_static(q: Dict[str, Any],
 
     def qconv(x, site, layer, stride):
         sx = act_scales[site]
-        return requant(int8_conv(quantize_act(x, sx), layer, stride), sx,
-                       layer)
+        return int8_conv_requant(quantize_act(x, sx), sx, layer, stride)
 
     return _topology(q, images, cfg, qconv)
 

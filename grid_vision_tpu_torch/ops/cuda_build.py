@@ -35,7 +35,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "grid_vision_tpu_torch"
-SOURCES = ("cuda_csp", "cuda_csp_bf16", "cuda_grid", "cuda_knn",
+SOURCES = ("cuda_csp", "cuda_csp_bf16", "cuda_grid", "cuda_int8", "cuda_knn",
            "cuda_orient", "cuda_orient_bf16", "cuda_raycast", "cuda_stem",
            "cuda_stem_bf16")
 

@@ -1343,14 +1343,23 @@ def test_bench_chunk_digest_equals_engine_fleet(cuda_device):
     assert torch.equal(states.log_odds, ref_states.log_odds)
 
 
+def _int8_layers(device):
+    from grid_vision_tpu_torch.models import yolov4_int8
+    cfg = GridVisionConfig(detection_weights_file="weights/detector.npz")
+    return yolov4_int8.quantize_detector(
+        weights.load_all(cfg, device=device)["detector"])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch,size", [(1, 416), (3, 416), (2, 160)])
 def test_int8_gemm_bit_equal_to_f64_conv_at_every_layer(cuda_device, batch,
                                                         size):
-    """The int8 detector's torch._int_mm convs against the plain f64 conv
-    on the same int8 activations, at every layer's shape (the 19 sites of
-    a forward), bit for bit; one GEMM a conv."""
+    """The int8 conv kernel (csrc/cuda_int8.cu) at every layer's shape (the
+    19 sites of a forward): mode acc bit-equal to the plain f64 conv on the
+    same int8 activations, mode requant bit-equal to requant of it; one
+    launch a conv in a forward, which then runs 19."""
     from grid_vision_tpu_torch.models import yolov4_int8, yolov4_tiny
+    from grid_vision_tpu_torch.ops import cuda_int8
     cfg = GridVisionConfig(detection_weights_file="weights/detector.npz",
                            detection_network_input_size=size)
     det = weights.load_all(cfg, device=cuda_device)["detector"]
@@ -1363,8 +1372,11 @@ def test_int8_gemm_bit_equal_to_f64_conv_at_every_layer(cuda_device, batch,
         acc = yolov4_int8.int8_conv(xq, layer, stride)
         ref = yolov4_int8.int8_conv_plain(xq, layer["wq"], stride)
         assert acc.dtype == torch.int32 and torch.equal(acc, ref), site
+        y = yolov4_int8.int8_conv_requant(xq, sx, layer, stride)
+        assert torch.equal(y, cuda_int8.int8_conv_requant_plain(
+            xq, sx, layer, stride)), site
         seen.append(site)
-        return yolov4_int8.requant(acc, sx, layer)
+        return y
 
     images = torch.rand((batch, size, size, 3), generator=torch.Generator(
         device="cuda").manual_seed(batch), device=cuda_device)
@@ -1372,28 +1384,127 @@ def test_int8_gemm_bit_equal_to_f64_conv_at_every_layer(cuda_device, batch,
     yolov4_int8._topology(q, images, yolov4_tiny.YoloConfig(input_size=size),
                           both)
     assert sorted(seen) == sorted(yolov4_int8.LAYERS)
-    assert yolov4_int8.launches - n0 == len(yolov4_int8.LAYERS)
+    assert yolov4_int8.launches - n0 == 2 * len(yolov4_int8.LAYERS)
+    n0 = yolov4_int8.launches
     boxes, confs = yolov4_int8.forward_int8(
         q, images, yolov4_tiny.YoloConfig(input_size=size))
+    assert yolov4_int8.launches - n0 == len(yolov4_int8.LAYERS)
     assert torch.isfinite(boxes).all() and torch.isfinite(confs).all()
 
 
 @pytest.mark.cuda
-def test_int8_gemm_refuses_what_int_mm_refuses(cuda_device):
-    """16 rows or fewer raise before torch._int_mm is called; the plain
-    conv takes any shape."""
-    from grid_vision_tpu_torch.models import yolov4_int8
-    cfg = GridVisionConfig(detection_weights_file="weights/detector.npz")
-    q = yolov4_int8.quantize_detector(
-        weights.load_all(cfg, device=cuda_device)["detector"])
-    xq = torch.ones((1, 4, 4, 512), dtype=torch.int8, device=cuda_device)
-    n0 = yolov4_int8.launches
-    with pytest.raises(ValueError, match="16 rows"):
-        yolov4_int8.int8_conv(xq, q["ConvBN_5"], 1)          # M = 16
-    assert yolov4_int8.launches == n0
-    assert yolov4_int8.int8_conv_plain(xq, q["ConvBN_5"]["wq"], 1).shape \
-        == (1, 4, 4, 512)
-    big = torch.ones((1, 5, 4, 512), dtype=torch.int8, device=cuda_device)
-    assert torch.equal(yolov4_int8.int8_conv(big, q["ConvBN_5"], 1),
-                       yolov4_int8.int8_conv_plain(big, q["ConvBN_5"]["wq"],
-                                                   1))
+@pytest.mark.parametrize("site,shape,stride", [
+    ("ConvBN_0", (1, 3, 3, 3), 2),          # M = 4
+    ("ConvBN_5", (1, 4, 4, 512), 1),        # M = 16: _int_mm refused it
+    ("ConvBN_6", (1, 1, 1, 512), 1),        # M = 1
+    ("ConvBN_1", (2, 15, 13, 32), 2),       # odd H and W, stride 2
+    ("ConvBN_1", (1, 16, 10, 32), 2),       # stride 2, even: pad (0, 1)
+    ("ConvBN_2", (3, 7, 9, 64), 1),         # odd, M = 189 (ragged tile)
+    ("ConvBN_9", (1, 5, 3, 384), 1)])
+def test_int8_kernel_small_and_odd_shapes(cuda_device, site, shape, stride):
+    """Shapes torch._int_mm refused (M <= 16) and odd frames, both modes
+    bit-equal to the plain versions; the static forward's 0-d scale."""
+    from grid_vision_tpu_torch.ops import cuda_int8
+    layer = _int8_layers(cuda_device)[site]
+    g = torch.Generator(device="cuda").manual_seed(shape[1])
+    xq = torch.randint(-127, 128, shape, generator=g, device=cuda_device,
+                       dtype=torch.int8)
+    n0 = cuda_int8.launches
+    acc = cuda_int8.int8_conv(xq, layer, stride)
+    assert torch.equal(acc, cuda_int8.int8_conv_plain(xq, layer["wq"],
+                                                      stride))
+    for sx in (torch.rand((shape[0], 1, 1, 1), generator=g,
+                          device=cuda_device) * 0.1 + 1e-3,
+               torch.tensor(0.0123, device=cuda_device)):
+        assert torch.equal(
+            cuda_int8.int8_conv_requant(xq, sx, layer, stride),
+            cuda_int8.int8_conv_requant_plain(xq, sx, layer, stride))
+    torch.cuda.synchronize()
+    assert cuda_int8.launches == n0 + 3
+
+
+@pytest.mark.cuda
+def test_int8_kernel_rejects_bad_inputs(cuda_device):
+    from grid_vision_tpu_torch.ops import cuda_int8
+    layer = _int8_layers(cuda_device)["ConvBN_2"]
+    xq = torch.zeros((1, 8, 8, 64), dtype=torch.int8, device=cuda_device)
+    n0 = cuda_int8.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_int8.int8_conv(xq.permute(0, 2, 1, 3), layer, 1)
+    with pytest.raises(ValueError, match="int8 or bf16"):
+        cuda_int8.int8_conv(xq.float(), layer, 1)
+    with pytest.raises(ValueError, match="dtype"):
+        cuda_int8.int8_conv(xq, dict(layer, wt=layer["wt"].cpu()), 1)
+    with pytest.raises(ValueError, match="1 or 1 elements"):
+        cuda_int8.int8_conv_requant(xq, torch.ones(2, device=cuda_device),
+                                    layer, 1)
+    assert cuda_int8.launches == n0
+
+
+@pytest.mark.cuda
+def test_int8_matmul_bit_equal_to_int_mm(cuda_device):
+    """The kernel's GEMM form at tools/bench_int8_mxu.py's default shape
+    (M 8192, K 2304, N 256), b given in both layouts."""
+    from grid_vision_tpu_torch.ops import cuda_int8
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randint(-127, 127, (8192, 2304), generator=g,
+                      device=cuda_device, dtype=torch.int8)
+    bt = torch.randint(-127, 127, (256, 2304), generator=g,
+                       device=cuda_device, dtype=torch.int8)
+    ref = torch._int_mm(a, bt.t())
+    assert torch.equal(cuda_int8.int8_matmul(a, bt.t()), ref)
+    assert torch.equal(cuda_int8.int8_matmul(a, bt.t().contiguous()), ref)
+    assert torch.equal(ref, cuda_int8.int8_matmul_plain(a, bt.t()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(256, 384, 256), (100, 40, 72),
+                                   (8192, 2304, 256)])
+def test_bf16_matmul_within_the_cpu_bar(cuda_device, m, k, n):
+    """bf16 x bf16 -> f32 on unit-normal inputs within 1e-4 of the f64
+    sums at the CPU tests' K (tests/test_torch_int8_kernel.py holds the
+    tool's Pallas kernel so), and at the tool's K = 2304 within
+    cuda_int8.f32_sum_bound (f32 roundings of sums near 200 alone pass
+    1e-4 there)."""
+    from grid_vision_tpu_torch.ops import cuda_int8
+    g = torch.Generator(device="cuda").manual_seed(k)
+    a = torch.randn((m, k), generator=g, device=cuda_device).bfloat16()
+    b = torch.randn((k, n), generator=g, device=cuda_device).bfloat16()
+    got = cuda_int8.bf16_matmul(a, b)
+    assert got.dtype == torch.float32
+    err = (got - cuda_int8.bf16_matmul_plain(a, b)).abs()
+    if k <= 384:
+        assert err.max().item() <= 1e-4
+    assert (err <= cuda_int8.f32_sum_bound(a, b)).all()
+
+
+@pytest.mark.cuda
+def test_forward_int8_launches_19_kernels(cuda_device):
+    """forward_int8 and forward_int8_static launch the kernel once a conv
+    and give the plain conv's outputs bit for bit."""
+    from grid_vision_tpu_torch.models import yolov4_int8, yolov4_tiny
+    from grid_vision_tpu_torch.ops import cuda_int8
+    q = _int8_layers(cuda_device)
+    ycfg = yolov4_tiny.YoloConfig()
+    images = torch.rand((2, 416, 416, 3), generator=torch.Generator(
+        device="cuda").manual_seed(7), device=cuda_device)
+    scales = yolov4_int8.calibrate_scales(q, [images], ycfg)
+    runs = {}
+    for name, conv in (("kernel", yolov4_int8.int8_conv_requant),
+                       ("plain", cuda_int8.int8_conv_requant_plain)):
+        saved = yolov4_int8.int8_conv_requant
+        yolov4_int8.int8_conv_requant = conv
+        try:
+            n0 = cuda_int8.launches
+            runs[name] = (yolov4_int8.forward_int8(q, images, ycfg),
+                          yolov4_int8.forward_int8_static(q, scales, images,
+                                                          ycfg))
+            torch.cuda.synchronize()
+            launched = cuda_int8.launches - n0
+        finally:
+            yolov4_int8.int8_conv_requant = saved
+        assert launched == (2 * len(yolov4_int8.LAYERS)
+                            if name == "kernel" else 0)
+    for got, want in zip(runs["kernel"], runs["plain"]):
+        for g_, w_ in zip(got, want):
+            assert torch.equal(g_, w_)
