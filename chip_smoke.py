@@ -332,7 +332,9 @@ def ptxas_summary(log: str):
                     if kind or args else "")
         elif "spill" in ln:
             spills = ln
-        elif "registers" in ln:
+        elif re.search(r"Used \d+ registers", ln):
+            # (not the notes that mention registers, e.g. ptxas' C7519
+            # "warpgroup.arrive is injected ... to allow use of registers")
             out.append(f"{name}: {ln.replace('ptxas info    : ', '')}; "
                        f"{spills}")
     return out
@@ -730,11 +732,13 @@ def check_int8(torch, dev, detector, cfg, batch, images=None,
     given): every site's accumulators (mode acc) bit-equal to the f64 conv,
     its fused f32 output (mode requant, as the path runs it) bit-equal to
     requant of them, and the library yardstick (tap_matrix + torch._int_mm
-    + requant) equal too. With `timing`, per site and summed over a
-    forward: the kernel's ms (requant mode), the acc mode's, the plain
-    version's (f64 conv + requant), the library's, _int_mm's alone, and the
-    bound (the int8 in, the weights, the f32 out; 2 M N K operations at the
-    int8 peak)."""
+    + requant) equal too. Per site always: the plan (ops/cuda_int8.plan_for:
+    route and N tile) and the bound (the int8 in, the weights, the f32 out
+    at 3.35 TB/s, or 2 M N K operations at the int8 peak). With `timing`,
+    per site and summed over a forward: the kernel's ms (requant mode) and
+    its share of the bound, the acc mode's, the plain version's (f64 conv +
+    requant), the library's, _int_mm's alone; timing="kernel" times the
+    kernel alone."""
     from grid_vision_tpu_torch.models import yolov4_int8, yolov4_tiny
     from grid_vision_tpu_torch.ops import cuda_int8
     q = yolov4_int8.quantize_detector(detector)
@@ -773,11 +777,18 @@ def check_int8(torch, dev, detector, cfg, batch, images=None,
         m, kk = b * ho * wo, k * k * xq.shape[-1]
         n_bytes = xq.numel() + layer["wt"].numel() + y.numel() * 4 \
             + (b + 2 * n) * 4
+        plan = cuda_int8.plan_for(xq, layer["wt"], k, stride)
         row = dict(m=m, k=kk, n=n, kernel=k, stride=stride,
-                   tile_n=cuda_int8.tile_n(m, n, kk),
-                   max_abs_acc=int(acc.abs().max()), bytes=n_bytes,
-                   ops=2 * m * n * kk)
-        if timing:
+                   route=plan.route, tile_n=plan.tile_n, tiles=plan.tiles,
+                   blocks=plan.blocks, max_abs_acc=int(acc.abs().max()),
+                   bytes=n_bytes, ops=2 * m * n * kk)
+        row["bound_ms"], row["bound_by"] = bound_int8_ms(n_bytes, row["ops"])
+        if timing == "kernel":
+            row["ms"] = cuda_time_ms(
+                lambda: cuda_int8.int8_conv_requant(xq, sx, layer, stride),
+                10, 2)
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        elif timing:
             a = yolov4_int8.tap_matrix(xq, k, stride, kp)
             row.update(timed(
                 lambda: cuda_int8.int8_conv_requant(xq, sx, layer, stride),
@@ -787,8 +798,8 @@ def check_int8(torch, dev, detector, cfg, batch, images=None,
             row.update(
                 acc_ms=cuda_time_ms(
                     lambda: cuda_int8.int8_conv(xq, layer, stride), 10, 2),
-                gemm_ms=cuda_time_ms(lambda: torch._int_mm(a, wt), 10, 2),
-                bound_ms=bound_int8_ms(n_bytes, row["ops"])[0])
+                gemm_ms=cuda_time_ms(lambda: torch._int_mm(a, wt), 10, 2))
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
         sites[site] = row
         return y
 
@@ -796,9 +807,11 @@ def check_int8(torch, dev, detector, cfg, batch, images=None,
     if sorted(sites) != sorted(yolov4_int8.LAYERS):
         fail(f"int8: sites {sorted(sites)}")
     total = {key: sum(r[key] for r in sites.values())
-             for key in ("bytes", "ops") + (
+             for key in ("bytes", "ops", "bound_ms") + (
+                 ("ms",) if timing == "kernel" else
                  ("ms", "plain_ms", "library_ms", "acc_ms", "gemm_ms")
                  if timing else ())}
+    total["sites_bound_ms"] = total.pop("bound_ms")
     return dict(
         call=lambda: yolov4_int8.forward_int8(q, images, ycfg),
         name="int8_conv", source="grid_vision_tpu_torch/csrc/cuda_int8.cu",
@@ -3831,7 +3844,8 @@ def int8_phases(torch, dev, root, cfg, fleet_cfg, nets, extrinsics, obs_seq,
     1. Every layer through the int8 conv kernel (csrc/cuda_int8.cu) on the
        fleet's 64 real frames (check_int8, the 19 sites of a forward): the
        accumulators bit-equal to the plain f64 conv, the fused requant
-       bit-equal to requant; each site's shape, tile and max |acc|.
+       bit-equal to requant; each site's shape, plan (route, tile), max
+       |acc|, the kernel's ms, its bound and its share of it.
     2. The extension-mode tick (compat=False, raycast_free_space, depth
        refine, class-aware NMS; stem "xla", as validate() ties int8 to
        it): INT8_ENGINE_TICKS single-rig ticks and INT8_FLEET_TICKS fleet
@@ -3860,8 +3874,9 @@ def int8_phases(torch, dev, root, cfg, fleet_cfg, nets, extrinsics, obs_seq,
 
     # 1. every layer: the kernel against the f64 conv, both modes
     r = check_int8(torch, dev, nets["detector"], cfg, None, images=net_in,
-                   timing=False)
+                   timing="kernel")
     res["layers"] = r["sites"]
+    res["layers_ms"], res["layers_bound_ms"] = r["ms"], r["sites_bound_ms"]
     res["layers_bit_equal"] = len(r["sites"])
 
     # 2. the extension-mode ticks against the plain int8 conv
@@ -3999,8 +4014,10 @@ def int8_mma_phase(torch, dev, card):
         lambda: cuda_int8.int8_matmul_plain(a8, b8), 5, 1),
         bf16=cuda_time_ms(lambda: cuda_int8.bf16_matmul_plain(a16, b16),
                           5, 1))
-    phase("int8_mma", card=card, m=m, k=k, n=n,
-          tile_n=cuda_int8.tile_n(m, n, k), ms=ms, plain_ms=plain,
+    plans = {name: dataclasses.asdict(cuda_int8.int8_plan(m, n, k, size=size))
+             for name, size in (("int8", 1), ("bf16", 2))}
+    phase("int8_mma", card=card, m=m, k=k, n=n, plans=plans, ms=ms,
+          plain_ms=plain,
           int8_tops=ops / ms["int8"] / 1e9,
           bf16_tflops=ops / ms["bf16"] / 1e9,
           int8_speedup_vs_bf16=ms["bf16"] / ms["int8"],
@@ -4364,7 +4381,19 @@ def main() -> None:
     t0 = time.perf_counter()
     cuda_build.build_all(variants=[CSP_CLOCKS])
     regs = {n: ptxas_summary(log) for n, log in cuda_build.ptxas_log.items()}
-    phase("build", seconds=round(time.perf_counter() - t0, 3), ptxas=regs)
+    # the int8 conv's instances: the ring and the dynamic shared memory
+    # each N tile takes (ptxas counts static shared memory only), held to
+    # ops/cuda_int8's plan
+    lib8 = cuda_build.load("cuda_int8")
+    int8_smem = {bn: dict(stages=lib8.gv_int8_stages(bn),
+                          dynamic_smem=lib8.gv_int8_smem(bn))
+                 for bn in cuda_int8.TILE_N}
+    for bn, got in int8_smem.items():
+        if (got["stages"], got["dynamic_smem"]) != (
+                cuda_int8.ring_stages(bn), cuda_int8.smem_bytes(bn)):
+            fail(f"int8 kernel at N tile {bn}: {got} differs from the plan")
+    phase("build", seconds=round(time.perf_counter() - t0, 3), ptxas=regs,
+          int8_instances=int8_smem)
 
     # the single-rig path's configuration at full width; the fleet
     # configuration of bench.py:240-245 in f32

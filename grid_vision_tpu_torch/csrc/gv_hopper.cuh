@@ -1,9 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the bf16 kernels of csrc/
-// (cuda_stem_bf16.cu, cuda_orient_bf16.cu, cuda_csp_bf16.cu): mbarriers,
-// bulk and tensor (TMA) copies by the copy engine and the host's tensor
-// maps for them, the wgmma.m64n32k16 / m64n64k16 / m64n96k16 / m64n128k16
-// products with B in shared memory and A from registers, and the
-// thread-block cluster's barrier and distributed shared memory.
+// (cuda_stem_bf16.cu, cuda_orient_bf16.cu, cuda_csp_bf16.cu) and the int8
+// conv (cuda_int8.cu): mbarriers, named barriers, setmaxnreg, bulk and
+// tensor (TMA: tiled and im2col) copies by the copy engine and the host's
+// tensor maps for them, the wgmma.m64n32k16 / m64n64k16 / m64n96k16 /
+// m64n128k16 products with B in shared memory and A from registers (the
+// int8 conv's products with both operands in shared memory are in
+// gv_wgmma_ss.cuh), the 128-byte-swizzle descriptor, and the thread-block
+// cluster's barrier and distributed shared memory.
 //
 // B of a wgmma comes from shared memory in the layout that
 // ops/bf16mma.pack_wgmma_b writes: K-major, no swizzle, one k step of 16
@@ -46,6 +49,13 @@ __device__ __forceinline__ uint4 lds128(uint32_t addr) {
   return v;
 }
 
+__device__ __forceinline__ void sts64(uint32_t addr, uint32_t x,
+                                      uint32_t y) {
+  asm volatile("st.shared.v2.u32 [%0], {%1, %2};" ::"r"(addr), "r"(x),
+               "r"(y)
+               : "memory");
+}
+
 __device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
   asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(addr),
                "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
@@ -80,6 +90,63 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
       : "memory");
 }
 
+// One arrival on `bar` (release: this thread's earlier writes to shared
+// memory are seen by the thread whose wait completes the phase).
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// Named barrier `id` (1..15) over `count` threads (a multiple of 32).
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// The warpgroup's registers a thread, moved to or from the block's pool
+// (every warp of the warpgroup executes it).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+// Whether the phase of `bar` of this parity has completed (the hardware
+// may suspend the thread a while first).
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// 16 bytes global -> shared at `dst` (a shared address), zero-filled when
+// !ok (src is then not read but must be a valid address); cached in L1.
+__device__ __forceinline__ void cp_async16_ca(uint32_t dst, const void* src,
+                                              bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// An arrival on `bar` once this thread's earlier cp.async copies have
+// landed (noinc: it counts as one of the barrier's expected arrivals).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::
+                   "r"(bar)
+               : "memory");
+}
+
 // `bytes` (a multiple of 16) global -> shared by the copy engine,
 // completing on `bar`; dst and src 16-byte aligned.
 __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
@@ -105,6 +172,64 @@ __device__ __forceinline__ void tensor_copy_4d(uint32_t dst,
       : "memory");
 }
 
+// The box of a 2-D tensor map at (c0 innermost, c1), as tensor_copy_4d.
+__device__ __forceinline__ void tensor_copy_2d(uint32_t dst,
+                                               const CUtensorMap* map, int c0,
+                                               int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(map), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// An im2col copy of a 4-D (C, W, H, N) tensor map: the map's
+// pixels-per-column pixels from base pixel (w, h, n) on, walked along W,
+// then H, then N within the map's bounding box at its element strides,
+// each pixel's channels c .. c + channels-per-pixel - 1 read at (w +
+// off_w, h + off_h); zero outside the tensor. Completes on `bar`.
+__device__ __forceinline__ void im2col_copy_4d(uint32_t dst,
+                                               const CUtensorMap* map, int c,
+                                               int w, int h, int n,
+                                               uint16_t off_w, uint16_t off_h,
+                                               uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6], {%7, %8};" ::
+          "r"(dst),
+      "l"(map), "r"(c), "r"(w), "r"(h), "r"(n), "r"(bar), "h"(off_w),
+      "h"(off_h)
+      : "memory");
+}
+
+// The box at (c0, c1) of a 2-D tensor map from shared memory at src (in
+// the map's swizzle) to global memory by the copy engine, in this
+// thread's bulk group; rows and columns outside the tensor are not
+// written. bulk_commit closes the group; bulk_wait_read waits until the
+// committed stores have read their shared memory, bulk_wait until they
+// are done.
+__device__ __forceinline__ void tensor_store_2d(const CUtensorMap* map,
+                                                uint32_t src, int c0,
+                                                int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, "
+      "%2}], [%3];" ::"l"(map),
+      "r"(c0), "r"(c1), "r"(src)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
 // Orders this thread's earlier shared-memory accesses before later ones of
 // the copy engine (a bulk copy into a buffer just read).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -117,6 +242,25 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
          ((uint64_t)(256 >> 4) << 32);
+}
+
+// The descriptor of a K-major operand tile in the 128-byte swizzle (what a
+// tensor copy with CU_TENSOR_MAP_SWIZZLE_128B writes): rows of 128 bytes,
+// 16-byte chunk j of row r at chunk j ^ (r % 8), groups of 8 rows 1024
+// bytes apart (stride byte offset); the tile 1024-byte aligned. A k step
+// of 32 bytes further into the rows is the descriptor plus 2.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// The same for a K-major tile in the 32-, 64- or 128-byte swizzle (rows
+// of w bytes, chunk j of row r at j ^ (r % 8) masked to the row, groups
+// of 8 rows 8 w bytes apart; the tile 8 w-byte aligned).
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr, int w) {
+  const uint64_t layout = w == 128 ? 1 : w == 64 ? 2 : 3;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)((8 * w) >> 4) << 32) | (layout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -143,6 +287,12 @@ template <int N>
 __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // d (+)= a * b, m64n32k16, bf16 operands, f32 sums (see m64n64k16): the
@@ -310,6 +460,45 @@ inline int frame_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
   const CUresult r = encode(
       map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides,
       box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+typedef CUresult (*EncodeIm2col)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const int*, const int*,
+                                 cuuint32_t, cuuint32_t, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// An im2col tensor map over a (batch, h, w, c) NHWC tensor at `base` (dims
+// innermost first {c, w, h, batch}, byte strides of w, h, batch): a copy
+// brings `pixels` pixels of `channels` channels each; the bounding box of
+// the base pixels runs from lower[i] to dim[i] - 1 + upper[i] (i = w, h),
+// walked at `stride`. Nonzero: a CUDA error.
+inline int im2col_map(CUtensorMap* map, CUtensorMapDataType type,
+                      const void* base, const cuuint64_t* dims,
+                      const cuuint64_t* strides, const int* lower,
+                      const int* upper, int channels, int pixels, int stride,
+                      CUtensorMapSwizzle swizzle) {
+  static EncodeIm2col encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeIm2col", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) {
+      return (int)cudaErrorNotSupported;
+    }
+    encode = reinterpret_cast<EncodeIm2col>(fn);
+  }
+  const cuuint32_t steps[4] = {1, (cuuint32_t)stride, (cuuint32_t)stride, 1};
+  const CUresult r = encode(
+      map, type, 4, const_cast<void*>(base), dims, strides, lower, upper,
+      (cuuint32_t)channels, (cuuint32_t)pixels, steps,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }

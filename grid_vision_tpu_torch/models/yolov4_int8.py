@@ -12,10 +12,12 @@ net's (yolov4_tiny.decode_head): the 2535-anchor output contract holds.
 The int8 conv: on a CUDA tensor each conv is one launch of the
 hand-written s8 implicit-GEMM kernel of ``ops/cuda_int8.py``
 (``csrc/cuda_int8.cu``, the counterpart of tools/bench_int8_mxu.py's
-Pallas GEMM): the taps gathered from the NHWC int8 activation into shared
-memory, exact int32 sums on the tensor cores, and in ``_qconv`` the
-requant and leaky in the kernel's epilogue (``int8_conv_requant``, f32
-out, 19 launches a forward); ``int8_conv`` writes the int32 accumulators.
+Pallas GEMM): the taps brought from the NHWC int8 activation into shared
+memory (by TMA im2col or tiled copies, or gathered; the route by
+``cuda_int8.int8_plan``), exact int32 sums on the tensor cores (wgmma),
+and in ``_qconv`` the requant and leaky in the kernel's epilogue
+(``int8_conv_requant``, f32 out, 19 launches a forward); ``int8_conv``
+writes the int32 accumulators.
 ``launches`` counts the kernel launches these convs make. On a CPU tensor,
 and as the card's reference, the plain versions: ``int8_conv_plain``, the
 same conv in float64 F.conv2d on the int8 values, exact (|acc| <= 127^2 *

@@ -5,9 +5,11 @@ Counterpart of tools/bench_int8_mxu.py's build_matmul (the whole-K and the
 K-blocked Pallas kernels, s8 x s8 -> s32 and bf16 x bf16 -> f32 on
 detector-shaped GEMMs), which gated a fused int8 detector: on a CUDA
 tensor every function here launches the hand-written kernel of
-``csrc/cuda_int8.cu`` (its note says what bounds it and how: the taps
-gathered into shared memory, mma.sync, the requant in the epilogue); on a
-CPU tensor it runs its plain version.
+``csrc/cuda_int8.cu`` (its note says what bounds it and how: persistent
+blocks, a producer warpgroup staging A and B through a ring of 128-byte
+swizzled stages by TMA, two consumer warpgroups on wgmma, the requant in
+an epilogue staged through shared memory); on a CPU tensor it runs its
+plain version.
 
 - ``int8_conv(xq, layer, stride)``: (B, H, W, Cin) int8 -> (B, Ho, Wo,
   Cout) int32 accumulators of the layer's SAME conv (flax padding; a
@@ -25,12 +27,16 @@ CPU tensor it runs its plain version.
   conv's weight layout) is used as it is; any other b is copied into it.
 
 ``launches`` counts kernel launches (one a call on a CUDA tensor).
-``tile_n`` is the rule by which the wrapper picks the kernel's tile width.
+``int8_plan`` is the rule by which the wrapper picks the kernel's tile,
+the route by which A reaches shared memory and the persistent grid;
+``force_plan`` overrides it (the measuring tools).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
 import functools
 from typing import Dict, Optional, Tuple
 
@@ -44,31 +50,142 @@ from . import cuda_build
 # tensor).
 launches = 0
 
-# csrc/cuda_int8.cu: 128 output rows a block; its N tile 128, 64 or 32
-# (bf16: 64 or 32).
+# csrc/cuda_int8.cu: 128 output rows a tile (two consumer warpgroups of
+# 64); its N tile 256, 128, 64 or 32 (bf16 up to 128); K in stages of 128
+# bytes (the 128-byte swizzle's row), at most MAX_STAGES in the ring,
+# within a block's MAX_SMEM bytes of dynamic shared memory.
 TILE_M = 128
-TILE_N = (128, 64, 32)
-# tile_n takes 128 columns only for a K this long or longer (a shorter K
-# ran faster at 64 on an H100: PERF.md §6), and narrows the tile while
-# the blocks would not give each of the card's 132 SMs one
-LONG_K = 2048
-MIN_BLOCKS = 132
+TILE_N = (256, 128, 64, 32)
+TILE_N_BF16 = (128, 64, 32)
+STAGE_K = 128
+MAX_SMEM = 232448
+MAX_STAGES = 8
+# the fixed shared memory beside the ring: the epilogue's staging (a 64 x
+# 32 chunk of 4-byte outputs a consumer warpgroup), the gather's row
+# table, the requant's sx, sw (f32) and bias (f64) for up to 768 frames
+# and channels, the barriers, the alignment
+SMEM_FIXED = 2 * 64 * 128 + TILE_M * 16 + 4 * 768 * 4 + 256 + 1024
+# The card's SMs (an H100 SXM); the wrapper reads the device's own count.
+SMS = 132
+# A tile's cost in int8_plan: one column of the tile a unit, this many for
+# its fixed part (the epilogue's barriers, the pipeline's fill)
+TILE_COST = 64
+# How A reaches shared memory (the kernel's route argument, in order): by
+# a TMA tiled copy (1x1, stride 1), TMA im2col copies (C a multiple of 128
+# bytes: a copy a stage; s8 C of 32 or 64: a copy a tap, two or four a
+# stage), 16-byte cp.async pieces (C a multiple of 16 bytes), ConvBN_0's
+# three runs of nine bytes (C = 3, k = 3), or byte by byte (any other C).
+ROUTES = ("tiled", "im2col", "gather", "runs", "bytes")
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8Plan:
+    route: str
+    tile_n: int
+    tiles: int          # output tiles, TILE_M x tile_n
+    blocks: int         # the persistent grid: one block an SM at most
+    stages: int         # the ring's stages
+    smem: int           # a block's dynamic shared memory (bytes)
+
+
+def ring_stages(bn: int) -> int:
+    """The ring's stages at N tile bn (the kernel's Smem<BN>::kStages)."""
+    stage = TILE_M * STAGE_K + bn * STAGE_K
+    return min(MAX_STAGES, (MAX_SMEM - SMEM_FIXED) // stage)
+
+
+def smem_bytes(bn: int) -> int:
+    """A block's dynamic shared memory at N tile bn (Smem<BN>::kBytes)."""
+    return ring_stages(bn) * (TILE_M + bn) * STAGE_K + SMEM_FIXED
+
+
+def routes_for(c: int, ksize: int, stride: int, size: int = 1,
+               aligned: bool = True) -> Tuple[str, ...]:
+    """The routes the kernel can take for A of a ksize x ksize conv of
+    stride over C channels of `size` bytes (x 16-byte aligned or not),
+    the rule's first."""
+    out = []
+    if aligned and c * size % 16 == 0:
+        if ksize == 1 and stride == 1:
+            out.append("tiled")
+        if c * size % STAGE_K == 0 or (size == 1 and c in (32, 64)):
+            out.append("im2col")
+        out.append("gather")
+    if size == 1:
+        if c == 3 and ksize == 3:
+            out.append("runs")
+        out.append("bytes")
+    return tuple(out)
+
+
+def int8_plan(m: int, n: int, k: int, c: int = 0, ksize: int = 1,
+              stride: int = 1, size: int = 1, aligned: bool = True,
+              sms: int = SMS, tile_n: Optional[int] = None,
+              route: Optional[str] = None) -> Int8Plan:
+    """The kernel's plan for an (m, n) output over K = k elements of a
+    ksize x ksize conv of stride over c channels (c = k: a GEMM) of
+    `size` bytes. The N tile: of the widths not above the narrowest that
+    covers n, the one whose blocks take the fewest tile-costs, ceil(tiles
+    / sms) x (width + TILE_COST), the wider on a tie (so the 13 x 13
+    layers at one frame still spread over the card); the route: the
+    first of routes_for. tile_n / route force either (or force_plan)."""
+    return _plan(m, n, k, c or k, ksize, stride, size, aligned, sms,
+                 tile_n or _forced.get("tile_n"),
+                 route or _forced.get("route"))
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(m, n, k, c, ksize, stride, size, aligned, sms, tile_n, route):
+    widths = TILE_N if size == 1 else TILE_N_BF16
+    allowed = routes_for(c, ksize, stride, size, aligned)
+    if not allowed:
+        raise ValueError(f"no route for {c} channels of {size} bytes "
+                         f"(aligned {aligned})")
+    if route is None:
+        route = allowed[0]
+    elif route not in allowed:
+        raise ValueError(f"route {route!r} cannot take a {ksize}x{ksize} "
+                         f"conv of stride {stride} over {c} channels of "
+                         f"{size} bytes: {allowed}")
+    m_tiles = -(-m // TILE_M)
+    if tile_n is None:
+        top = next((w for w in reversed(widths) if w >= n), widths[0])
+        best = None
+        for w in widths:
+            if w > top:
+                continue
+            cost = -(-(m_tiles * -(-n // w)) // sms) * (w + TILE_COST)
+            if best is None or cost < best[0]:
+                best = (cost, w)
+        tile_n = best[1]
+    elif tile_n not in widths:
+        raise ValueError(f"tile_n {tile_n} is not one of {widths}")
+    tiles = m_tiles * -(-n // tile_n)
+    return Int8Plan(route=route, tile_n=tile_n, tiles=tiles,
+                    blocks=max(1, min(tiles, sms)),
+                    stages=ring_stages(tile_n), smem=smem_bytes(tile_n))
+
+
+_forced: Dict[str, object] = {}
+
+
+@contextlib.contextmanager
+def force_plan(tile_n: Optional[int] = None, route: Optional[str] = None):
+    """Within the block every launch takes this N tile and / or route
+    (int8_plan raises where the route cannot take a layer)."""
+    saved = dict(_forced)
+    _forced.clear()
+    _forced.update({k: v for k, v in (("tile_n", tile_n), ("route", route))
+                    if v is not None})
+    try:
+        yield
+    finally:
+        _forced.clear()
+        _forced.update(saved)
 
 
 def out_size(n: int, stride: int) -> int:
     return -(-n // stride)
-
-
-def tile_n(m: int, n: int, k: int, widest: int = TILE_N[0]) -> int:
-    """The kernel's N tile for an (m, n) output over K = k: the widest of
-    TILE_N not above n, `widest`, or 64 when k < LONG_K (32 below),
-    halved while the blocks would not reach MIN_BLOCKS."""
-    if k < LONG_K:
-        widest = min(widest, TILE_N[1])
-    bn = next((t for t in TILE_N if t <= min(n, widest)), TILE_N[-1])
-    while bn > TILE_N[-1] and (-(-m // TILE_M)) * (-(-n // bn)) < MIN_BLOCKS:
-        bn //= 2
-    return bn
 
 
 def int8_conv_plain(xq: torch.Tensor, wq: torch.Tensor,
@@ -126,9 +243,25 @@ def f32_sum_bound(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _entry():
     fn = cuda_build.load("cuda_int8").gv_int8_conv
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 15 + [
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 17 + [
         ctypes.c_void_p] * 5
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan_for(x: torch.Tensor, wt: torch.Tensor, k: int,
+             stride: int) -> Int8Plan:
+    """int8_plan of the kernel's launch on x (B, H, W, C) and wt (N, Kp)
+    (the card's SM count on a CUDA tensor, SMS otherwise)."""
+    b, h, w, c = x.shape
+    sms = _sms(x.device.index or 0) if x.device.type == "cuda" else SMS
+    return int8_plan(b * out_size(h, stride) * out_size(w, stride),
+                     wt.shape[0], k * k * c, c, k, stride,
+                     x.element_size(), x.data_ptr() % 16 == 0, sms)
 
 
 def _launch(x: torch.Tensor, wt: torch.Tensor, k: int, stride: int,
@@ -153,13 +286,14 @@ def _launch(x: torch.Tensor, wt: torch.Tensor, k: int, stride: int,
         raise ValueError(f"wt ({n}, {kp}) does not hold a {k}x{k} conv of "
                          f"{c} channels padded to 16 bytes")
     if wt.data_ptr() % 16:
-        raise ValueError("wt must be 16-byte aligned")
+        raise ValueError("wt must be 16-byte aligned (its TMA tensor map)")
     if x.dtype == torch.bfloat16 and (c * size % 16 or x.data_ptr() % 16):
         raise ValueError("a bf16 x needs C a multiple of 8, 16-byte aligned")
     if x.numel() >= 2 ** 31:
         raise ValueError("x has 2^31 elements or more")
     ho, wo = out_size(h, stride), out_size(w, stride)
     py, px = same_pad(h, k, stride), same_pad(w, k, stride)
+    plan = plan_for(x, wt, k, stride)
     sx = sw = bias = None
     if requant_by is not None:
         if x.dtype != torch.int8:
@@ -177,8 +311,8 @@ def _launch(x: torch.Tensor, wt: torch.Tensor, k: int, stride: int,
     cuda_build.check(
         _entry()(x.data_ptr(), wt.data_ptr(), int(x.dtype == torch.bfloat16),
                  int(requant_by is not None), b, h, w, c, ho, wo, k, stride,
-                 py[0], px[0], n, kp,
-                 tile_n(b * ho * wo, n, k * k * c, 128 if size == 1 else 64),
+                 py[0], px[0], n, kp, plan.tile_n,
+                 ROUTES.index(plan.route), plan.blocks,
                  None if sx is None else sx.data_ptr(),
                  None if sw is None else sw.data_ptr(),
                  None if bias is None else bias.data_ptr(), out.data_ptr(),

@@ -1508,3 +1508,137 @@ def test_forward_int8_launches_19_kernels(cuda_device):
     for got, want in zip(runs["kernel"], runs["plain"]):
         for g_, w_ in zip(got, want):
             assert torch.equal(g_, w_)
+
+
+def _int8_case(shape, n, k, seed, device):
+    """Random int8 activations (B, H, W, C) and a random layer of n output
+    channels (OIHW wq, its (n, Kp) GEMM matrix wt, scales and bias)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[-1]
+    xq = torch.randint(-127, 128, shape, generator=g, device=device,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, c, k, k), generator=g, device=device,
+                       dtype=torch.int8)
+    kk = k * k * c
+    wt = torch.nn.functional.pad(wq.permute(0, 2, 3, 1).reshape(n, kk),
+                                 (0, -kk % 16)).contiguous()
+    layer = dict(wq=wq, wt=wt,
+                 sw=torch.rand(n, generator=g, device=device) * 1e-2 + 1e-4,
+                 b=torch.randn(n, generator=g, device=device))
+    sx = torch.rand((shape[0], 1, 1, 1), generator=g, device=device) * 0.1
+    return xq, layer, sx + 1e-3
+
+
+def _int8_both_modes(xq, layer, sx, stride):
+    from grid_vision_tpu_torch.ops import cuda_int8
+    acc = cuda_int8.int8_conv(xq, layer, stride)
+    ref = cuda_int8.int8_conv_plain(xq, layer["wq"], stride)
+    assert acc.dtype == torch.int32 and torch.equal(acc, ref)
+    assert torch.equal(cuda_int8.int8_conv_requant(xq, sx, layer, stride),
+                       cuda_int8.requant(ref, sx, layer))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n,k,stride", [
+    ((1, 15, 13, 128), 32, 3, 1),       # M 195: a ragged row tile
+    ((2, 9, 7, 128), 64, 3, 2),         # odd, stride 2
+    ((1, 10, 12, 256), 128, 3, 1),
+    ((1, 8, 8, 256), 256, 3, 2),        # N 256, even, stride 2
+    ((1, 6, 5, 512), 512, 3, 1),        # N 512: two tiles of 256 or more
+    ((2, 7, 7, 128), 40, 3, 1),         # a ragged N
+    ((1, 9, 11, 16), 100, 3, 1),        # K 144: a partial stage
+    ((1, 13, 13, 48), 72, 3, 2),        # K 432, N 72
+    ((3, 11, 9, 64), 128, 1, 1),        # 1x1, M 297
+    ((1, 200, 150, 64), 64, 3, 1)])     # 235 tiles: a block walks two
+def test_int8_kernel_tile_and_ring_edges(cuda_device, shape, n, k, stride):
+    """Row tiles that M does not fill, N tiles of 32 to 256 and ragged N,
+    K not a multiple of a 128-byte stage, blocks that walk more than one
+    tile: both modes bit-equal to the plain versions."""
+    _int8_both_modes(*_int8_case(shape, n, k, sum(shape) + n, cuda_device),
+                     stride)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(8, 8), (9, 7), (2, 3), (1, 1), (13, 13)])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("c", [32, 64, 128])
+def test_int8_im2col_padding_at_every_border(cuda_device, h, w, stride, c):
+    """The TMA im2col route (C = 128: a copy a stage; 32, 64: a copy a
+    tap into 32- and 64-byte swizzled sub-tiles) against the gather route
+    and the plain conv, stride 1 and 2 on even, odd and tiny frames: flax
+    SAME's asymmetric padding at every border is the map's bounding box."""
+    from grid_vision_tpu_torch.ops import cuda_int8
+    xq, layer, sx = _int8_case((2, h, w, c), 64, 3, h * w + stride + c,
+                               cuda_device)
+    assert cuda_int8.plan_for(xq, layer["wt"], 3, stride).route == "im2col"
+    _int8_both_modes(xq, layer, sx, stride)
+    with cuda_int8.force_plan(route="gather"):
+        _int8_both_modes(xq, layer, sx, stride)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k,stride", [(3, 3, 2), (32, 3, 2), (128, 3, 1),
+                                        (64, 1, 1), (5, 3, 1)])
+@pytest.mark.parametrize("tile_n", [32, 64, 128, 256])
+def test_int8_kernel_every_route_and_tile(cuda_device, c, k, stride,
+                                          tile_n):
+    """Every route a layer can take (ops/cuda_int8.routes_for: runs,
+    gather, im2col, tiled, bytes) at every N tile, B = 1 at 13 x 13 and
+    3 frames of 9 x 11, bit-equal in both modes; the kernel's ring and
+    shared memory equal to the plan's."""
+    from grid_vision_tpu_torch.ops import cuda_build, cuda_int8
+    lib = cuda_build.load("cuda_int8")
+    assert lib.gv_int8_stages(tile_n) == cuda_int8.ring_stages(tile_n)
+    assert lib.gv_int8_smem(tile_n) == cuda_int8.smem_bytes(tile_n)
+    for shape in ((1, 13, 13, c), (3, 9, 11, c)):
+        xq, layer, sx = _int8_case(shape, 96, k, c + tile_n, cuda_device)
+        for route in cuda_int8.routes_for(c, k, stride):
+            with cuda_int8.force_plan(tile_n=tile_n, route=route):
+                _int8_both_modes(xq, layer, sx, stride)
+        with cuda_int8.force_plan(tile_n=tile_n):
+            _int8_both_modes(xq, layer,
+                             torch.tensor(0.0123, device=cuda_device),
+                             stride)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8192, 2304, 256), (300, 208, 48),
+                                   (300, 200, 48), (20000, 256, 512)])
+def test_int8_matmul_routes_bit_equal(cuda_device, m, k, n):
+    """The GEMM form by every route it can take (tiled, im2col where K is
+    a multiple of 128, gather, bytes; K = 200 rows are no 16-byte pieces:
+    bytes only), against torch._int_mm where it takes the shape, and the
+    plain version."""
+    from grid_vision_tpu_torch.ops import cuda_int8
+    g = torch.Generator(device="cuda").manual_seed(m + k)
+    a = torch.randint(-127, 127, (m, k), generator=g, device=cuda_device,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 127, (n, k), generator=g, device=cuda_device,
+                      dtype=torch.int8).t()
+    ref = cuda_int8.int8_matmul_plain(a, b)
+    routes = cuda_int8.routes_for(k, 1, 1)
+    assert routes[0] == ("bytes" if k % 16 else "tiled")
+    for route in routes:
+        with cuda_int8.force_plan(route=route):
+            assert torch.equal(cuda_int8.int8_matmul(a, b), ref), route
+    if m > 16 and k % 8 == 0 and n % 8 == 0:
+        assert torch.equal(torch._int_mm(a, b), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_n", [32, 64])
+def test_int8_requant_past_2_24(cuda_device, tile_n):
+    """Accumulators beyond 2^24 in magnitude (f32(acc) rounds) in some of
+    a warp's chunks and not in others: the epilogue's rounded path and its
+    exact one both bit-equal to requant."""
+    from grid_vision_tpu_torch.ops import cuda_int8
+    xq, layer, sx = _int8_case((2, 6, 6, 128), 64, 3, 5, cuda_device)
+    xq.fill_(127)
+    xq[0, :, :, :64] = -127
+    layer["wq"][:32] = 127
+    layer["wt"] = layer["wq"].permute(0, 2, 3, 1).reshape(64, -1).contiguous()
+    acc = cuda_int8.int8_conv_plain(xq, layer["wq"], 1)
+    assert acc.abs().max().item() > 2 ** 24
+    assert (acc.abs() <= 2 ** 24).any()
+    with cuda_int8.force_plan(tile_n=tile_n):
+        _int8_both_modes(xq, layer, sx, 1)

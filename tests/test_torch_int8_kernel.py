@@ -16,7 +16,11 @@ JAX package's tools/bench_int8_mxu.py and models/yolov4_int8.py.
   jax.jit(_qconv) whole.
 - On CPU tensors the wrappers and the int8 detector run the plain versions
   and never reach cuda_build.load; the wrapper's checks refuse what the
-  kernel does not take before it would launch.
+  kernel does not take before it would launch (a forced plan a layer
+  cannot take, a misaligned weight matrix included).
+- int8_plan, the kernel's plan: the N tile of fewest tile-costs over the
+  card's SMs, the route of A at each of the detector's 19 sites, the ring
+  within a block's shared memory, force_plan.
 The kernel itself runs only on the card (tests/test_torch_cuda.py).
 """
 
@@ -209,11 +213,12 @@ def test_cpu_tensors_never_reach_the_build(layers, no_build):
 
 
 @pytest.mark.parametrize("what", ["dtype", "contiguous", "kp", "weights",
-                                  "scale", "bf16_channels"])
+                                  "scale", "bf16_channels", "wt_aligned",
+                                  "forced_route", "bf16_tile"])
 def test_wrapper_refuses_before_launch(no_build, what):
     x = torch.zeros((1, 5, 5, 32), dtype=torch.int8)
     wt = torch.zeros((64, 288), dtype=torch.int8)
-    args, requant_by = (x, wt, 3, 1), None
+    args, requant_by, forced = (x, wt, 3, 1), None, {}
     if what == "dtype":
         args = (x.float(), wt, 3, 1)
     elif what == "contiguous":
@@ -224,22 +229,118 @@ def test_wrapper_refuses_before_launch(no_build, what):
         args = (x, wt.short(), 3, 1)
     elif what == "scale":
         requant_by = (torch.ones(2), torch.ones(64), torch.ones(64))
-    else:
+    elif what == "bf16_channels":
         args = (torch.zeros((1, 5, 5, 4), dtype=torch.bfloat16),
                 torch.zeros((8, 48), dtype=torch.bfloat16), 3, 1)
-    with pytest.raises(ValueError):
+    elif what == "wt_aligned":        # its TMA map needs a 16-byte base
+        flat = torch.zeros(64 * 288 + 16, dtype=torch.int8)
+        off = next(i for i in range(1, 16) if (flat.data_ptr() + i) % 16)
+        args = (x, flat[off:off + 64 * 288].view(64, 288), 3, 1)
+    elif what == "forced_route":      # a 3x3 conv is no plain matrix
+        forced = dict(route="tiled")
+    else:                             # bf16 tiles stop at 128
+        args = (torch.zeros((1, 5, 5, 32), dtype=torch.bfloat16),
+                torch.zeros((64, 288), dtype=torch.bfloat16), 3, 1)
+        forced = dict(tile_n=256)
+    with pytest.raises(ValueError), cuda_int8.force_plan(**forced):
         cuda_int8._launch(*args, requant_by)
 
 
-@pytest.mark.parametrize("m,n,k,want", [
-    (64 * 208 * 208, 32, 27, 32), (64 * 52 * 52, 128, 1152, 64),
-    (64 * 13 * 13, 512, 4608, 128), (64 * 13 * 13, 256, 512, 64),
-    (64 * 26 * 26, 256, 2304, 128), (169, 512, 4608, 32),
-    (8192, 256, 2304, 64), (100, 48, 432, 32), (10, 7, 8, 32)])
-def test_tile_n_fills_the_card(m, n, k, want):
-    bn = cuda_int8.tile_n(m, n, k)
-    assert bn == want
-    blocks = -(-m // cuda_int8.TILE_M) * -(-n // bn)
-    assert bn == 32 or blocks >= cuda_int8.MIN_BLOCKS
-    assert bn <= 64 or k >= cuda_int8.LONG_K
-    assert cuda_int8.tile_n(m, n, k, widest=64) <= 64
+# (m, n, k, c, ksize, stride) -> (tile_n, route): the detector's sites at
+# 64 frames (ConvBN_0, ConvBN_3, ConvBN_5, ConvBN_6, ConvBN_4) and one
+# (ConvBN_5), the tool's GEMM, an odd small conv and a GEMM whose rows are
+# not 16-byte pieces
+@pytest.mark.parametrize("m,n,k,c,ksize,stride,want", [
+    (64 * 208 * 208, 32, 27, 3, 3, 2, (32, "runs")),
+    (64 * 52 * 52, 128, 1152, 128, 3, 1, (128, "im2col")),
+    (64 * 13 * 13, 512, 4608, 512, 3, 1, (128, "im2col")),
+    (64 * 13 * 13, 256, 512, 512, 1, 1, (256, "tiled")),
+    (64 * 26 * 26, 256, 2304, 256, 3, 1, (256, "im2col")),
+    (169, 512, 4608, 512, 3, 1, (32, "im2col")),
+    (8192, 256, 2304, 2304, 1, 1, (128, "tiled")),
+    (100, 48, 432, 48, 3, 1, (32, "gather")),
+    (10, 7, 8, 8, 1, 1, (32, "bytes"))])
+def test_int8_plan_fills_the_card(m, n, k, c, ksize, stride, want):
+    plan = cuda_int8.int8_plan(m, n, k, c, ksize, stride)
+    assert (plan.tile_n, plan.route) == want
+    m_tiles = -(-m // cuda_int8.TILE_M)
+    assert plan.tiles == m_tiles * -(-n // plan.tile_n)
+    assert plan.blocks == min(plan.tiles, cuda_int8.SMS)
+
+    def cost(w):
+        return (-(-(m_tiles * -(-n // w)) // cuda_int8.SMS)
+                * (w + cuda_int8.TILE_COST))
+    # no width up to the narrowest that covers n takes fewer tile-costs
+    top = min((w for w in cuda_int8.TILE_N if w >= n),
+              default=cuda_int8.TILE_N[0])
+    assert all(cost(plan.tile_n) <= cost(w) for w in cuda_int8.TILE_N
+               if w <= top)
+    # bf16 keeps to 128 columns; fewer SMs never widen the tile
+    bf = cuda_int8.int8_plan(m, n, k, c, ksize, stride, size=2) \
+        if c * 2 % 16 == 0 else None
+    assert bf is None or bf.tile_n <= 128
+    assert cuda_int8.int8_plan(m, n, k, c, ksize, stride,
+                               sms=8).blocks <= 8
+
+
+@pytest.mark.parametrize("bn", cuda_int8.TILE_N)
+def test_ring_fits_a_block(bn):
+    """The ring's stages (at least 4: the gather's arrivals trail by 2)
+    and the block's shared memory, as csrc/cuda_int8.cu's Smem<BN>."""
+    stages, smem = cuda_int8.ring_stages(bn), cuda_int8.smem_bytes(bn)
+    assert 4 <= stages <= cuda_int8.MAX_STAGES
+    assert smem <= cuda_int8.MAX_SMEM
+    stage = (cuda_int8.TILE_M + bn) * cuda_int8.STAGE_K
+    assert smem == stages * stage + cuda_int8.SMEM_FIXED
+    assert stages == cuda_int8.MAX_STAGES or smem + stage > cuda_int8.MAX_SMEM
+    plan = cuda_int8.int8_plan(4096, bn, 1152, 128, 3, 1, tile_n=bn)
+    assert (plan.stages, plan.smem) == (stages, smem)
+
+
+def test_routes_at_every_site(layers):
+    """The route of each of the detector's 19 convs: ConvBN_0 its runs,
+    the 1x1 convs a tiled copy, every other 3x3 conv im2col (C of 128
+    bytes or more a copy a stage, 32 and 64 a copy a tap); an unaligned x
+    the bytes (s8)."""
+    _, qp = layers
+    want = {"ConvBN_0": "runs"}
+    seen = {}
+
+    def hook(x, site, layer, stride):
+        xq = torch.zeros(x.shape, dtype=torch.int8)
+        plan = cuda_int8.plan_for(xq, layer["wt"], layer["wq"].shape[-1],
+                                  stride)
+        seen[site] = plan.route
+        k, c = layer["wq"].shape[-1], x.shape[-1]
+        default = "tiled" if k == 1 else "im2col"
+        assert plan.route == want.get(site, default), site
+        assert cuda_int8.routes_for(c, k, stride, aligned=False)[0] == (
+            "runs" if site == "ConvBN_0" else "bytes")
+        return cuda_int8.int8_conv_requant_plain(
+            xq, torch.ones(()), layer, stride)
+
+    images = torch.zeros((1, 96, 96, 3))
+    yolov4_int8._topology(qp, images, yolov4_tiny.YoloConfig(input_size=96),
+                          hook)
+    assert sorted(seen) == sorted(yolov4_int8.LAYERS)
+    assert cuda_int8.routes_for(4, 3, 1, size=2, aligned=True) == ()
+    # narrow taps: s8 only (a stage's taps past k x k are left as they are,
+    # which only an integer product with B's zeros makes harmless)
+    assert cuda_int8.routes_for(32, 3, 2) == ("im2col", "gather", "bytes")
+    assert cuda_int8.routes_for(32, 3, 1, size=2) == ("gather",)
+    assert cuda_int8.routes_for(48, 3, 1) == ("gather", "bytes")
+
+
+def test_force_plan_overrides_and_restores():
+    rule = cuda_int8.int8_plan(8192, 256, 2304)
+    with cuda_int8.force_plan(tile_n=64):
+        assert cuda_int8.int8_plan(8192, 256, 2304).tile_n == 64
+        with cuda_int8.force_plan(route="gather"):
+            forced = cuda_int8.int8_plan(8192, 256, 2304)
+            assert (forced.route, forced.tile_n) == ("gather", rule.tile_n)
+        with pytest.raises(ValueError):
+            cuda_int8.int8_plan(8192, 256, 2304, size=2, tile_n=256)
+        assert cuda_int8.int8_plan(8192, 256, 2304).tile_n == 64
+    assert cuda_int8.int8_plan(8192, 256, 2304) == rule
+    with pytest.raises(ValueError), cuda_int8.force_plan(route="runs"):
+        cuda_int8.int8_plan(8192, 256, 2304)

@@ -12,8 +12,9 @@ one call, in turns. The frames: FleetPool tick 0 of the fleet
 configuration (bench.py:240-245, 480x640), resized to 416 by
 preprocess_detector_image; the shipped weights (weights/detector.npz),
 quantized by the tree's yolov4_int8.quantize_detector. torch.profiler over
-`iters` forwards (one first to warm): the device ms a forward, the
-launches a forward and the top kernels by device time; CUDA events around
+`iters` forwards (one first to warm): the device ms a forward, the int8
+conv kernel's share of it (every instance), the launches a forward and
+the top kernels by device time; CUDA events around
 the same calls beside it. Prints one JSON line, with the card's name and
 power limit.
 """
@@ -53,6 +54,8 @@ def breakdown(fn, iters: int, top: int = 8) -> dict:
         n[e.name] = n.get(e.name, 0) + 1
     ranked = sorted(ms.items(), key=lambda kv: -kv[1])
     return dict(device_ms=sum(ms.values()) / iters,
+                int8_kernel_ms=sum(v for k, v in ms.items()
+                                   if "gv_int8" in k) / iters,
                 launches=sum(n.values()) / iters,
                 event_ms=start.elapsed_time(stop) / iters,
                 top_kernels=[dict(name=k[:80], ms=v / iters,
