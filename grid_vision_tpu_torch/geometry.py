@@ -7,11 +7,14 @@ from __future__ import annotations
 
 import torch
 
+from .utils import stats
+
 
 def intrinsic_matrix(fx, fy, cx, cy, device=None) -> torch.Tensor:
     """K = [[fx,0,cx],[0,fy,cy],[0,0,1]]."""
-    return torch.tensor([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]],
-                        dtype=torch.float32, device=device)
+    with stats.span("sync"):
+        return torch.tensor([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]],
+                            dtype=torch.float32, device=device)
 
 
 def intrinsic_inverse(K: torch.Tensor) -> torch.Tensor:
@@ -148,10 +151,12 @@ def rotation_y(theta: torch.Tensor) -> torch.Tensor:
 def grid_index_from_position(pos_xy: torch.Tensor, center_xy, length_xy,
                              resolution: float):
     """(..., 2) base-frame positions -> ((..., 2) int32 index, valid)."""
-    center = torch.tensor(center_xy, dtype=torch.float32,
-                          device=pos_xy.device)
-    length = torch.tensor(length_xy, dtype=torch.float32,
-                          device=pos_xy.device)
+    with stats.span("sync"):
+        center = torch.tensor(center_xy, dtype=torch.float32,
+                              device=pos_xy.device)
+    with stats.span("sync"):
+        length = torch.tensor(length_xy, dtype=torch.float32,
+                              device=pos_xy.device)
     size = torch.round(length / resolution).to(torch.int32)
     max_corner = center + 0.5 * length
     idx = torch.floor((max_corner - pos_xy) / resolution).to(torch.int32)

@@ -23,6 +23,7 @@ import torch
 from ..config import GridVisionConfig
 from ..geometry import grid_index_from_position
 from ..types import LShapePoses
+from ..utils import stats
 from . import cuda_build
 from .rasterize import gate_and_export, hit_add, pose_footprint_corners
 
@@ -47,8 +48,9 @@ def box_index_ranges(poses: LShapePoses, cfg: GridVisionConfig):
     hi = idx.amax(dim=-2)
     ranges = torch.stack([lo[..., 0], hi[..., 0], lo[..., 1], hi[..., 1]],
                          dim=-1)
-    empty = torch.tensor([1, 0, 1, 0], dtype=torch.int32,
-                         device=ranges.device)
+    with stats.span("sync"):
+        empty = torch.tensor([1, 0, 1, 0], dtype=torch.int32,
+                             device=ranges.device)
     return torch.where(ok, ranges, empty).contiguous()
 
 

@@ -15,6 +15,7 @@ import torch
 
 from ..config import GridVisionConfig
 from ..types import Boxes
+from ..utils import stats
 from .nms import greedy_nms_keep
 
 
@@ -29,8 +30,9 @@ def denormalize_boxes(xyxy: torch.Tensor, orig_w: int, orig_h: int,
     """x *= resize * (orig_w / resize), then truncate toward zero."""
     sx = float(resize) * (float(orig_w) / float(resize))
     sy = float(resize) * (float(orig_h) / float(resize))
-    scale = torch.tensor([sx, sy, sx, sy], dtype=xyxy.dtype,
-                         device=xyxy.device)
+    with stats.span("sync"):
+        scale = torch.tensor([sx, sy, sx, sy], dtype=xyxy.dtype,
+                             device=xyxy.device)
     return torch.trunc(xyxy * scale)
 
 

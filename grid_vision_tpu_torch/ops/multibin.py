@@ -19,6 +19,7 @@ from ..config import GridVisionConfig
 from ..geometry import quat_from_pitch, rotation_y
 from ..taxonomy import avg_dims, is_dynamic
 from ..types import Boxes, LShapePoses
+from ..utils import stats
 
 # generateBins(2): centers [pi/2, 3pi/2].
 ANGLE_BINS_2 = np.array([np.pi / 2.0, 3.0 * np.pi / 2.0], np.float32)
@@ -31,7 +32,8 @@ _PM = np.array([-1.0, 1.0], np.float32)
 
 def compute_alpha(orientation: torch.Tensor, confidence: torch.Tensor):
     """alpha = atan2(sin, cos) of the most confident bin + its center - pi."""
-    bins = torch.as_tensor(ANGLE_BINS_2, device=orientation.device)
+    with stats.span("sync"):
+        bins = torch.as_tensor(ANGLE_BINS_2, device=orientation.device)
     am = torch.argmax(confidence, dim=-1)
     sel = torch.gather(orientation, 1, am[:, None, None].expand(-1, 1, 2))[:, 0]
     return torch.atan2(sel[:, 1], sel[:, 0]) + bins[am] - np.float32(np.pi)
@@ -51,7 +53,8 @@ def compute_theta_ray(boxes: Boxes, fx: float, orig_w: int) -> torch.Tensor:
 def _constraint_combos(dx, dy, dz, left_mult, right_mult, switch_mult):
     """(N, 64, 4, 3) constraints: left(2) x top(4) x right(2) x bottom(4)."""
     dev = dx.device
-    pm = torch.as_tensor(_PM, device=dev)
+    with stats.span("sync"):
+        pm = torch.as_tensor(_PM, device=dev)
     ones2 = torch.ones(2, device=dev)
     ones4 = torch.ones(4, device=dev)
     left = torch.stack([(left_mult * dx)[:, None] * ones2,
@@ -66,8 +69,14 @@ def _constraint_combos(dx, dy, dz, left_mult, right_mult, switch_mult):
                        jj * dz[:, None]], dim=-1)
     bottom = torch.stack([ii * dx[:, None], dy[:, None] * ones4,
                           jj * dz[:, None]], dim=-1)
-    return torch.stack([left[:, _L_IDX], top[:, _T_IDX], right[:, _R_IDX],
-                        bottom[:, _B_IDX]], dim=2)
+    # an index held on the host is copied to the device before use, and
+    # that copy waits for the device's queue: one sync span each
+    idx = []
+    for host_idx in (_L_IDX, _T_IDX, _R_IDX, _B_IDX):
+        with stats.span("sync"):
+            idx.append(torch.as_tensor(host_idx, device=dev))
+    return torch.stack([left[:, idx[0]], top[:, idx[1]], right[:, idx[2]],
+                        bottom[:, idx[3]]], dim=2)
 
 
 def _inv3x3_spd(M: torch.Tensor) -> torch.Tensor:
@@ -112,7 +121,8 @@ def _calc_location(length, width, height, xyxy, alpha, theta_ray, K):
     RX = X @ R.transpose(-1, -2)[:, None]                     # (N, 64, 4, 3)
     KRX = RX @ K.T
 
-    row_idx = torch.tensor([0, 1, 0, 1], device=K.device)
+    with stats.span("sync"):
+        row_idx = torch.tensor([0, 1, 0, 1], device=K.device)
     A = K[row_idx][None] - xyxy[:, :, None] * K[2][None, None, :]  # (N, 4, 3)
     krx_idx = torch.gather(
         KRX, -1, row_idx[None, None, :, None].expand(

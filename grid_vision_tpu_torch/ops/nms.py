@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import stats
+
 
 def pairwise_iou(xyxy: torch.Tensor) -> torch.Tensor:
     """(..., N, 4) xyxy -> (..., N, N) IoU with the reference's
@@ -56,7 +58,9 @@ def greedy_nms_keep(xyxy: torch.Tensor, confidence: torch.Tensor,
     keep = valid_s
     for _ in range(n + 1):
         new = valid_s & ~(keep[..., :, None] & sup).any(dim=-2)
-        if torch.equal(new, keep):
+        with stats.span("sync"):
+            done = torch.equal(new, keep)
+        if done:
             break
         keep = new
     return order, keep

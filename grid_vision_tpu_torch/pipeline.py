@@ -34,6 +34,11 @@ of fuse) written out with the rig axis, so each kernel launches once per
 fleet tick with the rig batch as its launch grid. The single-rig step is
 that batched tick at R = 1.
 
+Both ticks open utils/stats spans around their layers: "step" (the whole
+tick), "detect", "pose", "static" and "grid" (each inside "step"), with a
+"sync" around each call inside them that makes the host wait for the
+device; with the recorder off (the default) each costs one bool test.
+
 Backends keep the JAX package's switch values: ``"pallas"`` (and for the
 detector ``"pallas2"`` / ``"pallas3"``, which add the CSP-stage kernel)
 runs this package's CUDA kernels (ops/cuda_*.py), ``"xla"`` the
@@ -74,7 +79,7 @@ from .taxonomy import is_dynamic
 from .types import (Boxes, Extrinsics, GridState, LShapePoses, Obs,
                     PointCloud, SaturationStats, StepOutput, stack,
                     unpack_delta)
-from .utils import prng
+from .utils import prng, stats
 
 
 def compute_dtype(cfg: GridVisionConfig) -> torch.dtype:
@@ -158,8 +163,10 @@ def detect(params: Dict[str, Any], image: torch.Tensor,
 def detect_with_stats(params: Dict[str, Any], image: torch.Tensor,
                       cfg: GridVisionConfig):
     """detect + the pre-NMS overflow counter."""
-    boxes_norm, confs = _detector_forward(params, image[None], cfg)
-    return extract_boxes(boxes_norm[0], confs[0], cfg, with_overflow=True)
+    with stats.span("detect"):
+        boxes_norm, confs = _detector_forward(params, image[None], cfg)
+        return extract_boxes(boxes_norm[0], confs[0], cfg,
+                             with_overflow=True)
 
 
 def detect_batch(params: Dict[str, Any], images: torch.Tensor,
@@ -167,8 +174,9 @@ def detect_batch(params: Dict[str, Any], images: torch.Tensor,
     """detect over a rig batch (R, H, W, 3) -> (Boxes, overflow) with a
     leading rig axis: one batch-R detector call, then each rig's decode and
     NMS (batched over the rig axis)."""
-    boxes_norm, confs = _detector_forward(params, images, cfg)
-    return extract_boxes(boxes_norm, confs, cfg, with_overflow=True)
+    with stats.span("detect"):
+        boxes_norm, confs = _detector_forward(params, images, cfg)
+        return extract_boxes(boxes_norm, confs, cfg, with_overflow=True)
 
 
 def _compact_dynamic(boxes: Boxes, capacity: int):
@@ -213,60 +221,61 @@ def _fleet_vision_poses(params, images: torch.Tensor, boxes_b: Boxes,
 
     Returns (poses_b (R, cap) LShapePoses, dropped_b (R,) int32 valid
     candidates lost to the budget)."""
-    n_rigs = images.shape[0]
-    cap = cfg.max_orientation_batch
-    budget = min(budget, n_rigs * cap)
-    size = cfg.network_height
+    with stats.span("pose"):
+        n_rigs = images.shape[0]
+        cap = cfg.max_orientation_batch
+        budget = min(budget, n_rigs * cap)
+        size = cfg.network_height
 
-    dyn_b, _ = _compact_dynamic(boxes_b, cap)                 # (R, cap)
-    flat = Boxes(xyxy=dyn_b.xyxy.reshape(-1, 4),
-                 confidence=dyn_b.confidence.reshape(-1),
-                 label=dyn_b.label.reshape(-1),
-                 valid=dyn_b.valid.reshape(-1))
-    score = torch.where(flat.valid, flat.confidence,
-                        torch.full((), -1.0, device=images.device))
-    _, top_idx = top_k(score, budget)
-    model = params["orientation"]
-    gdtype = _orientation_dtype(cfg)
-    if cfg.orientation_stem_backend == "pallas":
-        top_idx = torch.sort(top_idx).values
-        g_boxes = flat.take(top_idx)
-        consts = params.get(_consts_key("orientation_stem", gdtype))
-        if consts is None:
-            consts = cuda_orient.prepare_orient_constants(model, gdtype)
-        acts = cuda_orient.orient_front_cuda(
-            images.to(gdtype), g_boxes.xyxy, g_boxes.valid, top_idx // cap,
-            model, consts, size)
-        orient, conf, dims = orientation_net.forward(
-            model, acts, stem_external=True, dtype=gdtype)
-    else:
-        g_boxes = flat.take(top_idx)
-        crops_raw = torch.cat([preprocess.crop_resize(
-            images[r], dyn_b.select(r), size, gdtype, out_dtype=gdtype)
-            for r in range(n_rigs)])
-        crops = preprocess._standardize(crops_raw[top_idx], g_boxes.valid,
-                                        out_dtype=gdtype)
-        orient, conf, dims = orientation_net.forward(
-            model, crops, dtype=gdtype, s2d_fold=cfg.orientation_s2d_fold)
-    poses_g = multibin.multibin_poses(orient, conf, dims, g_boxes, K, cfg)
+        dyn_b, _ = _compact_dynamic(boxes_b, cap)                 # (R, cap)
+        flat = Boxes(xyxy=dyn_b.xyxy.reshape(-1, 4),
+                     confidence=dyn_b.confidence.reshape(-1),
+                     label=dyn_b.label.reshape(-1),
+                     valid=dyn_b.valid.reshape(-1))
+        score = torch.where(flat.valid, flat.confidence,
+                            torch.full((), -1.0, device=images.device))
+        _, top_idx = top_k(score, budget)
+        model = params["orientation"]
+        gdtype = _orientation_dtype(cfg)
+        if cfg.orientation_stem_backend == "pallas":
+            top_idx = torch.sort(top_idx).values
+            g_boxes = flat.take(top_idx)
+            consts = params.get(_consts_key("orientation_stem", gdtype))
+            if consts is None:
+                consts = cuda_orient.prepare_orient_constants(model, gdtype)
+            acts = cuda_orient.orient_front_cuda(
+                images.to(gdtype), g_boxes.xyxy, g_boxes.valid, top_idx // cap,
+                model, consts, size)
+            orient, conf, dims = orientation_net.forward(
+                model, acts, stem_external=True, dtype=gdtype)
+        else:
+            g_boxes = flat.take(top_idx)
+            crops_raw = torch.cat([preprocess.crop_resize(
+                images[r], dyn_b.select(r), size, gdtype, out_dtype=gdtype)
+                for r in range(n_rigs)])
+            crops = preprocess._standardize(crops_raw[top_idx], g_boxes.valid,
+                                            out_dtype=gdtype)
+            orient, conf, dims = orientation_net.forward(
+                model, crops, dtype=gdtype, s2d_fold=cfg.orientation_s2d_fold)
+        poses_g = multibin.multibin_poses(orient, conf, dims, g_boxes, K, cfg)
 
-    def scatter(x, fill):
-        out = torch.full((n_rigs * cap,) + x.shape[1:], fill, dtype=x.dtype,
-                         device=x.device)
-        out[top_idx] = x
-        return out.reshape((n_rigs, cap) + x.shape[1:])
+        def scatter(x, fill):
+            out = torch.full((n_rigs * cap,) + x.shape[1:], fill,
+                             dtype=x.dtype, device=x.device)
+            out[top_idx] = x
+            return out.reshape((n_rigs, cap) + x.shape[1:])
 
-    poses_b = LShapePoses(
-        position=scatter(poses_g.position, 0.0),
-        quat=scatter(poses_g.quat, 0.0),
-        length=scatter(poses_g.length, 0.0),
-        width=scatter(poses_g.width, 0.0),
-        height=scatter(poses_g.height, 0.0),
-        label=scatter(poses_g.label, 0),
-        valid=scatter(poses_g.valid, False))
-    n_valid = flat.valid.reshape(n_rigs, cap).sum(dim=-1)
-    n_kept = scatter(g_boxes.valid, False).sum(dim=-1)
-    return poses_b, (n_valid - n_kept).to(torch.int32)
+        poses_b = LShapePoses(
+            position=scatter(poses_g.position, 0.0),
+            quat=scatter(poses_g.quat, 0.0),
+            length=scatter(poses_g.length, 0.0),
+            width=scatter(poses_g.width, 0.0),
+            height=scatter(poses_g.height, 0.0),
+            label=scatter(poses_g.label, 0),
+            valid=scatter(poses_g.valid, False))
+        n_valid = flat.valid.reshape(n_rigs, cap).sum(dim=-1)
+        n_kept = scatter(g_boxes.valid, False).sum(dim=-1)
+        return poses_b, (n_valid - n_kept).to(torch.int32)
 
 
 def _pca_poses(cloud_cam: torch.Tensor, cloud_valid: torch.Tensor,
@@ -308,16 +317,17 @@ def pose_branch(params, obs: Obs, boxes: Boxes, K: torch.Tensor,
     Vision: each rig's first max_orientation_batch dynamic boxes through
     the crop chain and the net (no fleet budget); PCA: _pca_poses. Returns
     (camera-frame LShapePoses (R, cap), box_cloud_truncated (R,))."""
-    n_rigs = boxes.valid.shape[0]
-    if cfg.use_vision_orientation:
-        poses = stack([_vision_orientation_poses(
-            params, obs.image[r], boxes.select(r), K, cfg)
-            for r in range(n_rigs)])
-        return poses, torch.zeros((n_rigs,), dtype=torch.int32,
-                                  device=boxes.valid.device)
-    cloud_cam = transform_points(extrinsics.lidar_to_camera, obs.cloud.xyz)
-    cloud_valid = obs.cloud.mask() & obs.has_cloud[:, None]
-    return _pca_poses(cloud_cam, cloud_valid, boxes, K, rng, cfg)
+    with stats.span("pose"):
+        n_rigs = boxes.valid.shape[0]
+        if cfg.use_vision_orientation:
+            poses = stack([_vision_orientation_poses(
+                params, obs.image[r], boxes.select(r), K, cfg)
+                for r in range(n_rigs)])
+            return poses, torch.zeros((n_rigs,), dtype=torch.int32,
+                                      device=boxes.valid.device)
+        cloud_cam = transform_points(extrinsics.lidar_to_camera, obs.cloud.xyz)
+        cloud_valid = obs.cloud.mask() & obs.has_cloud[:, None]
+        return _pca_poses(cloud_cam, cloud_valid, boxes, K, rng, cfg)
 
 
 def _fuse_rigs(state: GridState, obs: Obs, boxes: Boxes,
@@ -347,47 +357,48 @@ def _fuse_rigs(state: GridState, obs: Obs, boxes: Boxes,
     static_mask = boxes.valid & ~is_dynamic(boxes.label)
 
     # cloud to the camera frame (replaces TF2)
-    cloud_cam = transform_points(extrinsics.lidar_to_camera, obs.cloud.xyz)
-    cloud_valid = obs.cloud.mask() & obs.has_cloud[:, None]
-    K = intrinsic_matrix(cfg.fx, cfg.fy, cfg.cx, cfg.cy, device=dev)
-    K_inv = intrinsic_inverse(K)
+    with stats.span("static"):
+        cloud_cam = transform_points(extrinsics.lidar_to_camera, obs.cloud.xyz)
+        cloud_valid = obs.cloud.mask() & obs.has_cloud[:, None]
+        K = intrinsic_matrix(cfg.fx, cfg.fy, cfg.cx, cfg.cy, device=dev)
+        K_inv = intrinsic_inverse(K)
 
-    # static branch: kNN median depth -> 3D -> base frame
-    uvd, uvd_valid = association.project_cloud_to_image(
-        PointCloud(xyz=cloud_cam, intensity=obs.cloud.intensity,
-                   count=obs.cloud.count), K)
-    uvd_valid = uvd_valid & obs.has_cloud[:, None]
-    refine = cfg.vision_depth_refine and cfg.use_vision_orientation
-    if cfg.max_static_depth < boxes.capacity and not refine:
-        # compact the static split to max_static_depth query slots
-        # (highest confidence first); clamped boxes keep depth -1. The
-        # depth refine (vision poses only) reads the dynamic slots' depths
-        # too and keeps the full-capacity query.
-        score = torch.where(static_mask, boxes.confidence, minus_one)
-        _, knn_take = top_k(score, cfg.max_static_depth)
-        q_boxes = boxes.take(knn_take, valid=torch.take_along_dim(
-            static_mask, knn_take, -1))
-        n_static = static_mask.sum(dim=-1).to(torch.int32)
-        static_depth_clamped = torch.clamp(n_static - cfg.max_static_depth,
-                                           min=0)
-    else:
-        q_boxes, knn_take = boxes, None
-        static_depth_clamped = zero
-    if cfg.knn_backend == "pallas":
-        q_depths = cuda_knn.knn_median_depth_cuda(uvd, uvd_valid, q_boxes,
-                                                  cfg.k_near)
-    else:                               # "xla" and "approx": the same search
-        q_depths = association.knn_median_depth(uvd, uvd_valid, q_boxes,
-                                                cfg.k_near)
-    if knn_take is None:
-        depths = q_depths
-    else:
-        depths = torch.full(boxes.valid.shape, -1.0, device=dev).scatter(
-            -1, knn_take, torch.where(q_boxes.valid, q_depths, minus_one))
-    cam_points = pixel_to_3d(boxes.centers(), depths, K_inv)
-    base_points = transform_points(extrinsics.camera_to_base, cam_points)
-    static_points = torch.where(static_mask[..., None], base_points,
-                                torch.zeros((), device=dev))
+        # static branch: kNN median depth -> 3D -> base frame
+        uvd, uvd_valid = association.project_cloud_to_image(
+            PointCloud(xyz=cloud_cam, intensity=obs.cloud.intensity,
+                       count=obs.cloud.count), K)
+        uvd_valid = uvd_valid & obs.has_cloud[:, None]
+        refine = cfg.vision_depth_refine and cfg.use_vision_orientation
+        if cfg.max_static_depth < boxes.capacity and not refine:
+            # compact the static split to max_static_depth query slots
+            # (highest confidence first); clamped boxes keep depth -1. The
+            # depth refine (vision poses only) reads the dynamic slots' depths
+            # too and keeps the full-capacity query.
+            score = torch.where(static_mask, boxes.confidence, minus_one)
+            _, knn_take = top_k(score, cfg.max_static_depth)
+            q_boxes = boxes.take(knn_take, valid=torch.take_along_dim(
+                static_mask, knn_take, -1))
+            n_static = static_mask.sum(dim=-1).to(torch.int32)
+            static_depth_clamped = torch.clamp(n_static - cfg.max_static_depth,
+                                               min=0)
+        else:
+            q_boxes, knn_take = boxes, None
+            static_depth_clamped = zero
+        if cfg.knn_backend == "pallas":
+            q_depths = cuda_knn.knn_median_depth_cuda(uvd, uvd_valid, q_boxes,
+                                                      cfg.k_near)
+        else:                           # "xla" and "approx": the same search
+            q_depths = association.knn_median_depth(uvd, uvd_valid, q_boxes,
+                                                    cfg.k_near)
+        if knn_take is None:
+            depths = q_depths
+        else:
+            depths = torch.full(boxes.valid.shape, -1.0, device=dev).scatter(
+                -1, knn_take, torch.where(q_boxes.valid, q_depths, minus_one))
+        cam_points = pixel_to_3d(boxes.centers(), depths, K_inv)
+        base_points = transform_points(extrinsics.camera_to_base, cam_points)
+        static_points = torch.where(static_mask[..., None], base_points,
+                                    torch.zeros((), device=dev))
 
     if refine:
         poses_cam = _refine_depth(poses_cam, boxes, depths, obs.has_cloud,
@@ -421,29 +432,32 @@ def _fuse_rigs(state: GridState, obs: Obs, boxes: Boxes,
     # Then the Q1 gate (both inputs missing -> no update at all, not even
     # decay) and the int8 export: the grid and carve kernels fuse both into
     # their pass, the plain paths run rasterize.gate_and_export.
-    run_gate = obs.has_image | obs.has_cloud
-    kernel = cfg.grid_backend == "pallas"
-    if cfg.raycast_free_space:
-        cloud_base = transform_points(extrinsics.camera_to_base, cloud_cam)
-        carve_args = (state.log_odds, poses, extrinsics.camera_to_base[:2, 3],
-                      cloud_base[..., :2], cloud_valid)
-        if kernel:
-            grid = cuda_raycast.lshape_update_with_carving_gated_cuda(
-                *carve_args, run_gate, state.occupancy, cfg, maps=carve_maps)
+    with stats.span("grid"):
+        run_gate = obs.has_image | obs.has_cloud
+        kernel = cfg.grid_backend == "pallas"
+        if cfg.raycast_free_space:
+            cloud_base = transform_points(extrinsics.camera_to_base, cloud_cam)
+            carve_args = (state.log_odds, poses,
+                          extrinsics.camera_to_base[:2, 3],
+                          cloud_base[..., :2], cloud_valid)
+            if kernel:
+                grid = cuda_raycast.lshape_update_with_carving_gated_cuda(
+                    *carve_args, run_gate, state.occupancy, cfg,
+                    maps=carve_maps)
+            else:
+                grid = raycast.lshape_update_with_carving(*carve_args, cfg,
+                                                          maps=carve_maps)
+        elif cfg.yaw_aware_rasterization:
+            grid = rasterize.lshape_update_oriented(state.log_odds, poses, cfg)
+        elif kernel:
+            grid = cuda_grid.lshape_update_gated_cuda(
+                state.log_odds, poses, run_gate, state.occupancy, cfg)
         else:
-            grid = raycast.lshape_update_with_carving(*carve_args, cfg,
-                                                      maps=carve_maps)
-    elif cfg.yaw_aware_rasterization:
-        grid = rasterize.lshape_update_oriented(state.log_odds, poses, cfg)
-    elif kernel:
-        grid = cuda_grid.lshape_update_gated_cuda(
-            state.log_odds, poses, run_gate, state.occupancy, cfg)
-    else:
-        grid = rasterize.lshape_update(state.log_odds, poses, cfg)
-    if len(grid) == 2:
-        grid = rasterize.gate_and_export(*grid, run_gate, state.log_odds,
-                                         state.occupancy)
-    new_lo, new_occ, occupancy_i8 = grid
+            grid = rasterize.lshape_update(state.log_odds, poses, cfg)
+        if len(grid) == 2:
+            grid = rasterize.gate_and_export(*grid, run_gate, state.log_odds,
+                                             state.occupancy)
+        new_lo, new_occ, occupancy_i8 = grid
 
     new_state = GridState(log_odds=new_lo, occupancy=new_occ, rng=rng_next,
                           step=state.step + 1)
@@ -505,9 +519,10 @@ def _refine_depth(poses_cam: LShapePoses, boxes: Boxes,
 def step(params: Dict[str, Any], state: GridState, obs: Obs,
          extrinsics: Extrinsics, cfg: GridVisionConfig):
     """One fused tick. Returns (new GridState, StepOutput)."""
-    boxes, prenms_overflow = detect_with_stats(params, obs.image, cfg)
-    return fuse(params, state, obs, boxes, extrinsics, cfg,
-                prenms_overflow=prenms_overflow)
+    with stats.span("step"):
+        boxes, prenms_overflow = detect_with_stats(params, obs.image, cfg)
+        return fuse(params, state, obs, boxes, extrinsics, cfg,
+                    prenms_overflow=prenms_overflow)
 
 
 @torch.no_grad()
@@ -581,27 +596,28 @@ def fleet_step(params: Dict[str, Any], states: GridState, obs_b: Obs,
     branch ignores the budget (every rig's poses: per-rig step, as the JAX
     package's vmap of step). Returns (states', StepOutput with a rig
     axis)."""
-    n_rigs = obs_b.image.shape[0]
-    dev = obs_b.image.device
-    boxes_b, overflow_b = detect_batch(params, obs_b.image, cfg)
-    boxes_b = dataclasses.replace(
-        boxes_b, valid=boxes_b.valid & obs_b.has_image[:, None])
-    K = intrinsic_matrix(cfg.fx, cfg.fy, cfg.cx, cfg.cy, device=dev)
-    zero = torch.zeros((n_rigs,), dtype=torch.int32, device=dev)
-    keys = prng.split(states.rng)
-    if cfg.use_vision_orientation:
-        budget = (n_rigs * cfg.max_orientation_batch
-                  if orientation_budget is None else orientation_budget)
-        poses_b, dropped_b = _fleet_vision_poses(
-            params, obs_b.image, boxes_b, K, cfg, budget)
-        truncated_b = zero
-    else:
-        poses_b, truncated_b = pose_branch(params, obs_b, boxes_b, K,
-                                           keys[..., 0, :], extrinsics, cfg)
-        dropped_b = zero
-    return _fuse_rigs(states, obs_b, boxes_b, extrinsics, cfg, poses_b,
-                      overflow_b, dropped_b, params.get("carve_maps"),
-                      truncated_b, keys[..., 1, :])
+    with stats.span("step"):
+        n_rigs = obs_b.image.shape[0]
+        dev = obs_b.image.device
+        boxes_b, overflow_b = detect_batch(params, obs_b.image, cfg)
+        boxes_b = dataclasses.replace(
+            boxes_b, valid=boxes_b.valid & obs_b.has_image[:, None])
+        K = intrinsic_matrix(cfg.fx, cfg.fy, cfg.cx, cfg.cy, device=dev)
+        zero = torch.zeros((n_rigs,), dtype=torch.int32, device=dev)
+        keys = prng.split(states.rng)
+        if cfg.use_vision_orientation:
+            budget = (n_rigs * cfg.max_orientation_batch
+                      if orientation_budget is None else orientation_budget)
+            poses_b, dropped_b = _fleet_vision_poses(
+                params, obs_b.image, boxes_b, K, cfg, budget)
+            truncated_b = zero
+        else:
+            poses_b, truncated_b = pose_branch(
+                params, obs_b, boxes_b, K, keys[..., 0, :], extrinsics, cfg)
+            dropped_b = zero
+        return _fuse_rigs(states, obs_b, boxes_b, extrinsics, cfg, poses_b,
+                          overflow_b, dropped_b, params.get("carve_maps"),
+                          truncated_b, keys[..., 1, :])
 
 
 class Engine:

@@ -9,6 +9,8 @@ import enum
 import numpy as np
 import torch
 
+from .utils import stats
+
 
 class ObjectClass(enum.IntEnum):
     BIKE = 0
@@ -69,7 +71,8 @@ AVG_DIMS_LUT[int(ObjectClass.PERSON)] = (0.842, 0.660, 1.761)
 
 
 def _lookup(lut: np.ndarray, labels: torch.Tensor) -> torch.Tensor:
-    table = torch.as_tensor(lut, device=labels.device)
+    with stats.span("sync"):
+        table = torch.as_tensor(lut, device=labels.device)
     return table[labels.long().clamp(0, 10)]
 
 

@@ -32,7 +32,6 @@ from grid_vision_tpu_torch.io import grid_codec, sensors, viz
 from grid_vision_tpu_torch.io.scene import SyntheticScene
 from grid_vision_tpu_torch.runtime import live, native, record, session
 from grid_vision_tpu_torch.runtime import stream, timing
-from grid_vision_tpu_torch.utils import stats
 
 torch.set_num_threads(1)
 
@@ -357,19 +356,6 @@ def test_pointcloud2_adapter():
                                   "encoding": "bgr8",
                                   "data": bytes(range(12))})
     assert img.dtype == np.float32 and img[0, 0].tolist() == [2, 1, 0]
-
-
-def test_stats_helpers(tmp_path, caplog):
-    import logging
-    with caplog.at_level(logging.INFO, logger="grid_vision_tpu_torch"):
-        stats.StepStats(step=3, dispatch_s=0.002).log()
-        with stats.stage_timer("detect"):
-            pass
-    assert "step=3" in caplog.text and "detect took" in caplog.text
-    with stats.device_trace(str(tmp_path / "trace")) as prof:
-        torch.ones(4).sum()
-    assert prof is not None
-    assert os.path.exists(tmp_path / "trace" / "trace.json")
 
 
 def _cli(*args, cwd):
