@@ -7,9 +7,11 @@ metric quirk: the tree stores (u, v, depth) and the query has depth 0, so
 depth^2 takes part in the distance. This is the ``knn_backend="xla"`` path
 and the ``"approx"`` one (the JAX package's jax.lax.approx_min_k, a TPU
 partial reduction, is exact with ties to the lowest index on the CPU: this
-search; torch.topk's tie order on CUDA is unspecified, so a stable sort);
-``ops/cuda_knn.py`` holds the kernel. Every function takes leading rig
-axes (the fleet path's (R, P, 3) clouds and (R, D) boxes).
+search). ``knn_select_nearest`` picks each row's k nearest points in the
+order of a stable sort without sorting the row: torch.topk leaves the
+order of equal values unspecified, so it selects on keys that no two
+points share. ``ops/cuda_knn.py`` holds the kernel. Every function takes
+leading rig axes (the fleet path's (R, P, 3) clouds and (R, D) boxes).
 """
 
 from __future__ import annotations
@@ -18,6 +20,9 @@ import torch
 
 from ..geometry import project_points
 from ..types import Boxes, PointCloud
+
+# Row selections made by knn_select_nearest (one per call).
+selections = 0
 
 
 def project_cloud_to_image(cloud: PointCloud, K: torch.Tensor):
@@ -64,20 +69,61 @@ def knn_median_depth(uvd: torch.Tensor, uvd_valid: torch.Tensor,
     """computeDepthForBoundingBoxes: for each box center the k nearest
     (u, v, depth) points, then the upper median of their depths; -1.0 when
     the projected cloud is empty. Ties in d2 go to the lowest point index
-    (a stable sort). Returns (D,) f32."""
+    (as in a stable sort). Returns (D,) f32."""
     return knn_median_depth_centers(uvd, uvd_valid, boxes.centers(), k)
+
+
+def knn_select_nearest(d2: torch.Tensor, k: int) -> torch.Tensor:
+    """(..., k) int64 indices of each row's k smallest d2 (k <= P), in the
+    order of ``torch.sort(d2, stable=True).indices[..., :k]``: ascending
+    d2, equal d2 to the lower point index, NaN after +inf.
+
+    Key: d2 is a sum of squares or +inf (never negative, never -0), so its
+    f32 bits read as an int32 order like the float; NaN, of any sign or
+    payload, becomes the one quiet NaN, above +inf's bits. ``(bits << s) |
+    index`` is then unique to each point and orders the points as the
+    stable sort does, so torch.topk has no tie to order.
+    Chunks: the row is cut into chunks of about sqrt(P / k) consecutive
+    points, so that there are about as many chunks as the k chosen chunks
+    hold points. The k chunks with the smallest (least bits, chunk index)
+    hold the k smallest keys: a point of any other chunk comes after the k
+    distinct minima of those chunks (of two chunks with equal minima the
+    earlier holds the earlier point). The row is read twice (the bits, the
+    chunk minima); topk then runs on the chunk minima and on the k chosen
+    chunks' keys alone."""
+    global selections
+    selections += 1
+    p, lead, dev = d2.shape[-1], d2.shape[:-1], d2.device
+    chunk = 1 << ((p // max(k, 1)).bit_length() // 2)
+    g = -(-p // chunk)
+    bits = torch.empty(lead + (g * chunk,), dtype=torch.int32, device=dev)
+    # nan_to_num keeps +inf only when told to
+    torch.nan_to_num(d2, nan=float("nan"), posinf=float("inf"),
+                     out=bits.view(torch.float32)[..., :p])
+    bits[..., p:] = 0x7FFFFFFF          # padding: after every point, NaN too
+    least = bits.view(lead + (g, chunk)).amin(-1)
+    s = (g - 1).bit_length()
+    chunk_key = torch.add(torch.arange(g, device=dev), least, alpha=1 << s)
+    chosen = torch.topk(chunk_key, min(k, g), dim=-1, largest=False,
+                        sorted=False).values & ((1 << s) - 1)
+    idx = (chosen[..., None] * chunk
+           + torch.arange(chunk, device=dev)).flatten(-2)
+    s = (g * chunk - 1).bit_length()
+    key = torch.add(idx, torch.gather(bits, -1, idx), alpha=1 << s)
+    return torch.topk(key, k, dim=-1, largest=False).values & ((1 << s) - 1)
 
 
 def knn_median_depth_centers(uvd: torch.Tensor, uvd_valid: torch.Tensor,
                              centers: torch.Tensor, k: int) -> torch.Tensor:
     """knn_median_depth on (..., D, 2) query centers: the dense (..., D, P)
-    distance matrix and a stable sort."""
+    distance matrix, then each row's k nearest by knn_select_nearest (the
+    stable sort's first k, without the sort)."""
     d2 = knn_sq_distances(uvd, uvd_valid, centers)
     k_eff = min(k, d2.shape[-1])
-    order = torch.sort(d2, dim=-1, stable=True).indices[..., :k_eff]
+    order = knn_select_nearest(d2, k_eff)
     d2_sel = torch.gather(d2, -1, order)
-    z = uvd[..., None, :, 2].expand(d2.shape)
-    z_sel = torch.gather(z, -1, order)
+    z_sel = torch.take_along_dim(uvd[..., 2], order.flatten(-2),
+                                 dim=-1).view(order.shape)
     if k_eff < k:                      # fewer points than k: pad as unfound
         pad = torch.full(d2.shape[:-1] + (k - k_eff,), float("inf"),
                          device=d2.device)

@@ -7,8 +7,10 @@ launches the hand-written kernel of ``csrc/cuda_knn.cu`` (its note says
 what bounds it and how: a block scans one slice of a rig's points for a
 group of centers, the last block of a group to finish merges the slices);
 on a CPU tensor
-it runs ``knn_median_depth_plain``, the dense (D, P) distances with a
-stable sort. Inputs may carry a leading rig axis, (R, P, 3) points with
+it runs ``knn_median_depth_plain``, the dense (D, P) distances and each
+row's k nearest by ``association.knn_select_nearest``: a selection on keys
+unique to each point, (d2 bits, index), so it picks what a stable sort
+puts first. Inputs may carry a leading rig axis, (R, P, 3) points with
 (R, D, 2) centers: one call serves every rig. ``knn_split`` is the fixed
 rule by which the wrapper cuts the points into slices, and
 ``knn_partition_model`` the same partition in plain torch, for the tests.
@@ -36,7 +38,8 @@ launches = 0
 WAVE_BLOCKS = 132 * 4   # the blocks the card holds at once
 MIN_SLICE = 512         # points a slice holds at least: 4 a thread
 
-# The plain twin: dense (D, P) d2 and a stable sort (association.py).
+# The plain twin (association.py): dense (D, P) d2, then each row's k
+# smallest (d2, index) keys, the first k of a stable sort.
 knn_median_depth_plain = knn_median_depth_centers
 
 

@@ -275,6 +275,65 @@ def test_batched_knn_kernel_equals_twin_and_r1_equals_single(cuda_device):
     assert torch.equal(one[0], single) and torch.equal(single, got[1])
 
 
+def _median_by_sort(uvd, valid, centers, k):
+    """The plain kNN as a stable sort of every row computes it (the form
+    association.knn_select_nearest replaced), for a CPU reference."""
+    d2 = association.knn_sq_distances(uvd, valid, centers)
+    order = torch.sort(d2, dim=-1, stable=True).indices[..., :k]
+    z = uvd[..., None, :, 2].expand(d2.shape)
+    return association.median_of_selected(torch.gather(d2, -1, order),
+                                          torch.gather(z, -1, order), k)
+
+
+@pytest.mark.cuda
+def test_plain_knn_on_the_card_equals_the_cpu_stable_sort(cuda_device):
+    """The fleet's static branch shape, 4 rigs x 64 query slots x 16384
+    points, a quarter of the points duplicated at other indices (equal d2)
+    and a few queries on top of a point: the plain path on the card (one
+    selection) equals the stable sort of every row on the CPU bit for bit,
+    and the kNN kernel. Rig 2 holds fewer points than k, rig 3 none."""
+    rng = np.random.default_rng(23)
+    r, d, p = 4, 64, 16384
+    xyz = rng.uniform([-10, -3, 0.5], [10, 3, 60], (r, p, 3)).astype(
+        np.float32)
+    xyz[:, p // 2:p // 2 + p // 4] = xyz[:, :p // 4]
+    cloud = PointCloud(xyz=torch.as_tensor(xyz),
+                       intensity=torch.zeros((r, p)),
+                       count=torch.tensor([p, p - 1000, 3, 0],
+                                          dtype=torch.int32))
+    uvd, valid = association.project_cloud_to_image(cloud,
+                                                    torch.as_tensor(K_NP))
+    centers = torch.as_tensor(rng.uniform(-50, 700, (r, d, 2)).astype(
+        np.float32))
+    centers[:, :8] = uvd[:, 100:108, :2]
+    ref = _median_by_sort(uvd, valid, centers, 4)
+    args = [t.to(cuda_device).contiguous() for t in (uvd, valid, centers)]
+    n0 = association.selections
+    got = association.knn_median_depth_centers(*args, 4)
+    assert association.selections == n0 + 1
+    assert torch.equal(got.cpu(), ref)
+    assert (ref[:2] > 0).all() and (ref[3] == -1.0).all()
+    assert torch.equal(cuda_knn.knn_median_depth_centers_cuda(*args, 4), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_plain_knn_selection_on_the_card_equals_stable_sort(cuda_device, k):
+    """Rows of tied d2, +inf and NaN of both signs, P = 3049: the card's
+    selection indices equal the CPU's stable sort's first k."""
+    rng = np.random.default_rng(k)
+    d2 = rng.integers(0, 6, (3, 64, 3049)).astype(np.float32)
+    d2[..., 2000:] = np.inf
+    d2[0, :, ::5] = np.nan
+    d2[1, :, 1::3] = np.array([-0x400000], np.int32).view(np.float32)[0]
+    d2[2, :8] = np.inf
+    d2[2, :8, 2990:] = np.nan
+    d2 = torch.as_tensor(d2)
+    got = association.knn_select_nearest(d2.to(cuda_device), k)
+    assert torch.equal(got.cpu(),
+                       torch.sort(d2, dim=-1, stable=True).indices[..., :k])
+
+
 @pytest.mark.cuda
 def test_csp_kernel_matches_twin(cuda_device):
     """rtol = atol = 1e-4 on the shipped detector (f32 sums in another

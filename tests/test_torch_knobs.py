@@ -12,7 +12,7 @@ own bars:
   the detector on it against the plain chain, to 1e-4
   (tests/test_pallas_stem.py:44-52); any frame size.
 - knn_backend="approx": the port's search (association.knn_median_depth,
-  a stable sort) gives medians equal to JAX's jitted
+  a stable sort's first k) gives medians equal to JAX's jitted
   knn_median_depth_approx (exact on the CPU, ties to the lowest index), on
   clouds built with ties.
 - orientation_arch="resnet": init leaf for leaf to 1e-6, the f32 forward
@@ -256,7 +256,7 @@ def test_approx_knn_medians_equal_jax_and_exact():
     assert (want > 0).sum() > d // 2
     # a tie case: [3, 1, 1, 2, 1, 0.5, inf], k = 4 -> 5, 1, 2, 4
     d2 = torch.tensor([[3, 1, 1, 2, 1, 0.5, float("inf")]])
-    idx = torch.sort(d2, dim=-1, stable=True).indices[..., :4]
+    idx = association.knn_select_nearest(d2, 4)
     assert idx.tolist() == [[5, 1, 2, 4]]
     _, jidx = jax.lax.approx_min_k(jnp.asarray(d2.numpy()), 4)
     assert np.asarray(jidx).tolist() == [[5, 1, 2, 4]]
