@@ -4,7 +4,9 @@ A cell (BENCHMARK.json's `workloads`) names a configuration (configs/,
 the engine's settings and the peak its shares are taken against) and a
 traffic mix (traffic/<name>.json: rigs, loop, chunk, the ticks judged and
 traced); its limits sit in limits/<cell>.json and each metric's reader in
-metrics/<metric>.py. A later cell, mix or metric is a new file.
+metrics/<metric>.py. A configuration may name its detector's plain
+reference, a module under detectors/ (its "detector" key; detector()). A
+later cell, mix, metric or detector is a new file.
 
 A run: render the rigs' scenes from the seed (scene.py), build the
 system under test (the program's Engine, or the reference in a lower
@@ -26,6 +28,7 @@ judge.py compares them with the reference.
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import os
@@ -102,6 +105,38 @@ def reader(name: str):
     return mod.read
 
 
+# ---------------------------------------------------------------- detector
+
+# a configuration without a "detector": YOLOv4-tiny in float
+_TINY = types.SimpleNamespace(detect_dense=reference.detect_dense,
+                              detector_ops=counts.detector_ops)
+
+
+def detector(config: dict):
+    """The configuration's detector reference: detect_dense(nets, images,
+    size) -> (boxes (B, A, 4) normalized xyxy, confs (B, A, C)), rounding
+    as nets.mode says; detector_ops(size), model operations a frame;
+    optionally control(mode) -> (detect_dense, reference.Nets's mode),
+    the detector and rounding a Control mode stands for. The module file
+    that "detector" names (it imports nothing of the program), or without
+    the key YOLOv4-tiny in float: reference.detect_dense and
+    counts.detector_ops."""
+    path = config.get("detector")
+    if path is None:
+        return _TINY
+    return _detector_module(os.path.join(ROOT, path))
+
+
+@functools.lru_cache(maxsize=None)
+def _detector_module(path: str):
+    name = os.path.splitext(os.path.basename(path))[0]
+    spec = importlib.util.spec_from_file_location(
+        f"benchmark_detector_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 # ---------------------------------------------------------------- traffic
 
 def build_pool(torch, config: dict, traffic: dict, seed: int, device):
@@ -172,12 +207,17 @@ class Program:
 
 class Control:
     """The reference in the program's place, its nets in `mode` ("tf32",
-    "fp8"): the control that `correct` has to refuse."""
+    "fp8"; reference.py), or in a mode that the configuration's detector
+    module maps to its detector and rounding (its control()): the control
+    that `correct` has to refuse."""
 
     def __init__(self, torch, config: dict, n_rigs: int, device, mode: str):
         reference.ieee()
         self.torch, self.c = torch, config["engine"]
-        self.nets = weights(config, device, mode)
+        det = detector(config)
+        self.detect, rounding = (det.control(mode) if hasattr(det, "control")
+                                 else (det.detect_dense, mode))
+        self.nets = weights(config, device, rounding)
         self.budget = config["orientation_budget_per_rig"] * n_rigs
         self.eye = torch.eye(4, device=device)
         self.device = device
@@ -194,7 +234,8 @@ class Control:
     def step(self, states, obs):
         with self.torch.no_grad():
             return reference.fleet_tick(self.nets, states, obs, self.c,
-                                        self.budget, self.eye, self.eye)
+                                        self.budget, self.eye, self.eye,
+                                        self.detect)
 
 
 def weights(config: dict, device, mode: str = "f32"):
@@ -334,9 +375,10 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
              device: str = "cuda", control: str | None = None,
              overrides: dict | None = None, log=print) -> dict:
     """One run of a cell; returns the result line's object (with the
-    compared numbers under "checks"). control: a reference precision
-    ("tf32", "fp8") in the program's place. overrides: {"engine": {...},
-    "traffic": {...}} for tests at small sizes."""
+    compared numbers under "checks"). control: a Control mode ("tf32",
+    "fp8", or one of the detector module's) in the program's place.
+    overrides: {"engine": {...}, "traffic": {...}} for tests at small
+    sizes."""
     import torch
     manifest, cell, config, traffic, limits = load_cell(workload)
     if overrides:
@@ -440,6 +482,7 @@ def judge_samples(torch, config, traffic, pool, samples, limits, device,
     what is looked at but not compared, rig-ticks failed)."""
     reference.ieee()
     nets = weights(config, device)
+    detect = detector(config).detect_dense
     eye = torch.eye(4, device=device)
     budget = config["orientation_budget_per_rig"] * traffic["rigs"]
     worst = {k: 0.0 for k in judge_mod.NUMBERS}
@@ -450,7 +493,7 @@ def judge_samples(torch, config, traffic, pool, samples, limits, device,
                                                      s.jitter),
                                        pre=s.pre, post=s.post, out=s.out)
         rigs, g = judge_mod.judge(nets, sample, config["engine"], budget,
-                                  eye, eye)
+                                  eye, eye, detect)
         gaps.append(g)
         bad = torch.zeros(traffic["rigs"], dtype=torch.bool)
         for k, v in rigs.items():

@@ -58,6 +58,21 @@ def detector_ops(size: int, classes: int = 10) -> int:
         + conv_ops(size // 16, 256, n_out, 1, 1)
 
 
+def int8_conv_work(frames: int, size: int):
+    """The int8 detector's 19 convs (csrc/cuda_int8.cu, the requant in its
+    epilogue) on `frames` frames at `size`: (bytes, ops). Each conv's int8
+    input activation read and its f32 output written, the int8 weights
+    (K unpadded), the per-channel weight scales and biases (f32) and the
+    per-sample activation scales (f32); the convs' multiply-adds."""
+    n_bytes = 0
+    for (_, ci, co, k, s), d in zip(_DET_CONVS, _DET_IN_DIV):
+        n_in = -(-size // d)
+        n_out = -(-n_in // s)
+        n_bytes += frames * (n_in * n_in * ci + n_out * n_out * co * 4 + 4)
+        n_bytes += co * k * k * ci + co * 8
+    return n_bytes, frames * detector_conv_ops(size)
+
+
 def orientation_ops(size: int, width: int) -> int:
     """The orientation net's operations a crop: the s2d(4) stem (3x3/s2 on
     48 channels), the stride-2 ladder down to 7, one stride-1 conv, and

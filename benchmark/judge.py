@@ -57,15 +57,15 @@ _BLOCK = 32
 FLAT_STD = 1.0                      # grey levels
 
 
-def _detector(nets, images, boxes, c):
+def _detector(nets, images, boxes, c, detect):
     """det_conf, det_px, det_missed (R,) and the reference's pre-NMS
-    overflow (R,)."""
+    overflow (R,); detect: the configuration's detect_dense."""
     size = c["detection_network_input_size"]
     thr = c["confidence_threshold"]
     conf_gap, px_gap, missed, overflow = [], [], [], []
     for i in range(0, images.shape[0], _BLOCK):
         sl = slice(i, i + _BLOCK)
-        bn, cn = ref.detect_dense(nets, images[sl], size)
+        bn, cn = detect(nets, images[sl], size)
         px = ref.to_pixels(bn, c)                               # (r, A, 4)
         xyxy, conf = boxes.xyxy[sl].float(), boxes.confidence[sl].float()
         label, valid = boxes.label[sl].long().clamp(0, cn.shape[-1] - 1), \
@@ -149,11 +149,13 @@ def _poses(nets, images, boxes, poses, depths, c, budget, K, T_cb):
 
 
 @torch.no_grad()
-def judge(nets, sample, c: dict, budget: int, T_lc, T_cb):
+def judge(nets, sample, c: dict, budget: int, T_lc, T_cb,
+          detect=ref.detect_dense):
     """One judged tick: ({number: (R,)} of the rig-wise numbers and
     det_px, the judged poses' gaps (n,)). sample: obs (image, xyz,
     count), pre and post (log_odds, occupancy), out (the published
-    outputs: boxes, poses, static_points, occupancy_i8, saturation)."""
+    outputs: boxes, poses, static_points, occupancy_i8, saturation);
+    detect: the configuration's detect_dense (core.detector)."""
     obs, out = sample.obs, sample.out
     dev = obs.image.device
     K, K_inv = ref.intrinsics(c, dev)
@@ -162,7 +164,7 @@ def judge(nets, sample, c: dict, budget: int, T_lc, T_cb):
         "xyxy", "confidence", "label", "valid")})
     boxes.xyxy = boxes.xyxy.float()
     det_conf, det_px, det_missed, overflow = _detector(nets, images, boxes,
-                                                       c)
+                                                       c, detect)
     xyz_cam = ref.transform(T_lc, obs.xyz)
     depths, static_points, static_clamped = ref.static_branch(
         boxes, xyz_cam, obs.count, c, K, K_inv, T_cb)

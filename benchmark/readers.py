@@ -37,15 +37,18 @@ def kernel_s(rec, include, exclude=()):
     return sum(hit) if hit else None
 
 
-def roofline(rec, name: str, include, exclude, work) -> float | None:
+def roofline(rec, name: str, include, exclude, work,
+             peak: str | None = None) -> float | None:
     """100 x the least time the traced ticks' work (bytes, ops) could take
-    over the named kernels' device time; the bound that limits it goes to
-    standard error."""
+    over the named kernels' device time, the operations at the peak named
+    (peaks.json; the configuration's without); the bound that limits it
+    goes to standard error."""
     t = kernel_s(rec, include, exclude)
     if t is None or not rec.work or not rec.work["ticks"]:
         return None
     n_bytes, ops = work(rec)
-    bound, by = counts.bound_s(n_bytes, ops, rec.peak_ops)
+    bound, by = counts.bound_s(n_bytes, ops, rec.peak_ops if peak is None
+                               else counts.PEAKS[peak])
     print(f"[bench] {name}: bound by {by}", file=sys.stderr)
     return 100.0 * bound / t
 
@@ -78,3 +81,8 @@ def orient(rec):
                               rec.work["tapped_pixels"] * 3 * elem(rec),
                               e["network_height"], e["orientation_width"],
                               elem(rec))
+
+
+def int8_conv(rec):
+    return counts.int8_conv_work(rec.work["frames"],
+                                 engine(rec)["detection_network_input_size"])

@@ -16,6 +16,10 @@ layers: "f32"; "tf32" (operands rounded to TF32's 10-bit mantissa) and
 "fp8" (e4m3, scaled by the tensor's or the output channel's largest
 magnitude) are the controls: the precision below float32 and below
 bfloat16.
+
+The detector is a parameter of the tick (`detect`, core.detector): this
+module's detect_dense, YOLOv4-tiny in float, unless the configuration
+names a module of its own.
 """
 
 from __future__ import annotations
@@ -659,15 +663,17 @@ def grid_update(log_odds, occupancy, poses, xyz_base, count, c, carve):
 
 # ---------------------------------------------------------------- the tick
 
-def fleet_tick(nets: Nets, state, obs, c: dict, budget: int, T_lc, T_cb):
+def fleet_tick(nets: Nets, state, obs, c: dict, budget: int, T_lc, T_cb,
+               detect=detect_dense):
     """The whole fleet tick computed by the reference in nets.mode: the
     control that stands in the program's place. state: log_odds,
     occupancy (R, H, W); obs: image (R, H, W, 3), xyz (R, P, 3), count
-    (R,). Returns (state', outputs) with the program's field names."""
+    (R,); detect: the detector's detect_dense (core.detector). Returns
+    (state', outputs) with the program's field names."""
     dev = obs.image.device
     K, K_inv = intrinsics(c, dev)
-    dense = [detect_dense(nets, obs.image[i:i + 32],
-                          c["detection_network_input_size"])
+    dense = [detect(nets, obs.image[i:i + 32],
+                    c["detection_network_input_size"])
              for i in range(0, obs.image.shape[0], 32)]
     boxes, overflow = extract_boxes(torch.cat([d[0] for d in dense]),
                                     torch.cat([d[1] for d in dense]), c)

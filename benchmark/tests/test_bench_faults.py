@@ -4,15 +4,18 @@ on the CPU at a small size with the program's plain backends, comes out
 correct for the sound program and not correct
 
   - for each configuration's control: the reference in the precision
-    below the configuration's (fp8 for bf16, TF32 for f32) in the
-    program's place;
+    below the configuration's (fp8 for bf16, TF32 for f32, int4 for the
+    int8 detector) in the program's place; for the int8 cell also the
+    float detector in the int8 detector's place (the quantization left
+    out) and the float reference in fp8;
   - for each fault a fleet cell can have, planted under the timed path:
     a tick that returns its grid state unchanged; half of the rigs left
     out (their outputs empty, their grids not updated), and within the
     pose branch alone (their poses never computed, the grid updated from
     them); an answer altered
-    where it is produced (one box's confidence). A one-card cell has no
-    exchange between cards to leave out.
+    where it is produced (one box's confidence), in the f32 cell and in
+    the int8 cell. A one-card cell has no exchange between cards to leave
+    out.
 """
 
 import dataclasses
@@ -90,11 +93,12 @@ def _answer_altered(states, new, out):
 
 
 @pytest.mark.parametrize("workload", ["f32-ext.r64.tick",
-                                      "bf16-fleet.r128.ahead"])
+                                      "bf16-fleet.r128.ahead",
+                                      "int8-ext.r128.ahead"])
 def test_sound_program_is_correct(workload):
     r = _run(workload)
     assert r["attempted"] >= 2 * SMALL["rigs"]
-    if workload.startswith("f32"):
+    if not workload.startswith("bf16"):
         assert r["correct"], r["checks"]
         assert r["failed"] == 0
         return
@@ -111,17 +115,32 @@ def test_sound_program_is_correct(workload):
 
 
 @pytest.mark.parametrize("workload", ["f32-ext.r64.tick",
-                                      "bf16-fleet.r128.ahead"])
+                                      "bf16-fleet.r128.ahead",
+                                      "int8-ext.r128.ahead"])
 def test_control_is_not_correct(workload):
     _, _, config, _, _ = core.load_cell(workload)
     r = _run(workload, control=config["control"])
     assert not r["correct"] and r["failed"] > 0
 
 
+@pytest.mark.parametrize("control", ["float", "fp8"])
+def test_int8_controls_are_not_correct(control):
+    """The float detector in the int8 detector's place (the quantization
+    left out) is refused by det_conf alone: every later stage is fed the
+    judged boxes, and the float control's are its own."""
+    r = _run("int8-ext.r128.ahead", control=control)
+    assert not r["correct"] and r["failed"] > 0
+    c = r["checks"]
+    if control == "float":
+        assert c["det_conf"]["value"] > c["det_conf"]["limit"], c
+
+
+@pytest.mark.parametrize("workload", ["f32-ext.r64.tick",
+                                      "int8-ext.r128.ahead"])
 @pytest.mark.parametrize("fault,number", [
     (_state_unchanged, "grid_lo"), (_half_left_out, "grid_cells"),
     (_answer_altered, "det_conf")])
-def test_fault_is_not_correct(monkeypatch, fault, number):
+def test_fault_is_not_correct(monkeypatch, fault, number, workload):
     step = core.Program.step
 
     def broken(self, states, obs):
@@ -129,7 +148,7 @@ def test_fault_is_not_correct(monkeypatch, fault, number):
         return fault(states, new, out)
 
     monkeypatch.setattr(core.Program, "step", broken)
-    r = _run("f32-ext.r64.tick")
+    r = _run(workload)
     assert not r["correct"] and r["failed"] > 0
     check = r["checks"][number]
     assert check["value"] > check["limit"], r["checks"]

@@ -96,3 +96,16 @@ def test_configs(manifest):
 ])
 def test_forbidden_modules(names, found):
     assert core.forbidden_modules(names) == found
+
+
+def test_detector_keys(manifest):
+    """A configuration's "detector" names a module under
+    benchmark/detectors/ with detect_dense and detector_ops."""
+    for c in manifest["configs"]:
+        with open(os.path.join(ROOT, c["file"])) as f:
+            cfg = json.load(f)
+        if "detector" not in cfg:
+            continue
+        assert cfg["detector"].startswith("benchmark/detectors/")
+        det = core.detector(cfg)
+        assert callable(det.detect_dense) and callable(det.detector_ops)

@@ -78,3 +78,29 @@ def test_mfu_counts_frames_and_crops():
     want = (640 * counts.detector_ops(416)
             + 30 * counts.orientation_ops(224, 32)) / 0.35 / 989e12 * 100
     assert core.reader("step.mfu")(rec) == pytest.approx(want)
+
+
+def test_int8_conv_work():
+    # the int8 conv at 64 frames (PERF.md, row 8 of the port's kernels:
+    # 1.96 GB, 433.6 GOP, bound 0.585 ms by bytes)
+    n_bytes, ops = counts.int8_conv_work(64, 416)
+    assert n_bytes / 1e9 == pytest.approx(1.96, abs=0.005)
+    assert ops / 1e9 == pytest.approx(433.6, abs=0.05)
+    t, by = counts.bound_s(n_bytes, ops, counts.PEAKS["int8_ops_per_s"])
+    assert by == "bytes" and t * 1e3 == pytest.approx(0.585, abs=5e-4)
+
+
+def test_int8_conv_roofline_reads_its_kernel():
+    rec = types.SimpleNamespace(
+        config={"engine": {"detection_network_input_size": 416}},
+        work={"ticks": 2, "frames": 128},
+        trace=types.SimpleNamespace(by_name={
+            "void gv_int8_conv_kernel<signed char, 256, 1>(Conv)": [2e-3, 38],
+            "void gv_orient_kernel(...)": [1.0, 2]}),
+        peak_ops=counts.PEAKS["tf32_flops_per_s"])
+    read = core.reader("int8_conv_roofline")
+    bound, _ = counts.bound_s(*counts.int8_conv_work(128, 416),
+                              counts.PEAKS["int8_ops_per_s"])
+    assert read(rec) == pytest.approx(100.0 * bound / 2e-3)
+    rec.trace.by_name.pop(next(iter(rec.trace.by_name)))
+    assert read(rec) is None

@@ -1,12 +1,13 @@
 """The readings that the limits of `correct` are set from, in one
 process: the compared numbers of the program on each of --seeds and of
-the configuration's control (the reference in the precision below the
-configuration's) on each of --control-seeds, at the cell's own size, each
-a short window.
+each control on each of --control-seeds, at the cell's own size, each a
+short window. The controls: --controls (core.Control's modes, comma
+separated), by default the configuration's own (the reference in the
+precision below the configuration's).
 
     python3 benchmark/tools/readings.py --workload <name>
-        --seeds 1,2,... --control-seeds 7,8,9 --seconds 3
-        --out <dir>/readings.<name>.json
+        --seeds 1,2,... --control-seeds 7,8,9 [--controls int4,float]
+        --seconds 3 --out <dir>/readings.<name>.json
 """
 
 from __future__ import annotations
@@ -27,15 +28,18 @@ def main() -> None:
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", default="")
     ap.add_argument("--control-seeds", default="")
+    ap.add_argument("--controls", default="")
     ap.add_argument("--seconds", type=float, default=3.0)
     ap.add_argument("--out", required=True)
     args = ap.parse_args()
     from benchmark import core
     _, _, config, _, _ = core.load_cell(args.workload)
     rows = []
+    controls = [c for c in args.controls.split(",") if c] or \
+        [config["control"]]
     runs = [(int(s), None) for s in args.seeds.split(",") if s] + \
-        [(int(s), config["control"]) for s in args.control_seeds.split(",")
-         if s]
+        [(int(s), c) for c in controls
+         for s in args.control_seeds.split(",") if s]
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     for seed, control in runs:
         t = time.perf_counter()
