@@ -77,6 +77,7 @@ class GridVisionConfig:
     yaw_aware_rasterization: bool = False
     vision_depth_refine: bool = False
     compute_dtype: str = "float32"
+    detector_arch: str = "yolov4-tiny"  # "yolov4": models/yolov4.py
     detector_precision: str = "float"
     grid_backend: str = "xla"        # "pallas": the ops/cuda_grid.py kernel
     detector_s2d_stem: bool = False
@@ -139,6 +140,16 @@ class GridVisionConfig:
                 "detector_stem_backend != 'xla' applies only to the "
                 "float detector; it would be silently ignored with "
                 f"detector_precision={self.detector_precision!r}")
+        if self.detector_arch not in ("yolov4-tiny", "yolov4"):
+            raise ValueError(f"unknown detector_arch {self.detector_arch!r}")
+        if self.detector_arch == "yolov4" and (
+                self.detector_stem_backend != "xla" or self.detector_s2d_stem
+                or self.detector_precision == "int8"):
+            raise ValueError(
+                "detector_arch='yolov4' runs the resize and the whole net on "
+                "the plain path: detector_stem_backend != 'xla', "
+                "detector_s2d_stem and detector_precision='int8' are built "
+                "for YOLOv4-tiny's layers")
         if self.orientation_compute not in ("follow", "float32",
                                             "bfloat16"):
             raise ValueError(
@@ -182,6 +193,19 @@ class GridVisionConfig:
 
 
 _YAML_KEYS = {f.name for f in dataclasses.fields(GridVisionConfig)}
+# keys of this package that the JAX package's GridVisionConfig lacks
+PORT_ONLY = ("detector_arch",)
+
+
+def shared_dict(cfg: GridVisionConfig) -> dict:
+    """dataclasses.asdict(cfg) without the port's own keys where they hold
+    their defaults: a configuration the JAX package can run, as its
+    GridVisionConfig takes it (a recording's header)."""
+    out = dataclasses.asdict(cfg)
+    for f in dataclasses.fields(GridVisionConfig):
+        if f.name in PORT_ONLY and out[f.name] == f.default:
+            del out[f.name]
+    return out
 
 
 def load_config(path: str, **overrides) -> GridVisionConfig:

@@ -1,5 +1,5 @@
-"""Shared layers of the two nets: flax-compatible SAME padding, inference
-BatchNorm and the conv + BN + activation block.
+"""Shared layers of the nets: flax-compatible SAME padding, inference
+BatchNorm, Mish and the conv + BN + activation block.
 
 The compute dtype is the activation's: an f32 input runs in f32, a bf16
 input in the JAX package's bf16 mode (flax modules with dtype=bf16, as XLA
@@ -95,6 +95,12 @@ def s2d_conv(x: torch.Tensor, weight: torch.Tensor,
     xs = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
     xs = xs.reshape(b, 4 * c, h // 2, w // 2)
     return conv2d(F.pad(xs, (0, 1, 0, 1)), w2, round_out=round_out)
+
+
+def mish(x: torch.Tensor) -> torch.Tensor:
+    """Mish, x * tanh(softplus(x)) (YOLOv4's backbone activation), in x's
+    dtype: F.mish, one pass that computes in f32 and rounds once."""
+    return F.mish(x)
 
 
 class BatchNorm(nn.Module):
@@ -206,8 +212,8 @@ def fold_bn(bn: BatchNorm) -> Tuple[torch.Tensor, torch.Tensor]:
 
 class ConvBN(nn.Module):
     """Conv (no bias, SAME) + BatchNorm + activation, NCHW, in the input's
-    dtype. act: "leaky" (slope 0.1, the detector) or "relu" (the
-    orientation net).
+    dtype. act: "leaky" (slope 0.1, the detector), "relu" (the
+    orientation net) or "mish" (YOLOv4's backbone).
 
     block > 1 (the orientation net's s2d_fold stem): the input is the RAW
     (N, C, H, W) image, Conv_0 holds the canonical post-space-to-depth
@@ -240,19 +246,26 @@ class ConvBN(nn.Module):
         return big.permute(3, 2, 0, 1)
 
     def forward(self, x: torch.Tensor, block: int | None = None,
-                s2d: bool = False) -> torch.Tensor:
+                s2d: bool = False, pad: int | None = None) -> torch.Tensor:
         """block: the stem's fold for this call (default the module's).
         s2d: a 3x3/s2 conv on an even-sized input runs as s2d_conv (the
-        detector's detector_s2d_stem; the same math)."""
+        detector's detector_s2d_stem; the same math). pad: darknet's
+        symmetric padding of `pad` on every side in place of SAME
+        (YOLOv4)."""
         dtype = x.dtype
         b = self.block if block is None else block
         w = self.conv_weight(b)
-        if (s2d and self.stride == 2 and w.shape[-1] == 3 and b == 1
+        if pad is not None:
+            x = conv2d(F.pad(x, (pad,) * 4), w, stride=self.stride,
+                       round_out=False)
+        elif (s2d and self.stride == 2 and w.shape[-1] == 3 and b == 1
                 and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0):
             x = s2d_conv(x, w, round_out=False)
         else:
             x = conv2d_same(x, w, self.stride * b, block=b, round_out=False)
         x = self.BatchNorm_0(x, dtype)
+        if self.act == "mish":
+            return mish(x)
         if self.act != "leaky":
             return F.relu(x)
         if x.dtype == torch.float32:

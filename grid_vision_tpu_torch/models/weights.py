@@ -12,6 +12,13 @@ import through ``onnx_import`` onto that tree. ``init_all`` is the JAX
 package's random init (flax's, from the same seed, leaf for leaf) and
 ``save_all`` writes the JAX package's npz files, which either package's
 ``load_all`` reads.
+
+The detector is the configured architecture (``detector_arch``):
+YOLOv4-tiny, or YOLOv4 (models/yolov4.py), which has no JAX twin. A
+YOLOv4 detector file may hold a weights recipe in place of the weights
+(``['params']['recipe'][...]``, weights/yolov4_seeded.npz): a seed and a
+few gains and biases that ``expand_yolov4_recipe`` turns into every
+weight on load (the ~64 M parameters would not fit the repository).
 """
 
 from __future__ import annotations
@@ -27,7 +34,9 @@ from torch import nn
 from ..config import GridVisionConfig
 from ..device import resolve_device
 from ..utils import checkpoint, prng
-from . import onnx_import, orientation_net, yolov4_int8, yolov4_tiny
+from . import layers
+from . import (onnx_import, orientation_net, yolov4, yolov4_int8,
+               yolov4_tiny)
 
 logger = logging.getLogger("grid_vision_tpu_torch.weights")
 
@@ -95,8 +104,91 @@ def load_module(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
     return module
 
 
-def detector_config(cfg: GridVisionConfig) -> yolov4_tiny.YoloConfig:
+def detector_config(cfg: GridVisionConfig):
+    """The configured detector's YoloConfig (YOLOv4-tiny) or YoloV4Config
+    (YOLOv4)."""
+    if cfg.detector_arch == "yolov4":
+        return yolov4.YoloV4Config(input_size=cfg.resize)
     return yolov4_tiny.YoloConfig(input_size=cfg.resize)
+
+
+def detector_model(cfg: GridVisionConfig) -> nn.Module:
+    """The configured detector architecture, its parameters unset."""
+    if cfg.detector_arch == "yolov4":
+        return yolov4.YoloV4(detector_config(cfg))
+    return yolov4_tiny.YoloV4Tiny(detector_config(cfg))
+
+
+# ------------------------------------------------------- the YOLOv4 recipe
+
+def expand_yolov4_recipe(recipe: Dict[str, Any],
+                         num_classes: int = 10) -> Dict[str, Any]:
+    """A YOLOv4 weights recipe -> the flax tree {"params", "batch_stats"}
+    of numpy float32 arrays that it stands for.
+
+    The recipe (float32 values): seed (an integer below 2^24), mish_gain
+    and leaky_gain (the ConvBN kernels' gains by activation), bn_spread,
+    res_scale, box_gain and logit_gain (the heads' kernel gains), obj_bias
+    (3,) (each head's objectness bias, stride 8 first) and cls_bias (C,).
+
+    The order (the plain reference, benchmark/detectors/yolov4.py, expands
+    the same recipe in the same order, bit for bit): one
+    numpy.random.default_rng(seed); then for each of the 110 convs in cfg
+    order (models/yolov4.conv_specs: ConvBN_0 .. ConvBN_92, head_52,
+    ConvBN_93 .. ConvBN_99, head_26, ConvBN_100 .. ConvBN_106, head_13):
+
+      z = standard_normal((c_out, c_in, k, k), float32)   (OIHW)
+      a ConvBN: kernel = z * g, g = float32(gain) / sqrt(float32(c_in k k))
+        in float32, gain mish_gain or leaky_gain by the block's activation;
+        then u = standard_normal((4, c_out), float32) and
+          scale = 1 + bn_spread * u[0] (times res_scale for the ConvBN that
+                  ends a residual branch, yolov4.residual_ends),
+          bias  = bn_spread * u[1],
+          mean  = bn_spread * u[2],
+          var   = exp(bn_spread * u[3]),
+        each in float32: statistics away from the identity, so that a fault
+        in the fold shows;
+      a head: kernel = z * g[:, None, None, None], g per output row:
+        float32(box_gain) / sqrt(float32(c_in)) for the four box channels of
+        each anchor, float32(logit_gain) / sqrt(float32(c_in)) for its
+        objectness and class channels; bias: 0 for the box channels,
+        obj_bias[head] for the objectness, cls_bias for the classes (no
+        draw).
+    """
+    r = {k: np.asarray(v, np.float32) for k, v in recipe.items()}
+    rng = np.random.default_rng(int(r["seed"]))
+    spread = r["bn_spread"]
+    one = np.float32(1.0)
+    ends = set(yolov4.residual_ends(num_classes))
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    head = 0
+    for name, c_in, c_out, k, _, act, _ in yolov4.conv_specs(num_classes):
+        z = rng.standard_normal((c_out, c_in, k, k), dtype=np.float32)
+        if act == "linear":
+            j = np.arange(c_out) % (5 + num_classes)
+            root = np.sqrt(np.float32(c_in), dtype=np.float32)
+            g = np.where(j < 4, r["box_gain"] / root,
+                         r["logit_gain"] / root).astype(np.float32)
+            bias = np.zeros(c_out, np.float32)
+            bias[j == 4] = r["obj_bias"][head]
+            bias[j >= 5] = np.tile(r["cls_bias"], 3)
+            head += 1
+            params[name] = {"kernel": (z * g[:, None, None, None])
+                            .transpose(2, 3, 1, 0), "bias": bias}
+            continue
+        gain = r["mish_gain"] if act == "mish" else r["leaky_gain"]
+        g = gain / np.sqrt(np.float32(c_in * k * k), dtype=np.float32)
+        u = rng.standard_normal((4, c_out), dtype=np.float32)
+        scale = one + spread * u[0]
+        if name in ends:
+            scale = scale * r["res_scale"]
+        params[name] = {"Conv_0": {"kernel": (z * g).transpose(2, 3, 1, 0)},
+                        "BatchNorm_0": {"scale": scale,
+                                        "bias": spread * u[1]}}
+        stats[name] = {"BatchNorm_0": {"mean": spread * u[2],
+                                       "var": np.exp(spread * u[3])}}
+    return {"params": params, "batch_stats": stats}
 
 
 def orientation_config(cfg: GridVisionConfig):
@@ -126,6 +218,8 @@ def _init_keys(seed: int, device) -> Dict[str, torch.Tensor]:
 
 def _init_net(key: str, cfg: GridVisionConfig, rng: torch.Tensor):
     if key == "detector":
+        if cfg.detector_arch == "yolov4":
+            return layers.flax_init(detector_model(cfg).to(rng.device), rng)
         return yolov4_tiny.init_params(rng, detector_config(cfg))
     return orientation_net.init_params(rng, orientation_config(cfg))
 
@@ -135,7 +229,8 @@ def init_all(cfg: GridVisionConfig, seed: int = 0,
     """{"detector", "orientation"} with the JAX package's random init
     (grid_vision_tpu/models/weights.init_all: flax's init of each net from
     split(PRNGKey(seed))), on `device` (the card unless the CPU is asked
-    for), eval mode."""
+    for), eval mode. The detector is the configured architecture; YOLOv4
+    takes flax's init of its tree from the same key (layers.flax_init)."""
     device = resolve_device(device)
     keys = _init_keys(seed, device)
     return {k: _init_net(k, cfg, keys[k]).eval() for k in keys}
@@ -160,14 +255,17 @@ def save_all(params: Dict[str, nn.Module], cfg: GridVisionConfig,
 
 def load_all(cfg: GridVisionConfig, base_dir: str = ".", seed: int = 0,
              device="cuda") -> Dict[str, Any]:
-    """{"detector": YoloV4Tiny, "orientation": the orientation_arch's net}
-    on `device` (the card unless the CPU is asked for), eval mode, and with
+    """{"detector": the detector_arch's net (YoloV4Tiny or YoloV4),
+    "orientation": the orientation_arch's net} on `device` (the card
+    unless the CPU is asked for), eval mode, and with
     detector_precision="int8" "detector_q", the detector quantized by
     yolov4_int8.quantize_detector (the JAX package's load_all). Configured
-    npz files load, and a detector file ending in .onnx (the reference
-    node's own format) is imported by onnx_import.import_yolov4_tiny; a net
-    with no file configured, or a missing file (with a WARNING), gets the
-    JAX package's random init from `seed` (init_all's)."""
+    npz files load (a YOLOv4 weights recipe expanded by
+    expand_yolov4_recipe), and a YOLOv4-tiny detector file ending in .onnx
+    (the reference node's own format) is imported by
+    onnx_import.import_yolov4_tiny; a net with no file configured, or a
+    missing file (with a WARNING), gets the JAX package's random init from
+    `seed` (init_all's)."""
     device = resolve_device(device)
     keys = _init_keys(seed, device)
     nets = {}
@@ -175,13 +273,19 @@ def load_all(cfg: GridVisionConfig, base_dir: str = ".", seed: int = 0,
                      ("orientation", cfg.vision_weights_file)):
         path = _resolve(base_dir, rel, key == "detector") if rel else None
         if path is not None and os.path.exists(path):
-            net = (yolov4_tiny.YoloV4Tiny(detector_config(cfg))
-                   if key == "detector" else
+            net = (detector_model(cfg) if key == "detector" else
                    orientation_net.make_model(orientation_config(cfg)))
             if path.endswith(".onnx"):
+                if cfg.detector_arch != "yolov4-tiny":
+                    raise ValueError(f"no .onnx import for detector_arch "
+                                     f"{cfg.detector_arch!r}: {path}")
                 tree = onnx_import.import_yolov4_tiny(path, flax_tree(net))
             else:
                 tree = checkpoint.load_npz_tree(path)
+                if "recipe" in tree.get("params", {}):
+                    tree = expand_yolov4_recipe(
+                        tree["params"]["recipe"],
+                        detector_config(cfg).num_classes)
             nets[key] = load_module(net, tree).to(device)
         else:
             if rel:

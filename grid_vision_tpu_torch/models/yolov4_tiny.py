@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import ieee_convs
+from ..ops import decode as _decode
 from .layers import ConvBN, conv2d, flax_init
 
 # darknet yolov4-tiny anchors (pixels at 416); head masks (3,4,5)/(1,2,3).
@@ -141,26 +142,10 @@ class YoloV4Tiny(nn.Module):
 def decode_head(raw: torch.Tensor, anchors: torch.Tensor, input_size: int,
                 num_classes: int):
     """One head (B, H, W, 3*(5+C)) -> boxes (B, 3*H*W, 4) normalized xyxy
-    and confs (B, 3*H*W, C), flattened anchor-major then row-major."""
-    b, h, w, _ = raw.shape
-    a = anchors.shape[0]
-    raw = raw.reshape(b, h, w, a, 5 + num_classes).permute(0, 3, 1, 2, 4)
-    dev = raw.device
-    grid_y, grid_x = torch.meshgrid(
-        torch.arange(h, dtype=torch.float32, device=dev),
-        torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")
-    s = SCALE_XY
-    bx = (torch.sigmoid(raw[..., 0]) * s - 0.5 * (s - 1.0) + grid_x) / w
-    by = (torch.sigmoid(raw[..., 1]) * s - 0.5 * (s - 1.0) + grid_y) / h
-    an_w = anchors[:, 0][None, :, None, None] / input_size
-    an_h = anchors[:, 1][None, :, None, None] / input_size
-    bw = torch.exp(raw[..., 2]) * an_w
-    bh = torch.exp(raw[..., 3]) * an_h
-    boxes = torch.stack([bx - bw / 2, by - bh / 2, bx + bw / 2, by + bh / 2],
-                        dim=-1)
-    confs = torch.sigmoid(raw[..., 4])[..., None] * torch.sigmoid(raw[..., 5:])
-    n = a * h * w
-    return boxes.reshape(b, n, 4), confs.reshape(b, n, num_classes)
+    and confs (B, 3*H*W, C), flattened anchor-major then row-major
+    (ops/decode.decode_head at the tiny's scale_x_y)."""
+    return _decode.decode_head(raw, anchors, input_size, num_classes,
+                               SCALE_XY)
 
 
 def decode(model: YoloV4Tiny, head1: torch.Tensor, head2: torch.Tensor):

@@ -2,6 +2,10 @@
 (counterpart of grid_vision_tpu/ops/decode.py; reference
 object_detection.cpp:94-146, 226-239).
 
+decode_head turns one YOLO head's raw map into every anchor's normalized
+box and confidences, with the head's own anchors and scale_x_y (the tiny
+net's two heads, YOLOv4's three).
+
 Per anchor the argmax class and max confidence; ``max_conf >= threshold``;
 the survivors compacted to max_candidates by confidence (a stable sort
 stands in for lax.top_k: equal values keep the lower index first); greedy
@@ -17,6 +21,34 @@ from ..config import GridVisionConfig
 from ..types import Boxes
 from ..utils import stats
 from .nms import greedy_nms_keep
+
+
+def decode_head(raw: torch.Tensor, anchors: torch.Tensor, input_size: int,
+                num_classes: int, scale_xy: float):
+    """One head (B, H, W, A*(5+C)) -> boxes (B, A*H*W, 4) normalized xyxy
+    and confs (B, A*H*W, C) = sigmoid(obj) * sigmoid(cls), flattened
+    anchor-major then row-major. The box center is darknet's
+    (sigmoid(t) * scale_xy - (scale_xy - 1) / 2 + cell) / grid, its size
+    exp(t) * anchor / input_size."""
+    b, h, w, _ = raw.shape
+    a = anchors.shape[0]
+    raw = raw.reshape(b, h, w, a, 5 + num_classes).permute(0, 3, 1, 2, 4)
+    dev = raw.device
+    grid_y, grid_x = torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device=dev),
+        torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")
+    s = scale_xy
+    bx = (torch.sigmoid(raw[..., 0]) * s - 0.5 * (s - 1.0) + grid_x) / w
+    by = (torch.sigmoid(raw[..., 1]) * s - 0.5 * (s - 1.0) + grid_y) / h
+    an_w = anchors[:, 0][None, :, None, None] / input_size
+    an_h = anchors[:, 1][None, :, None, None] / input_size
+    bw = torch.exp(raw[..., 2]) * an_w
+    bh = torch.exp(raw[..., 3]) * an_h
+    boxes = torch.stack([bx - bw / 2, by - bh / 2, bx + bw / 2, by + bh / 2],
+                        dim=-1)
+    confs = torch.sigmoid(raw[..., 4])[..., None] * torch.sigmoid(raw[..., 5:])
+    n = a * h * w
+    return boxes.reshape(b, n, 4), confs.reshape(b, n, num_classes)
 
 
 def top_k(x: torch.Tensor, k: int):

@@ -3,7 +3,8 @@ grid_vision_tpu/pipeline.py; reference GridVision::timerCallback,
 grid_vision_node.cpp:108-244).
 
 step(params, state, obs, extrinsics, cfg) -> (state', StepOutput):
-  1. detector front end + YOLOv4-tiny, decode + greedy NMS;
+  1. detector front end + YOLOv4-tiny (or, with detector_arch="yolov4",
+     YOLOv4), decode + greedy NMS;
   2. cloud to the camera frame, projection;
   3. kNN median depth of the static boxes -> base-frame points;
   4. the dynamic poses: with use_vision_orientation, crop / standardize
@@ -35,9 +36,10 @@ fleet tick with the rig batch as its launch grid. The single-rig step is
 that batched tick at R = 1.
 
 Both ticks open utils/stats spans around their layers: "step" (the whole
-tick), "detect", "pose", "static" and "grid" (each inside "step"), with a
-"sync" around each call inside them that makes the host wait for the
-device; with the recorder off (the default) each costs one bool test.
+tick), "detect", "pose", "static" and "grid" (each inside "step"; YOLOv4
+adds "detect_backbone", "detect_neck" and "detect_heads" inside "detect"),
+with a "sync" around each call inside them that makes the host wait for
+the device; with the recorder off (the default) each costs one bool test.
 
 Backends keep the JAX package's switch values: ``"pallas"`` (and for the
 detector ``"pallas2"`` / ``"pallas3"``, which add the CSP-stage kernel)
@@ -70,7 +72,8 @@ from .config import GridVisionConfig
 from .device import resolve_device
 from .geometry import (intrinsic_inverse, intrinsic_matrix, pixel_to_3d,
                        transform_points, transform_pose)
-from .models import orientation_net, weights, yolov4_int8, yolov4_tiny
+from .models import (orientation_net, weights, yolov4, yolov4_int8,
+                     yolov4_tiny)
 from .ops import (association, cuda_csp, cuda_grid, cuda_knn, cuda_orient,
                   cuda_raycast, cuda_stem, lshape, multibin, plane,
                   preprocess, rasterize, raycast, stem_im2col, tracking)
@@ -108,7 +111,10 @@ def _detector_forward(params, images: torch.Tensor, cfg: GridVisionConfig):
     """(B, H, W, 3) [0, 255] frames -> (boxes (B, N, 4), confs (B, N, C)).
 
     "xla" resizes the frames (preprocess_detector_image) and runs the whole
-    net, or with detector_precision="int8" the quantized net
+    net: with detector_arch="yolov4" YOLOv4 (models/yolov4.py) on its
+    BatchNorms folded by Engine init (params["detector_folded"], in the
+    compute dtype; folded here without them), or with
+    detector_precision="int8" the quantized net
     (yolov4_int8.forward_int8 on params["detector_q"], which
     weights.load_all and Engine init prepare; a KeyError without it);
     detector_s2d_stem runs its ConvBN_0/1 as space-to-depth convs.
@@ -124,6 +130,11 @@ def _detector_forward(params, images: torch.Tensor, cfg: GridVisionConfig):
     if backend == "xla":
         net_in = torch.stack([preprocess.preprocess_detector_image(
             im, cfg.resize, dt) for im in images])
+        if cfg.detector_arch == "yolov4":
+            folded = params.get(_consts_key("detector_folded", dt))
+            if folded is None:
+                folded = yolov4.fold(detector, dt)
+            return yolov4.forward(detector, net_in, dtype=dt, folded=folded)
         if cfg.detector_precision == "int8":
             if "detector_q" not in params:
                 raise KeyError("detector_precision='int8' needs "
@@ -670,6 +681,10 @@ class Engine:
         if cfg.detector_precision == "int8" and "detector_q" not in params:
             params["detector_q"] = yolov4_int8.quantize_detector(
                 params["detector"])
+        # YOLOv4's BatchNorms folded into its convs, in the compute dtype
+        key = _consts_key("detector_folded", dt)
+        if cfg.detector_arch == "yolov4" and key not in params:
+            params[key] = yolov4.fold(params["detector"], dt)
         # the carve's per-cell polar maps depend only on the extrinsics and
         # the grid geometry, which this engine fixes
         if cfg.raycast_free_space and "carve_maps" not in params:

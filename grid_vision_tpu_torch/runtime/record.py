@@ -27,7 +27,6 @@ CLI:
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import struct
@@ -35,7 +34,7 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
-from ..config import GridVisionConfig
+from ..config import GridVisionConfig, shared_dict
 from ..types import Obs
 
 MAGIC = b"GVR1"
@@ -51,7 +50,7 @@ class RecordWriter:
         self.frame_nbytes = Obs.packed_nbytes(cfg)
         self._f = open(path, "wb")
         header = json.dumps({
-            "config": dataclasses.asdict(cfg),
+            "config": shared_dict(cfg),
             "frame_nbytes": self.frame_nbytes,
         }).encode()
         self._f.write(MAGIC)

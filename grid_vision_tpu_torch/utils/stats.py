@@ -4,9 +4,10 @@ src/grid_vision_node.cpp:125-135, 192-224): structured stats for every
 step, and a span recorder that says which layer of the tick ran when.
 
 The tick opens named spans where its layers run (pipeline.py: "step",
-"detect", "pose", "static", "grid") and a "sync" around each call that
-makes the host wait for the device: an NMS sweep's test (ops/nms.py) and
-each copy of host data to the device (torch.tensor or torch.as_tensor
+"detect", "pose", "static", "grid"; inside "detect" YOLOv4's
+"detect_backbone", "detect_neck" and "detect_heads", models/yolov4.py) and
+a "sync" around each call that makes the host wait for the device: an NMS
+sweep's test (ops/nms.py) and each copy of host data to the device (torch.tensor or torch.as_tensor
 with a device, an index held on the host), which on a card waits for the
 queue ahead of it. The recorder is off by default: span() then returns
 one shared no-op and costs one bool test. Switched on with tracing(), each

@@ -1,5 +1,7 @@
 """The torch port's config mirrors the JAX package's key for key: field
-names, defaults, validate() and the ROS-YAML loader."""
+names, defaults, validate() and the ROS-YAML loader. The port's own keys
+(tcfg.PORT_ONLY: detector_arch, whose default is the JAX package's only
+detector) are checked apart."""
 
 import dataclasses
 
@@ -16,8 +18,14 @@ YAML = "config/grid_vision_cfg.yaml"
 
 def test_fields_and_defaults_match():
     jf = [(f.name, f.default) for f in dataclasses.fields(jcfg.GridVisionConfig)]
-    tf = [(f.name, f.default) for f in dataclasses.fields(tcfg.GridVisionConfig)]
+    tf = [(f.name, f.default) for f in dataclasses.fields(tcfg.GridVisionConfig)
+          if f.name not in tcfg.PORT_ONLY]
     assert tf == jf                      # same names, order and defaults
+    own = {f.name: f.default for f in dataclasses.fields(tcfg.GridVisionConfig)
+           if f.name in tcfg.PORT_ONLY}
+    assert own == {"detector_arch": "yolov4-tiny"}
+    assert tcfg.shared_dict(tcfg.GridVisionConfig()) == dataclasses.asdict(
+        jcfg.GridVisionConfig())
     j, t = jcfg.GridVisionConfig(), tcfg.GridVisionConfig()
     assert (t.grid_size, t.grid_center, t.resize) == \
         (j.grid_size, j.grid_center, j.resize)

@@ -1701,3 +1701,71 @@ def test_int8_requant_past_2_24(cuda_device, tile_n):
     assert (acc.abs() <= 2 ** 24).any()
     with cuda_int8.force_plan(tile_n=tile_n):
         _int8_both_modes(xq, layer, sx, 1)
+
+
+# ---- YOLOv4 (detector_arch="yolov4") --------------------------------------
+
+def _yolov4_case(device, size=416, n=2):
+    """The shipped recipe's YOLOv4 on the card, n rendered fleet frames at
+    `size`, and the plain reference's dense outputs on the CPU in f32."""
+    import os
+    from benchmark.detectors import yolov4 as plain
+    from benchmark import reference as ref, scene
+    from grid_vision_tpu_torch.models import yolov4
+    from grid_vision_tpu_torch.utils import checkpoint
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    recipe = os.path.join(root, "weights", "yolov4_seeded.npz")
+    images, _, _ = scene.render_pool(dataclasses.asdict(CFG), 2048,
+                                     *scene.rig_seeds(7, n))
+    frames = torch.as_tensor(images.astype(np.float32))
+    ref.ieee()
+    nets = ref.Nets(recipe, os.path.join(root, "weights", "orientation.npz"),
+                    "cpu")
+    want = plain.detect_dense(nets, frames, size)
+    model = weights.load_module(
+        yolov4.YoloV4(yolov4.YoloV4Config(input_size=size)),
+        weights.expand_yolov4_recipe(
+            checkpoint.load_npz_tree(recipe)["params"]["recipe"])
+    ).eval().to(device)
+    x = plain.resize(frames, size).permute(0, 2, 3, 1).contiguous()
+    return model, x.to(device), want
+
+
+@pytest.mark.cuda
+def test_yolov4_forward_f32_on_card(cuda_device):
+    """The f32 forward on the card (cuDNN's IEEE f32 convs, BatchNorms
+    folded) against the plain reference on the CPU, at 416: boxes and
+    confidences to 1e-3 (cuDNN sums in other orders, Winograd among them,
+    a few ulps a layer over 107 layers and the heads' gain of 8; the CPU
+    reads ~1e-5 between folded and unfolded)."""
+    from grid_vision_tpu_torch.models import yolov4
+    model, x, (want_b, want_c) = _yolov4_case(cuda_device)
+    with torch.no_grad():
+        b, c = yolov4.forward(model, x, folded=yolov4.fold(model))
+    torch.cuda.synchronize()
+    print("yolov4 f32 card vs CPU: boxes", (b.cpu() - want_b).abs().max()
+          .item(), "confs", (c.cpu() - want_c).abs().max().item())
+    torch.testing.assert_close(b.cpu(), want_b, rtol=0, atol=1e-3)
+    torch.testing.assert_close(c.cpu(), want_c, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_yolov4_forward_bf16_on_card(cuda_device):
+    """The bf16 forward on the card against the f32 plain reference at
+    416, at the tiny's bf16 bar (0.06, _bf16_hold): at least 99 % of the
+    confidences and of the box coordinates within 0.06 of the reference's,
+    every confidence within 0.25 (the heads' logit gain of 8 makes a few
+    anchors on the sigmoid's steep part move more)."""
+    from grid_vision_tpu_torch.models import yolov4
+    model, x, (want_b, want_c) = _yolov4_case(cuda_device)
+    with torch.no_grad():
+        b, c = yolov4.forward(model, x.to(BF), dtype=BF,
+                              folded=yolov4.fold(model, BF))
+    torch.cuda.synchronize()
+    db, dc = (b.cpu() - want_b).abs(), (c.cpu() - want_c).abs()
+    print("yolov4 bf16 card vs CPU f32: confs max", dc.max().item(),
+          "within 0.06", (dc <= 0.06).float().mean().item(), "boxes within "
+          "0.06", (db <= 0.06).float().mean().item())
+    assert (dc <= 0.06).float().mean().item() >= 0.99
+    assert (db <= 0.06).float().mean().item() >= 0.99
+    assert dc.max().item() <= 0.25
