@@ -6,7 +6,8 @@
 
 Run from the root of a checkout. Imports nothing of JAX or of the JAX
 package. With `--kernels` and a list of names (stem, grid, knn, csp, orient,
-carve, and the bf16 forms stem_bf16, csp_bf16, orient_bf16) it stops after
+carve, the bf16 forms stem_bf16, csp_bf16, orient_bf16, int8, and epilogue,
+YOLOv4's conv epilogue) it stops after
 phase 3 and checks only those: the quick look at a kernel under work; no
 device JSON follows. Phases, each printing one line:
 
@@ -31,10 +32,18 @@ device JSON follows. Phases, each printing one line:
    8-bit frames (rtol = atol = 0.06, the share of bit-equal elements, and
    of the others the share the kernel holds nearer zero): max |error|,
    the kernel's time, the twin's time and a PyTorch library yardstick,
-   with the least time the card could take; then, for the stem, CSP,
-   orientation and kNN kernels, their device time per call from the
-   profiler (after all host-clock timings: the profiler, once used, makes
-   every launch dearer);
+   with the least time the card could take; then YOLOv4's conv epilogue
+   (check_epilogue: the folded forward at 416 on the seeded recipe, 128
+   pool frames in bf16 and 16 in f32: each of the 107 convs' epilogue
+   bit-equal to its twin on the same cuDNN output, the raw heads
+   bit-equal to the conv-with-bias chain's, then 107 launches a tick in
+   EPILOGUE_TICKS fleet ticks of the detector_arch="yolov4" Engine with
+   the counter from zero; timed over the forward's outputs against the
+   twin and the add + activation chain, bound 2 x the output's bytes);
+   then, for the stem, CSP,
+   orientation and kNN kernels and the epilogue, their device time per
+   call from the profiler (after all host-clock timings: the profiler,
+   once used, makes every launch dearer);
 4. the single-rig Engine at full width (480x640 frames, detector 416,
    orientation 224 / width 32, 16384 points, 500x200 grid, shipped
    weights) for ENGINE_TICKS ticks of a synthetic scene: the stem, grid
@@ -138,7 +147,9 @@ then the CLI's last three commands and the TF32 check: phase `bench`
    `device_ms`, their device time per profiled fleet tick, and
    `check_device_ms`, their device time per call at the kernel check's
    shapes; the kNN kernel's other shapes, 64 queries a rig and the single
-   rig, under `other_shapes`), then the card, then the device JSON. Before
+   rig, under `other_shapes`; the conv epilogue's launches from its
+   YOLOv4 fleet ticks, 0 on every YOLOv4-tiny path, its f32 check under
+   `f32`), then the card, then the device JSON. Before
    it, a kernel instance that spills registers (ptxas) fails the run.
 
 Any failure exits non-zero. The last line is the device JSON.
@@ -618,6 +629,128 @@ def check_csp_bf16(torch, dev, detector, cfg, batch):
         design_gflop=design_ops / 1e9, useful_gflop=ops / 1e9,
         design_junk_share=1.0 - ops / design_ops, clocks=clocks,
         library_max_abs_err=lib_err, **t, bound=bound_bf16_ms(n_bytes, ops))
+
+
+YOLOV4_CONVS = 107              # ConvBN convs a YOLOv4 forward (72 Mish)
+EPILOGUE_TICKS = 2              # YOLOv4 fleet ticks on the main path
+
+
+def check_epilogue(torch, dev, root, fleet_cfg, extrinsics, obs_seq, dtype,
+                   batch):
+    """The conv epilogue (csrc/cuda_conv_epilogue.cu, ops/cuda_epilogue)
+    on YOLOv4's folded forward at the fleet's input size (416) on the
+    seeded recipe, in `dtype`,
+    `batch` frames of the fleet pool (obs_seq's, through the detector's
+    resize): each of the 107 ConvBN convs' output through the kernel
+    bit-equal to bias_act_plain on the same cuDNN output, and the three
+    raw heads bit-equal to those of the conv with its bias and the
+    activation after (the chain the kernel replaced); then the main path,
+    counter from zero: EPILOGUE_TICKS fleet ticks of N_RIGS rigs on the
+    detector_arch="yolov4" Engine, 107 launches a tick. Times over the
+    forward's 107 outputs: the kernel, its twin (in place) and as library
+    the chain it replaced (ATen's add of the bias, then F.mish or
+    F.leaky_relu); the bound: each output read and written once."""
+    import torch.nn.functional as F
+    from grid_vision_tpu_torch import pipeline
+    from grid_vision_tpu_torch.device import ieee_convs
+    from grid_vision_tpu_torch.models import yolov4
+    from grid_vision_tpu_torch.ops import cuda_epilogue, preprocess
+    ycfg = dataclasses.replace(
+        fleet_cfg, detector_arch="yolov4", detector_stem_backend="xla",
+        compute_dtype=("bfloat16" if dtype == torch.bfloat16
+                       else "float32"),
+        detection_weights_file="weights/yolov4_seeded.npz")
+    eng = pipeline.Engine(ycfg, extrinsics=extrinsics, device=dev,
+                          base_dir=root)
+    model = eng.params["detector"]
+    folded = eng.params[pipeline._consts_key("detector_folded", dtype)]
+    images = torch.cat([o.image for o in obs_seq])[:batch]
+    if images.shape[0] != batch:
+        fail(f"the epilogue check needs {batch} frames")
+    x = torch.stack([preprocess.preprocess_detector_image(
+        im, ycfg.resize, dtype) for im in images])
+    del images
+    outs = []                 # (cuDNN's output, bias, act) of each conv
+    unequal = []
+    own_conv = yolov4.YoloV4._conv
+
+    def checked_conv(self, l, x, folded):
+        w, b = folded[l.name]
+        y = F.conv2d(x, w, None, l.stride, l.size // 2)
+        outs.append((y.clone(), b, l.act))
+        want = cuda_epilogue.bias_act_plain(y.clone(), b, l.act)
+        got = cuda_epilogue.bias_act(y, b, l.act)
+        if not torch.equal(got, want):
+            unequal.append(l.name)
+        return got
+
+    def chain_conv(self, l, x, folded):
+        w, b = folded[l.name]
+        y = F.conv2d(x, w, b, l.stride, l.size // 2)
+        return F.mish(y) if l.act == "mish" else F.leaky_relu(y, 0.1)
+
+    def heads(conv):
+        yolov4.YoloV4._conv = conv
+        try:
+            with torch.no_grad(), ieee_convs():
+                out = model.heads(model.features(x, folded), folded)
+            torch.cuda.synchronize()
+            return out
+        finally:
+            yolov4.YoloV4._conv = own_conv
+
+    got = heads(checked_conv)
+    if len(outs) != YOLOV4_CONVS or unequal:
+        fail(f"conv epilogue ({dtype}, {batch} frames): {len(outs)} convs, "
+             f"not bit-equal to bias_act_plain at {unequal}")
+    want = heads(chain_conv)
+    for name, g, w in zip(("52", "26", "13"), got, want):
+        if not torch.equal(g, w):
+            fail(f"conv epilogue ({dtype}): head {name} differs from the "
+                 f"chain's by {(g - w).abs().max().item()}")
+    del got, want, x
+    # the main path: the fleet tick of the YOLOv4 Engine
+    cuda_epilogue.launches = 0
+    states = eng.init_states(N_RIGS)
+    with torch.no_grad():
+        for o in obs_seq[:EPILOGUE_TICKS]:
+            states, _ = eng.fleet(states, o, BUDGET)
+    torch.cuda.synchronize()
+    main_launches = cuda_epilogue.launches
+    if main_launches != YOLOV4_CONVS * EPILOGUE_TICKS:
+        fail(f"conv epilogue ({dtype}): {main_launches} launches in "
+             f"{EPILOGUE_TICKS} YOLOv4 fleet ticks, expected "
+             f"{YOLOV4_CONVS} a tick")
+    del eng, states
+
+    def call():
+        for y, b, act in outs:
+            cuda_epilogue.bias_act(y, b, act)
+
+    def plain():
+        for y, b, act in outs:
+            cuda_epilogue.bias_act_plain(y, b, act)
+
+    def library():
+        for y, b, act in outs:
+            s = y + b.view(1, -1, 1, 1)
+            F.mish(s) if act == "mish" else F.leaky_relu(s, 0.1)
+
+    with torch.no_grad():
+        t = timed(call, plain, library, iters=10)
+    n_bytes = 2 * sum(y.numel() * y.element_size() for y, _, _ in outs)
+    return dict(
+        call=call, name="conv_epilogue",
+        source="grid_vision_tpu_torch/csrc/cuda_conv_epilogue.cu",
+        replaces="none (YOLOv4 has no JAX twin): ATen's add_ of the bias "
+                 "and F.mish / F.leaky_relu after each ConvBN conv",
+        dtype=str(dtype).replace("torch.", ""),
+        shape=[batch, 3, ycfg.resize, ycfg.resize],
+        frames=batch, convs=len(outs), bit_equal_convs=len(outs),
+        heads_bit_equal=True, max_abs_err=0.0, output_gb=n_bytes / 2e9,
+        launches_main_path=main_launches, main_path_ticks=EPILOGUE_TICKS,
+        main_path_rigs=N_RIGS, **t,
+        bound=(n_bytes / PEAK_BYTES_PER_S * 1e3, "bytes"))
 
 
 # The bit-equal share the two-launch design (the crop through device
@@ -4333,7 +4466,7 @@ def main() -> None:
         tf32 = argv[1]
     elif argv:
         fail("usage: chip_smoke.py [--kernels stem,grid,knn,csp,orient,carve,"
-             "stem_bf16,csp_bf16,orient_bf16,int8]")
+             "stem_bf16,csp_bf16,orient_bf16,int8,epilogue]")
     try:
         import torch
     except ImportError:
@@ -4350,9 +4483,10 @@ def main() -> None:
         from grid_vision_tpu_torch import pipeline
         from grid_vision_tpu_torch.io.scene import SyntheticScene
         from grid_vision_tpu_torch.ops import (cuda_build, cuda_csp,
-                                               cuda_grid, cuda_int8,
-                                               cuda_knn, cuda_orient,
-                                               cuda_raycast, cuda_stem)
+                                               cuda_epilogue, cuda_grid,
+                                               cuda_int8, cuda_knn,
+                                               cuda_orient, cuda_raycast,
+                                               cuda_stem)
         from grid_vision_tpu_torch.runtime.stream import (FleetPool,
                                                           obs_from_scene)
         from grid_vision_tpu_torch.demo import default_extrinsics
@@ -4403,7 +4537,7 @@ def main() -> None:
     modules = {"detector_stem": cuda_stem, "grid_update": cuda_grid,
                "knn_median_depth": cuda_knn, "detector_csp": cuda_csp,
                "orient_front": cuda_orient, "carve_update": cuda_raycast,
-               "int8_conv": cuda_int8}
+               "int8_conv": cuda_int8, "conv_epilogue": cuda_epilogue}
     forms = {"detector_stem_bf16": cuda_stem, "detector_csp_bf16": cuda_csp,
              "orient_front_bf16": cuda_orient}
     nets = {k: engine.params[k] for k in ("detector", "orientation")}
@@ -4442,7 +4576,13 @@ def main() -> None:
         ("fleet", "orient_bf16", check_orient_bf16,
          (net, fleet_cfg, N_RIGS, BUDGET)),
         ("engine", "int8", check_int8, (det, cfg, 1)),
-        ("fleet", "int8", check_int8, (det, fleet_cfg, N_RIGS))]
+        ("fleet", "int8", check_int8, (det, fleet_cfg, N_RIGS)),
+        ("yolov4", "epilogue", check_epilogue,
+         (root, fleet_cfg, engine.extrinsics, fleet_obs, torch.bfloat16,
+          2 * N_RIGS)),
+        ("yolov4_f32", "epilogue", check_epilogue,
+         (root, fleet_cfg, engine.extrinsics, fleet_obs, torch.float32,
+          16))]
     for path, rigs, c, obs in (("extension", None, cfg, obs_seq[0]),
                                ("extension_fleet", N_RIGS, fleet_cfg,
                                 fleet_obs[0])):
@@ -4528,7 +4668,7 @@ def main() -> None:
     fleet_times = ftimes
     launches = {name: m.launches for name, m in modules.items()}
     for name, n in launches.items():
-        if n != (0 if name in ("carve_update", "int8_conv")
+        if n != (0 if name in ("carve_update", "int8_conv", "conv_epilogue")
                  else FLEET_TICKS):
             fail(f"{name} launched {n} times in {FLEET_TICKS} fleet ticks")
     fplain_cfg = dataclasses.replace(
@@ -4756,7 +4896,7 @@ def main() -> None:
     (_, fouts, ftimes), ext_launches = count_run(
         lambda: run_fleet(torch, ext_fleet, ext_fobs, BUDGET),
         dict({name: EXT_FLEET_TICKS for name in modules}, grid_update=0,
-             int8_conv=0))
+             int8_conv=0, conv_epilogue=0))
     _, fplain_outs, fplain_times = run_fleet(torch, ext_fplain, ext_fobs,
                                              BUDGET)
     fagree, f_boxes, f_poses = compare_outputs(torch, fleet_cfg, fouts,
@@ -4916,6 +5056,28 @@ def main() -> None:
         k: carve_single[k] for k in ("ms", "plain_ms", "shape")},
         single_rig_bound_ms=carve_single["bound"][0],
         launches_extension_fleet=ext_launches)
+    # the conv epilogue runs on YOLOv4's path alone (phase 3's fleet ticks);
+    # every YOLOv4-tiny run above counted it 0
+    epi, epi32 = (checked[path, "conv_epilogue"]
+                  for path in ("yolov4", "yolov4_f32"))
+    kernels.append(dict(
+        name="conv_epilogue", route="cuda", source=epi["source"],
+        replaces=epi["replaces"], path="YOLOv4 fleet ticks",
+        launches=epi["launches_main_path"],
+        launches_per_tick=YOLOV4_CONVS,
+        launches_single_rig_path=engine_launches["conv_epilogue"],
+        launches_tiny_fleet=launches["conv_epilogue"],
+        max_abs_err=epi["max_abs_err"], matched=True, ms=epi["ms"],
+        plain_ms=epi["plain_ms"], bound_ms=epi["bound"][0],
+        bound_by=epi["bound"][1], library_ms=epi["library_ms"],
+        shape=epi["shape"], dtype=epi["dtype"],
+        check_device_ms=epi["check_device_ms"],
+        bit_equal_convs=epi["bit_equal_convs"],
+        heads_bit_equal=epi["heads_bit_equal"],
+        f32={k: epi32[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                   "check_device_ms", "bit_equal_convs",
+                                   "heads_bit_equal", "launches_main_path")},
+        f32_bound_ms=epi32["bound"][0]))
     spilled = [ln for lines in regs.values() for ln in lines
                if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
                                 ln)]

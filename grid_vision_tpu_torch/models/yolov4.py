@@ -58,8 +58,11 @@ from the JAX package: there is no JAX twin, so this net follows the
 published model. Public inputs are NHWC; the convs run NCHW on the
 permuted (channels-last) tensor, as the tiny's do. The serving forward
 takes the BatchNorms folded into the convs (``fold``: w * s and b - mean
-* s, s = scale / sqrt(var + eps), in f32, then cast to the compute dtype);
-without folded weights it runs the unfolded blocks.
+* s, s = scale / sqrt(var + eps), in f32, then cast to the compute dtype):
+each of the 107 convs runs without its bias, and one pass adds the bias
+and applies Mish or leaky in place (ops/cuda_epilogue.bias_act: the
+hand-written kernel on the card, bit for bit the bias add and activation
+it replaces); without folded weights it runs the unfolded blocks.
 """
 
 from __future__ import annotations
@@ -74,9 +77,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import ieee_convs
+from ..ops import cuda_epilogue
 from ..ops.decode import decode_head
 from ..utils import stats
-from .layers import ConvBN, fold_bn, mish
+from .layers import ConvBN, fold_bn
 
 ANCHORS = np.array([[12, 16], [19, 36], [40, 28], [36, 75], [76, 55],
                     [72, 146], [142, 110], [192, 243], [459, 401]],
@@ -183,6 +187,23 @@ def out_channels(layers: Sequence[Layer]) -> List[int]:
             out.append(0)
         else:
             out.append(out[i - 1])
+    return out
+
+
+def out_sides(layers: Sequence[Layer], size: int) -> List[int]:
+    """Each layer's output side (height and width) at input `size`, a
+    multiple of 32."""
+    out: List[int] = []
+    for i, l in enumerate(layers):
+        prev = out[i - 1] if i else size
+        if l.kind == "conv":
+            out.append(prev // l.stride)
+        elif l.kind == "upsample":
+            out.append(prev * 2)
+        elif l.kind == "route":
+            out.append(out[l.src[0]])
+        else:
+            out.append(prev)
     return out
 
 
@@ -295,8 +316,8 @@ class YoloV4(nn.Module):
         if folded is None:
             return getattr(self, l.name)(x, pad=l.size // 2)
         w, b = folded[l.name]
-        y = F.conv2d(x, w, b, l.stride, l.size // 2)
-        return mish(y) if l.act == "mish" else F.leaky_relu(y, 0.1)
+        y = F.conv2d(x, w, None, l.stride, l.size // 2)
+        return cuda_epilogue.bias_act(y, b, l.act)
 
 
 def _free_after(layers: Sequence[Layer]):

@@ -35,12 +35,13 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "grid_vision_tpu_torch"
-SOURCES = ("cuda_csp", "cuda_csp_bf16", "cuda_grid", "cuda_int8", "cuda_knn",
-           "cuda_orient", "cuda_orient_bf16", "cuda_raycast", "cuda_stem",
-           "cuda_stem_bf16")
+SOURCES = ("cuda_conv_epilogue", "cuda_csp", "cuda_csp_bf16", "cuda_grid",
+           "cuda_int8", "cuda_knn", "cuda_orient", "cuda_orient_bf16",
+           "cuda_raycast", "cuda_stem", "cuda_stem_bf16")
 
 # No --use_fast_math: the grid and carve kernels' log-odds must be bit-equal
-# to their plain torch twins (IEEE expf / division, explicit _rn intrinsics).
+# to their plain torch twins (IEEE expf / division, explicit _rn intrinsics),
+# and the conv epilogue's Mish to ATen's (expf, log1pf, tanhf).
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -1705,9 +1705,10 @@ def test_int8_requant_past_2_24(cuda_device, tile_n):
 
 # ---- YOLOv4 (detector_arch="yolov4") --------------------------------------
 
-def _yolov4_case(device, size=416, n=2):
+def _yolov4_case(device, size=416, n=2, reference=True):
     """The shipped recipe's YOLOv4 on the card, n rendered fleet frames at
-    `size`, and the plain reference's dense outputs on the CPU in f32."""
+    `size`, and the plain reference's dense outputs on the CPU in f32 (None
+    without `reference`)."""
     import os
     from benchmark.detectors import yolov4 as plain
     from benchmark import reference as ref, scene
@@ -1721,7 +1722,7 @@ def _yolov4_case(device, size=416, n=2):
     ref.ieee()
     nets = ref.Nets(recipe, os.path.join(root, "weights", "orientation.npz"),
                     "cpu")
-    want = plain.detect_dense(nets, frames, size)
+    want = plain.detect_dense(nets, frames, size) if reference else None
     model = weights.load_module(
         yolov4.YoloV4(yolov4.YoloV4Config(input_size=size)),
         weights.expand_yolov4_recipe(
@@ -1769,3 +1770,141 @@ def test_yolov4_forward_bf16_on_card(cuda_device):
     assert (dc <= 0.06).float().mean().item() >= 0.99
     assert (db <= 0.06).float().mean().item() >= 0.99
     assert dc.max().item() <= 0.25
+
+
+# ---- the conv epilogue (ops/cuda_epilogue.py) -----------------------------
+
+def _old_chain(y, bias, act):
+    """What the folded YOLOv4 ran after cuDNN before the epilogue: ATen's
+    add_ of the bias, then F.mish or F.leaky_relu(·, 0.1)."""
+    import torch.nn.functional as F
+    s = y + bias.view(1, -1, 1, 1)
+    return F.mish(s) if act == "mish" else F.leaky_relu(s, 0.1)
+
+
+def _epilogue_shapes(size=416):
+    """The distinct (act, C, side) of YOLOv4's 107 ConvBN outputs."""
+    from grid_vision_tpu_torch.models import yolov4
+    side = yolov4.out_sides(yolov4.darknet_layers(), size)
+    return sorted({(act, c, side[i])
+                   for _, _, c, _, _, act, i in yolov4.conv_specs()
+                   if act != "linear"})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [BF, torch.float32])
+def test_epilogue_bit_equal_at_every_yolov4_shape(cuda_device, dtype):
+    """The kernel against the chain it replaces, bit for bit, at each
+    distinct (C, H, W) of the 107 conv outputs at 416, batch 2, on cuDNN's
+    own channels-last output of a stride-1 and of a stride-2 3x3 conv
+    (outputs spread ~8, so past +-20 too)."""
+    import torch.nn.functional as F
+    from grid_vision_tpu_torch.ops import cuda_epilogue
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    shapes = _epilogue_shapes()
+    assert len(shapes) == 19
+    for act, c, side in shapes:
+        bias = (torch.randn((c,), generator=g, device=cuda_device) * 3
+                ).to(dtype)
+        for stride in (1, 2):
+            x = torch.randn((2, 16, side * stride, side * stride),
+                            generator=g, device=cuda_device).to(dtype)
+            x = x.contiguous(memory_format=torch.channels_last)
+            w = (torch.randn((c, 16, 3, 3), generator=g, device=cuda_device)
+                 * (8 / 12)).to(dtype).contiguous(
+                     memory_format=torch.channels_last)
+            y = F.conv2d(x, w, None, stride, 1)
+            assert y.shape == (2, c, side, side)
+            assert y.is_contiguous(memory_format=torch.channels_last)
+            want = _old_chain(y, bias, act)
+            before = cuda_epilogue.launches
+            got = cuda_epilogue.bias_act(y, bias, act)
+            torch.cuda.synchronize()
+            assert got is y and cuda_epilogue.launches == before + 1
+            assert torch.equal(got, want), (act, c, side, stride)
+        assert (want.float().abs() > 20).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["mish", "leaky"])
+def test_epilogue_bit_equal_on_every_bf16_value(cuda_device, act):
+    """Every bf16 value but NaN as the conv output (infinities and
+    subnormals too), the bias zero and not: the kernel against the chain
+    by bits."""
+    from grid_vision_tpu_torch.ops import cuda_epilogue
+    bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32,
+                        device=cuda_device).to(torch.int16)
+    y = bits.view(BF)
+    y = y[~torch.isnan(y)]
+    y = y[:y.numel() // 8 * 8].view(1, 8, -1, 1).contiguous(
+        memory_format=torch.channels_last)
+    for bias in (torch.zeros(8, device=cuda_device),
+                 torch.linspace(-3, 3, 8, device=cuda_device)):
+        bias = bias.to(BF)
+        want = _old_chain(y, bias, act)
+        got = cuda_epilogue.bias_act(y.clone(), bias, act)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [BF, torch.float32])
+def test_yolov4_forward_epilogue_bit_equal_to_the_chain(cuda_device, dtype,
+                                                        monkeypatch):
+    """yolov4's folded forward on the card at 416 on the seeded recipe:
+    the three raw heads with the epilogue equal, bit for bit, those of the
+    conv with its bias and the activation after (the chain written out
+    here), and the epilogue launches 107 times a forward."""
+    import torch.nn.functional as F
+    from grid_vision_tpu_torch.device import ieee_convs
+    from grid_vision_tpu_torch.models import yolov4
+    from grid_vision_tpu_torch.ops import cuda_epilogue
+    model, x, _ = _yolov4_case(cuda_device, reference=False)
+    folded = yolov4.fold(model, dtype)
+    x = x.to(dtype)
+
+    def heads():
+        with torch.no_grad(), ieee_convs():
+            out = model.heads(model.features(x, folded), folded)
+        torch.cuda.synchronize()
+        return out
+
+    before = cuda_epilogue.launches
+    got = heads()
+    assert cuda_epilogue.launches == before + 107
+
+    def chain_conv(self, l, x, folded):
+        w, b = folded[l.name]
+        y = F.conv2d(x, w, b, l.stride, l.size // 2)
+        return F.mish(y) if l.act == "mish" else F.leaky_relu(y, 0.1)
+
+    monkeypatch.setattr(yolov4.YoloV4, "_conv", chain_conv)
+    want = heads()
+    assert cuda_epilogue.launches == before + 107
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_epilogue_rejects_bad_inputs(cuda_device):
+    """NCHW-contiguous, C not a multiple of 8, a bias of the wrong length
+    or type: the wrapper raises and launches nothing."""
+    from grid_vision_tpu_torch.ops import cuda_epilogue
+    y = torch.randn((2, 16, 6, 6), device=cuda_device)
+    bias = torch.zeros(16, device=cuda_device)
+    cl = y.contiguous(memory_format=torch.channels_last)
+    before = cuda_epilogue.launches
+    bad = [(y, bias),
+           (torch.randn((2, 12, 6, 6), device=cuda_device).contiguous(
+               memory_format=torch.channels_last),
+            torch.zeros(12, device=cuda_device)),
+           (cl, torch.zeros(8, device=cuda_device)),
+           (cl, bias.to(BF)),
+           (cl, bias.cpu())]
+    for yy, bb in bad:
+        with pytest.raises(ValueError):
+            cuda_epilogue.bias_act(yy, bb, "mish")
+    with pytest.raises(ValueError):
+        cuda_epilogue.bias_act(cl, bias, "relu")
+    assert cuda_epilogue.launches == before

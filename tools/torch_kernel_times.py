@@ -5,7 +5,7 @@ card (grid_vision_tpu_torch; imports nothing of JAX):
     python3 tools/torch_kernel_times.py            # from the repo's root
     python3 tools/torch_kernel_times.py stem       # or: stem_bf16, knn,
                                                    # grid, carve, orient_bf16,
-                                                   # csp_bf16
+                                                   # csp_bf16, epilogue
     python3 tools/torch_kernel_times.py carve --variant cuda_raycast:MACRO
 
 torch.profiler over a few calls at the ticks' shapes (64 frames of 480x640
@@ -28,7 +28,13 @@ and the mean warp's (to its arrival at the barrier); `orient_bf16
 --variant cuda_orient_bf16:GV_ORIENT_CLOCKS` the bf16 orientation front's
 cycles a block of each phase (thread 0's); `csp_bf16 --variant
 cuda_csp_bf16:GV_CSP_CLOCKS` the bf16 CSP stage's cycles a step of each
-phase (thread 0's).
+phase (thread 0's). `epilogue` times the conv epilogue (bias add and
+Mish or leaky, in place) at each distinct output shape of YOLOv4's 107
+ConvBN convs, 128 frames of 416 in bf16, by CUDA events, beside the chain
+it replaces (ATen's add_ and activation) and its byte bound (2 x the
+output at 3.35 TB/s): one JSON line a shape and one for the forward's sum;
+then its kernels' device time in one folded YOLOv4 forward on the seeded
+recipe (128 random frames, the profiler).
 chip_smoke.py holds the kernels to their twins and times whole calls.
 """
 
@@ -44,9 +50,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from grid_vision_tpu_torch import GridVisionConfig  # noqa: E402
 from grid_vision_tpu_torch.models import weights  # noqa: E402
+from grid_vision_tpu_torch.models import yolov4  # noqa: E402
 from grid_vision_tpu_torch.ops import (cuda_build, cuda_csp,  # noqa: E402
-                                       cuda_grid, cuda_knn, cuda_orient,
-                                       cuda_raycast, cuda_stem, rasterize)
+                                       cuda_epilogue, cuda_grid, cuda_knn,
+                                       cuda_orient, cuda_raycast, cuda_stem,
+                                       rasterize)
+
+HBM_BYTES_PER_S = 3.35e12
 
 
 def kernel_us(fn, iters: int = 10):
@@ -77,8 +87,10 @@ def use_variant(spec: str) -> str:
         ln.strip() for ln in log.splitlines()
         if "registers" in ln or "spill" in ln])), flush=True)
     cuda_build._libs[(source, ())] = lib
-    for mod in (cuda_grid, cuda_raycast, cuda_knn, cuda_csp):
-        for name in ("_entry", "_entry_bf16"):
+    for mod in (cuda_grid, cuda_raycast, cuda_knn, cuda_csp, cuda_epilogue):
+        # (the epilogue's mish_table also allowed the old library's
+        # kernel its shared memory)
+        for name in ("_entry", "_entry_bf16", "mish_table"):
             entry = getattr(mod, name, None)
             if entry is not None:
                 entry.cache_clear()
@@ -135,6 +147,89 @@ def csp_bf16_clocks(call, calls: int = 5):
     return dict(kernel="csp_bf16_clocks",
                 **cuda_csp.csp_bf16_clocks(cuda_build.load("cuda_csp_bf16"),
                                            call, calls))
+
+
+def event_us(fn, iters: int = 20) -> float:
+    """Microseconds per call of fn() on the card by CUDA events, warm."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / iters
+
+
+def epilogue_times(dev, g, frames: int = 128, size: int = 416,
+                   dtype=torch.bfloat16):
+    """The conv epilogue at each distinct (act, C, H, W) of YOLOv4's 107
+    ConvBN outputs: launches a forward, kernel and chain microseconds a
+    call, the byte bound, and whether the kernel equals the chain."""
+    side = yolov4.out_sides(yolov4.darknet_layers(), size)
+    counts = {}
+    for _, _, c_out, _, _, act, i in yolov4.conv_specs():
+        if act != "linear":
+            key = (act, c_out, side[i])
+            counts[key] = counts.get(key, 0) + 1
+    total = dict(kernel_ms=0.0, chain_ms=0.0, bound_ms=0.0, launches=0,
+                 equal=True)
+    for (act, c, s), n in sorted(counts.items()):
+        y = (torch.randn((frames, c, s, s), generator=g, device=dev) * 3
+             ).to(dtype).contiguous(memory_format=torch.channels_last)
+        b = (torch.randn((c,), generator=g, device=dev) * 2).to(dtype)
+        got = cuda_epilogue.bias_act(y.clone(), b, act)
+        want = cuda_epilogue.bias_act_plain(y.clone(), b, act)
+        equal = bool(torch.equal(got, want))
+        k_us = event_us(lambda: cuda_epilogue.bias_act(y, b, act))
+        c_us = event_us(lambda: cuda_epilogue.bias_act_plain(y, b, act))
+        bound_us = 2 * y.numel() * y.element_size() / HBM_BYTES_PER_S * 1e6
+        print(json.dumps(dict(kernel="epilogue", act=act, shape=[
+            frames, c, s, s], layers=n, equal=equal, us=round(k_us, 2),
+            chain_us=round(c_us, 2), bound_us=round(bound_us, 2))),
+            flush=True)
+        total["kernel_ms"] += n * k_us / 1e3
+        total["chain_ms"] += n * c_us / 1e3
+        total["bound_ms"] += n * bound_us / 1e3
+        total["launches"] += n
+        total["equal"] &= equal
+        del y, got, want
+    print(json.dumps(dict(kernel="epilogue", forward=True, frames=frames,
+                          dtype=str(dtype), **{
+                              k: round(v, 4) if isinstance(v, float) else v
+                              for k, v in total.items()})), flush=True)
+
+
+def epilogue_forward(dev, g, frames: int = 128, size: int = 416) -> None:
+    """Device time of the epilogue's kernels in one folded bf16 YOLOv4
+    forward on the seeded recipe (weights/yolov4_seeded.npz), random
+    frames: microseconds a forward by kernel, and its launches."""
+    from grid_vision_tpu_torch.utils import checkpoint
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    recipe = checkpoint.load_npz_tree(
+        os.path.join(root, "weights", "yolov4_seeded.npz"))
+    model = weights.load_module(
+        yolov4.YoloV4(yolov4.YoloV4Config(input_size=size)),
+        weights.expand_yolov4_recipe(recipe["params"]["recipe"])
+    ).eval().to(dev)
+    folded = yolov4.fold(model, torch.bfloat16)
+    x = torch.rand((frames, size, size, 3), generator=g, device=dev)
+    x = x.to(torch.bfloat16)
+    before = cuda_epilogue.launches
+    with torch.no_grad():
+        yolov4.forward(model, x, torch.bfloat16, folded)
+    torch.cuda.synchronize()
+    launches = cuda_epilogue.launches - before
+    with torch.no_grad():
+        us = kernel_us(lambda: yolov4.forward(model, x, torch.bfloat16,
+                                              folded), 3)
+    print(json.dumps(dict(kernel="epilogue", forward="yolov4", frames=frames,
+                          launches=launches, us=us,
+                          ms=round(sum(v for k, v in us.items()
+                                       if "conv_epilogue" in k) / 1e3, 4))),
+          flush=True)
 
 
 def grid_cases(dev, g):
@@ -270,6 +365,9 @@ def main() -> None:
                     lambda: cuda_orient.orient_front_cuda(
                         images, xyxy, valid, rig, net, consts, size))),
                     flush=True)
+    if "epilogue" in which:
+        epilogue_times(dev, g)
+        epilogue_forward(dev, g)
     for cfg, lo, prev, gate, box, ranges, cbin, cr in (
             grid_cases(dev, g) if which & {"grid", "carve"} else ()):
         calls = {}
