@@ -121,13 +121,3 @@ extern "C" int gv_grid_update(const float* lo_in, float* lo_out,
   }
   return (int)cudaGetLastError();
 }
-
-// What the card gives the kernel (for the build report): blocks an SM of
-// the vector and of the scalar path.
-extern "C" int gv_grid_blocks_per_sm(int* blocks) {
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks[0], gv_grid_update_kernel<4>, GV_GRID_THREADS, 0);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks[1], gv_grid_update_kernel<1>, GV_GRID_THREADS, 0);
-}

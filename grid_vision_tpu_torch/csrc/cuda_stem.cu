@@ -563,8 +563,9 @@ extern "C" int gv_detector_stem(
                               pad1, s1_size, out, stream);
 }
 
-// What the launch above gets (the build report prints it): {conv0's blocks
-// that fit one SM, conv1's, conv0's dynamic shared memory in bytes, conv1's}.
+// What the launch above gets (tests/test_torch_cuda.py holds it to the
+// wrapper's conv0_shared_bytes): {conv0's blocks that fit one SM, conv1's,
+// conv0's dynamic shared memory in bytes, conv1's}.
 extern "C" int gv_stem_blocks_per_sm(int fh_max, int fw_max, int band,
                                      int* blocks) {
   const int smem0 = c0_smem_bytes(fh_max, fw_max, band);

@@ -862,8 +862,9 @@ extern "C" int gv_detector_stem_bf16(
   return (int)cudaGetLastError();
 }
 
-// What the launch gets at fh_max x fw_max frame patches (the build report
-// prints it): {dynamic shared memory in bytes, blocks that fit one SM}.
+// What the launch gets at fh_max x fw_max frame patches (tests/
+// test_torch_cuda.py holds it to the wrapper's stem_bf16_shared_bytes):
+// {dynamic shared memory in bytes, blocks that fit one SM}.
 extern "C" int gv_stem_bf16_plan(int fh_max, int fw_max, int xs, int ys,
                                  int kb, int* plan) {
   plan[0] = smem_bytes(fh_max, fw_max, xs, ys, kb);

@@ -11,7 +11,7 @@ edited source or header rebuilds and an unchanged one loads the cached
 library.
 
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits for
-them together — the way ``chip_smoke.py`` builds every kernel. A variant
+them together — the way the card tests build every kernel. A variant
 is a source built with ``-D`` macros (a measurement build, e.g. phase
 clocks) into a library of its own, beside the plain one: ``load(name,
 macros)``.

@@ -194,14 +194,3 @@ def lshape_update_gated_cuda(log_odds: torch.Tensor, poses: LShapePoses,
     pass: (log_odds', occupancy, occupancy_i8)."""
     return grid_update_gated(log_odds, box_index_ranges(poses, cfg), gate,
                              occ_prev, cfg)
-
-
-def blocks_per_sm():
-    """Blocks of the kernel one SM holds (vector path, scalar path), for
-    the build report."""
-    blocks = (ctypes.c_int * 2)()
-    fn = cuda_build.load("cuda_grid").gv_grid_blocks_per_sm
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p]
-    cuda_build.check(fn(ctypes.addressof(blocks)), "gv_grid_blocks_per_sm")
-    return dict(vector=blocks[0], scalar=blocks[1])

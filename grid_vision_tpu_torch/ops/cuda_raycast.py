@@ -157,14 +157,3 @@ def lshape_update_with_carving_gated_cuda(
     return fused_carve_update_gated(
         log_odds, cuda_grid.box_index_ranges(poses, cfg), ranges, cbin, cr,
         gate, occ_prev, cfg, log_odds_free)
-
-
-def blocks_per_sm():
-    """Blocks of the kernel one SM holds (vector path, scalar path), for
-    the build report."""
-    blocks = (ctypes.c_int * 2)()
-    fn = cuda_build.load("cuda_raycast").gv_carve_blocks_per_sm
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p]
-    cuda_build.check(fn(ctypes.addressof(blocks)), "gv_carve_blocks_per_sm")
-    return dict(vector=blocks[0], scalar=blocks[1])

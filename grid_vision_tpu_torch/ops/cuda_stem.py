@@ -218,39 +218,6 @@ def conv0_patch(h: int, w: int, size: int):
     return fh, fw, conv0_band(fh, fw)
 
 
-def blocks_per_sm(h: int, w: int, size: int) -> Dict[str, int]:
-    """What the card gives the stem kernels at h x w frames resized to
-    `size` (for the build report): each kernel's dynamic shared memory and
-    the blocks of it that fit one SM (the f32 form's two, the bf16 form's
-    one)."""
-    fh, fw, band = conv0_patch(h, w, size)
-    blocks = (ctypes.c_int * 4)()
-    fn = cuda_build.load("cuda_stem").gv_stem_blocks_per_sm
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    cuda_build.check(fn(fh, fw, band, ctypes.addressof(blocks)),
-                     "gv_stem_blocks_per_sm")
-    if blocks[2] != conv0_shared_bytes(fh, fw, band):
-        raise RuntimeError("conv0_shared_bytes and csrc/cuda_stem.cu's "
-                           "c0_smem_bytes disagree")
-    plan16 = stem_bf16_patch(h, w, size)
-    plan = (ctypes.c_int * 2)()
-    fn = cuda_build.load("cuda_stem_bf16").gv_stem_bf16_plan
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    cuda_build.check(fn(*plan16, ctypes.addressof(plan)),
-                     "gv_stem_bf16_plan")
-    if plan[0] != stem_bf16_shared_bytes(*plan16):
-        raise RuntimeError("stem_bf16_shared_bytes and "
-                           "csrc/cuda_stem_bf16.cu's smem_bytes disagree")
-    return dict(patch_rows=fh, patch_cols=fw, band=band,
-                conv0_shared_bytes=blocks[2], conv0_blocks_per_sm=blocks[0],
-                conv1_shared_bytes=blocks[3], conv1_blocks_per_sm=blocks[1],
-                bf16_patch_rows=plan16[0], bf16_patch_cols=plan16[1],
-                bf16_band_steps=plan16[4],
-                bf16_shared_bytes=plan[0], bf16_blocks_per_sm=plan[1])
-
-
 # The bf16 kernel's tile of 8 x 16 conv1 outputs lies over 17 x 33 conv0
 # pixels and 35 x 67 resized pixels (csrc/cuda_stem_bf16.cu: kRH, kRW).
 _BF16_RESIZED_ROWS = 35

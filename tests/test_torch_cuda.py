@@ -2,12 +2,16 @@
 
 Needs an NVIDIA card and nvcc (a CUDA kernel has no CPU mode): every test
 is marked ``cuda`` and skips without a card. Imports neither JAX nor the
-JAX package, so it runs where only torch is installed:
+JAX package, so it runs where only torch is installed. The whole card
+suite (this file and the paths' files beside it):
 
-    python -m pytest tests/test_torch_cuda.py --noconftest -q
+    python -m pytest tests/test_torch_cuda*.py --noconftest -q
+
+A run on the card reports 0 skipped.
 """
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -35,6 +39,52 @@ def cuda_device():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_every_source_builds_without_spilling_registers(cuda_device, tmp_path,
+                                                        monkeypatch):
+    """Each source of csrc/ built afresh (nvcc -Xptxas=-v): ptxas reports
+    no kernel instance that spills registers."""
+    from grid_vision_tpu_torch.ops import cuda_build
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "ptxas_log", {})
+    cuda_build.build_all()
+    assert sorted(cuda_build.ptxas_log) == sorted(cuda_build.SOURCES)
+    spills = [ln for log in cuda_build.ptxas_log.values()
+              for ln in log.splitlines() if "spill" in ln]
+    assert spills
+    assert not [ln for ln in spills if not re.search(
+        r"\b0 bytes spill stores, 0 bytes spill loads", ln)]
+
+
+@pytest.mark.cuda
+def test_stem_shared_memory_plans_are_the_kernels(cuda_device):
+    """At the full-width frame's conv0 patch, conv0_shared_bytes is
+    csrc/cuda_stem.cu's c0_smem_bytes and stem_bf16_shared_bytes is
+    csrc/cuda_stem_bf16.cu's smem_bytes (the wrappers choose the band and
+    refuse a frame by them), and a block of each kernel fits an SM."""
+    import ctypes
+    from grid_vision_tpu_torch.ops import cuda_build
+    h, w, size = (CFG.camera_image_height, CFG.camera_image_width,
+                  CFG.resize)
+    fh, fw, band = cuda_stem.conv0_patch(h, w, size)
+    blocks = (ctypes.c_int * 4)()
+    fn = cuda_build.load("cuda_stem").gv_stem_blocks_per_sm
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    cuda_build.check(fn(fh, fw, band, ctypes.addressof(blocks)),
+                     "gv_stem_blocks_per_sm")
+    assert blocks[2] == cuda_stem.conv0_shared_bytes(fh, fw, band)
+    assert blocks[0] >= 1 and blocks[1] >= 1
+    patch = cuda_stem.stem_bf16_patch(h, w, size)
+    plan = (ctypes.c_int * 2)()
+    fn = cuda_build.load("cuda_stem_bf16").gv_stem_bf16_plan
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    cuda_build.check(fn(*patch, ctypes.addressof(plan)), "gv_stem_bf16_plan")
+    assert plan[0] == cuda_stem.stem_bf16_shared_bytes(*patch)
+    assert plan[1] >= 1
 
 
 def _poses(rng, n, device):
@@ -108,21 +158,24 @@ def test_knn_kernel_empty_cloud(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,w,size", [(480, 640, 416), (96, 128, 64),
-                                      (100, 130, 68)])
-def test_stem_kernel_matches_twin(cuda_device, h, w, size):
+@pytest.mark.parametrize("batch,h,w,size", [(2, 480, 640, 416),
+                                            (64, 480, 640, 416),
+                                            (2, 96, 128, 64),
+                                            (2, 100, 130, 68)])
+def test_stem_kernel_matches_twin(cuda_device, batch, h, w, size):
     """atol = rtol = 1e-4, the JAX package's own bar for its stem kernel
-    (f32 sums in another order; TF32 off for the twin's convs)."""
+    (f32 sums in another order; TF32 off for the twin's convs); 64 frames
+    are the fleet tick's."""
     cfg = GridVisionConfig(detection_weights_file="weights/detector.npz",
                            detection_network_input_size=size)
     det = weights.load_all(cfg, device=cuda_device)["detector"]
     consts = cuda_stem.prepare_stem_constants(det)
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    img = torch.rand((2, h, w, 3), generator=g, device=cuda_device) * 255
+    img = torch.rand((batch, h, w, 3), generator=g, device=cuda_device) * 255
     got = cuda_stem.detector_stem_cuda(img, consts, size)
     torch.cuda.synchronize()
     ref = cuda_stem.detector_stem_plain(img, consts, size)
-    assert got.shape == (2, -(-size // 4), -(-size // 4), 64)
+    assert got.shape == (batch, -(-size // 4), -(-size // 4), 64)
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
 
 
@@ -335,21 +388,23 @@ def test_plain_knn_selection_on_the_card_equals_stable_sort(cuda_device, k):
 
 
 @pytest.mark.cuda
-def test_csp_kernel_matches_twin(cuda_device):
+@pytest.mark.parametrize("batch", [2, 64])
+def test_csp_kernel_matches_twin(cuda_device, batch):
     """rtol = atol = 1e-4 on the shipped detector (f32 sums in another
-    order; TF32 off for the twin's convs)."""
+    order; TF32 off for the twin's convs); 64 frames are the fleet
+    tick's."""
     cfg = GridVisionConfig(detection_weights_file="weights/detector.npz")
     det = weights.load_all(cfg, device=cuda_device)["detector"]
     consts = cuda_csp.prepare_csp_constants(det)
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.rand((2, 104, 104, 64), generator=g, device=cuda_device) * 4
+    x = torch.rand((batch, 104, 104, 64), generator=g, device=cuda_device) * 4
     n0 = cuda_csp.launches
     with torch.no_grad():
         got = cuda_csp.detector_csp_cuda(x, det, consts)
         torch.cuda.synchronize()
         ref = cuda_csp.detector_csp_plain(x, det)
     assert cuda_csp.launches == n0 + 1
-    assert got.shape == (2, 52, 52, 128)
+    assert got.shape == (batch, 52, 52, 128)
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
 
 
@@ -383,6 +438,42 @@ def test_orient_kernel_matches_twin(cuda_device):
     torch.testing.assert_close(
         got[5], torch.relu(consts["t"]).expand(28, 28, 128), rtol=0,
         atol=0)
+
+
+@pytest.mark.cuda
+def test_orient_kernel_matches_twin_at_the_fleets_shape(cuda_device):
+    """BUDGET = 320 boxes over 64 random frames (the fleet tick's crops;
+    clamped, invalid and sliver boxes among them), rtol = atol = 1e-3;
+    flat crops (any channel's std under one grey level, ill-conditioned)
+    held to finiteness only."""
+    cfg = GridVisionConfig(vision_weights_file="weights/orientation.npz")
+    net = weights.load_all(cfg, device=cuda_device)["orientation"]
+    consts = cuda_orient.prepare_orient_constants(net)
+    rigs, n, size = 64, 320, cfg.network_height
+    h, w = cfg.camera_image_height, cfg.camera_image_width
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    images = torch.rand((rigs, h, w, 3), generator=g,
+                        device=cuda_device) * 255.0
+    u = torch.rand((n, 4), generator=g, device=cuda_device)
+    x0 = u[:, 0] * (w + 60) - 40            # some boxes clamp at each edge
+    y0 = u[:, 1] * (h + 60) - 40
+    xyxy = torch.stack([x0, y0, x0 + 8 + u[:, 2] * 300,
+                        y0 + 8 + u[:, 3] * 250], dim=-1)
+    xyxy[0] = torch.tensor([100.0, 100.0, 100.4, 100.4])    # sliver: flat
+    valid = torch.rand((n,), generator=g, device=cuda_device) > 0.1
+    valid[0] = True
+    rig = torch.sort(torch.randint(0, rigs, (n,), generator=g,
+                                   device=cuda_device)).values
+    with torch.no_grad():
+        got = cuda_orient.orient_front_cuda(images, xyxy, valid, rig, net,
+                                            consts, size)
+        torch.cuda.synchronize()
+        ref = cuda_orient.orient_front_plain(images, xyxy, valid, rig, net,
+                                             size)
+        keep = cuda_orient.crops_by_rig(images, xyxy, rig, size).std(
+            dim=(1, 2)).amin(dim=-1) >= 1.0
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got[keep], ref[keep], rtol=1e-3, atol=1e-3)
 
 
 @pytest.mark.cuda
@@ -704,16 +795,21 @@ def _assert_epilogue_equal(got, ref):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_boxes", [0, 64])
 @pytest.mark.parametrize("hw", list(GRID_SHAPES))
-@pytest.mark.parametrize("rigs", [1, 3, 64])
+@pytest.mark.parametrize("rigs", [None, 1, 3, 64])
 @pytest.mark.parametrize("kernel", ["grid", "carve"])
 def test_gated_kernels_bit_equal_to_the_plain_path(cuda_device, kernel, rigs,
                                                    hw, n_boxes):
     """Log-odds and occupancy_i8 bit-equal, occupancy atol 1e-7, with every
-    other rig gated off; (150, 50) straddles rows with 16-byte vectors,
-    (103, 33) takes the scalar path. One launch a call; two calls on one
-    stream without a sync in between give the same outputs."""
-    rng = np.random.default_rng(rigs * 7 + hw[1] + n_boxes)
-    args = _epilogue_case(rng, rigs, hw, n_boxes, cuda_device)
+    other rig gated off; rigs=None is the single rig's (H, W) grid, gated
+    on; (150, 50) straddles rows with 16-byte vectors, (103, 33) takes the
+    scalar path. One launch a call; two calls on one stream without a sync
+    in between give the same outputs."""
+    rng = np.random.default_rng((rigs or 0) * 7 + hw[1] + n_boxes)
+    args = _epilogue_case(rng, rigs or 1, hw, n_boxes, cuda_device)
+    if rigs is None:
+        cfg, lo, prev, gate, box, ranges = args[:6]
+        args = (cfg, lo[0], prev[0], gate[0], box[0].contiguous(),
+                ranges[0].contiguous()) + args[6:]
     mod = cuda_grid if kernel == "grid" else cuda_raycast
     n0 = mod.launches
     got, ref = _gated(kernel, *args)
@@ -724,7 +820,7 @@ def test_gated_kernels_bit_equal_to_the_plain_path(cuda_device, kernel, rigs,
     _assert_epilogue_equal(again, ref)
     cfg, lo, prev, gate, box, ranges, cbin, cr = args
     assert torch.equal(got[0][~gate], lo[~gate])
-    if rigs > 1:
+    if rigs is not None and rigs > 1:
         assert got[2][1, 0, :4].tolist() == [12, 38, 62, 88]
     if kernel == "carve":
         # an all-invalid scan carves nothing: the grid kernel's three outputs
@@ -794,9 +890,10 @@ def _frames8(rng, shape, device):
                                             (2, 120, 160, 150),
                                             (2, 100, 130, 68)])
 def test_stem_bf16_kernel_matches_twin(cuda_device, batch, h, w, size):
-    """1, 3 and 64 frames at the ticks' shapes, and unaligned sizes: ragged
-    conv1 tiles, an odd conv0 output (ConvBN_1 pads (1, 1)), frame rows
-    that do not start on a 16-byte boundary (130 x 3 bf16)."""
+    """1, 3 and 64 frames at the ticks' shapes (>= 99.9 % of the elements
+    bit-equal there), and unaligned sizes: ragged conv1 tiles, an odd
+    conv0 output (ConvBN_1 pads (1, 1)), frame rows that do not start on a
+    16-byte boundary (130 x 3 bf16)."""
     cfg = GridVisionConfig(detection_weights_file="weights/detector.npz")
     det = weights.load_all(cfg, device=cuda_device)["detector"]
     consts = cuda_stem.prepare_stem_constants(det, BF)
@@ -806,7 +903,10 @@ def test_stem_bf16_kernel_matches_twin(cuda_device, batch, h, w, size):
     got = cuda_stem.detector_stem_cuda(img, consts, size)
     torch.cuda.synchronize()
     assert cuda_stem.launches_bf16 == n0 + 1
-    _bf16_hold(got, cuda_stem.detector_stem_plain(img, consts, size))
+    ref = cuda_stem.detector_stem_plain(img, consts, size)
+    _bf16_hold(got, ref)
+    if (h, w, size) == (480, 640, 416):     # the ticks' frames: the stem's bar
+        assert (got == ref).float().mean().item() >= 0.999
 
 
 @pytest.mark.cuda
@@ -841,7 +941,8 @@ def test_stem_bf16_kernel_one_launch_and_batch_independent(cuda_device):
     (64, 16, 64, 1e-5), (128, 288, 64, 1e-5), (192, 64, 64, 1e-5),
     (64, 432, 128, 1e-4), (128, 432, 32, 1e-4), (192, 48, 96, 1e-4),
     (64, 16, 32, 1e-5), (128, 288, 32, 1e-5), (64, 576, 64, 1e-4),
-    (128, 96, 96, 1e-5), (64, 576, 96, 1e-4)])
+    (128, 96, 96, 1e-5), (64, 576, 96, 1e-4), (128, 576, 64, 1e-4),
+    (128, 432, 128, 1e-4)])
 def test_wgmma_product_matches_f32_matmul(cuda_device, m, k, n, atol):
     """The bf16 kernels' wgmma path alone (B laid out by
     pack_wgmma_b_halves, at N = 64 pack_wgmma_b's layout as the stem's
@@ -1326,32 +1427,55 @@ import sys
 import numpy as np
 import torch
 from grid_vision_tpu_torch import pipeline
-from grid_vision_tpu_torch.config import GridVisionConfig
 from grid_vision_tpu_torch.demo import default_extrinsics
 from grid_vision_tpu_torch.io.scene import SyntheticScene
-from grid_vision_tpu_torch.runtime.stream import obs_from_scene
+from grid_vision_tpu_torch.models import orientation_net, yolov4_tiny
+from grid_vision_tpu_torch.runtime.stream import FleetPool, obs_from_scene
+from tests.test_torch_cuda_tick import BUDGET, N_RIGS, path_configs
 if sys.argv[2] == "off":
     torch.backends.cudnn.allow_tf32 = False
-cfg = GridVisionConfig(detection_weights_file="weights/detector.npz",
-                       vision_weights_file="weights/orientation.npz",
-                       detector_stem_backend="pallas")
-eng = pipeline.Engine(cfg, extrinsics=default_extrinsics("cuda"))
-scene = SyntheticScene(cfg, seed=0)
+dev = torch.device("cuda", 0)
+cfg, fleet_cfg = path_configs()
+eng = pipeline.Engine(cfg, extrinsics=default_extrinsics(dev), device=dev)
+fleet = pipeline.Engine(fleet_cfg, extrinsics=eng.extrinsics, params={
+    k: eng.params[k] for k in ("detector", "orientation")}, device=dev)
+scene = SyntheticScene(cfg, seed=0, n_ground=15000)
 scene.add_default_traffic()
-state, out = eng(eng.init_state(), obs_from_scene(scene, 0.0, cfg, "cuda"))
-np.savez(sys.argv[1], lo=state.log_odds.cpu().numpy(),
-         occ=out.occupancy_i8.cpu().numpy(), box=out.boxes.xyxy.cpu().numpy(),
-         pos=out.poses.position.cpu().numpy(),
-         legacy=np.asarray(torch.backends.cudnn.allow_tf32))
+scene.add_default_statics()
+heads, res = [], {}
+for mod in (yolov4_tiny, orientation_net):
+    def forward(*args, _fn=mod.forward, **kwargs):
+        out = _fn(*args, **kwargs)
+        heads.extend(out)
+        return out
+    mod.forward = forward
+for tag, run in (
+        ("single", lambda: eng(eng.init_state(),
+                               obs_from_scene(scene, 0.0, cfg, dev))),
+        ("fleet", lambda: fleet.fleet(fleet.init_states(N_RIGS), FleetPool(
+            fleet_cfg, N_RIGS, device=dev).obs(0), BUDGET))):
+    heads.clear()
+    _, out = run()
+    named = [("occ", out.occupancy_i8), ("box", out.boxes.xyxy),
+             ("conf", out.boxes.confidence), ("box_valid", out.boxes.valid),
+             ("pos", out.poses.position), ("pos_valid", out.poses.valid),
+             ("depth", out.static_depths)]
+    for name, t in named + [(f"head{i}", t) for i, t in enumerate(heads)]:
+        t = t.detach()
+        res[f"{tag}/{name}"] = (t.float() if t.is_floating_point()
+                                else t).cpu().numpy()
+np.savez(sys.argv[1], legacy=np.asarray(torch.backends.cudnn.allow_tf32),
+         **res)
 """
 
 
 @pytest.mark.cuda
 def test_f32_tick_bit_equal_under_default_flags(cuda_device, tmp_path):
-    """An f32 Engine tick in a process that leaves torch's TF32 flags at
-    their defaults equals the tick of a process that turns them off, bit
-    for bit (device.ieee_convs scopes the convs), and leaves the legacy
-    flag readable."""
+    """f32 Engine ticks in a process that leaves torch's TF32 flags at
+    their defaults equal those of a process that turns them off, bit for
+    bit (device.ieee_convs scopes the convs): the single rig's and a
+    64-rig fleet tick's outputs and both nets' heads; the legacy flag
+    stays readable."""
     import os
     import subprocess
     import sys
@@ -1366,29 +1490,36 @@ def test_f32_tick_bit_equal_under_default_flags(cuda_device, tmp_path):
         assert r.returncode == 0, r.stderr[-3000:]
         res[flags] = dict(np.load(path))
     assert bool(res["default"]["legacy"]) and not bool(res["off"]["legacy"])
-    for k in ("lo", "occ", "box", "pos"):
-        np.testing.assert_array_equal(res["default"][k], res["off"][k],
-                                      err_msg=k)
+    assert res["default"].keys() == res["off"].keys()
+    assert any("fleet/head" in k for k in res["off"])
+    for k in res["off"]:
+        if k != "legacy":
+            np.testing.assert_array_equal(res["default"][k], res["off"][k],
+                                          err_msg=k)
 
 
 @pytest.mark.cuda
-def test_bench_chunk_digest_equals_engine_fleet(cuda_device):
-    """One chunk of the bench (bench.py's configuration at 8 rigs, 2 ticks)
-    equals the same perturbed observations through Engine.fleet: digest
-    and grid bit for bit; the bf16 stem once a tick."""
+@pytest.mark.parametrize("mode", ["defaults", "pallas2_pallas"])
+def test_bench_chunk_digest_equals_engine_fleet(cuda_device, mode):
+    """One chunk of the bench (bench.py's configuration in each of its
+    modes at 64 rigs, its default chunk) equals the same perturbed
+    observations through Engine.fleet: digest and grid bit for bit; the
+    bf16 stem once a tick (and with pallas2 / pallas the bf16 CSP stage
+    and orientation front), nothing else."""
     from grid_vision_tpu_torch import bench, pipeline
     from grid_vision_tpu_torch.utils import prng
+    from .test_torch_cuda_tick import counted
     cfg, n_rigs, scan, _, budget = bench.bench_config(
-        {"GV_BENCH_RIGS": "8", "GV_BENCH_SCAN": "2"})
+        dict(bench.MODES[mode], GV_BENCH_RIGS="64"))
     eng = pipeline.Engine(cfg, device=cuda_device)
     pool = bench.build_pool(cfg, n_rigs, cuda_device)
     key = prng.prng_key(100, device=cuda_device)
-    n0 = cuda_stem.launches_bf16
-    states, acc, _ = bench.run_chunk(eng.params, eng.init_states(n_rigs),
-                                     pool, eng.extrinsics, cfg, key, scan,
-                                     budget)
-    torch.cuda.synchronize()
-    assert cuda_stem.launches_bf16 == n0 + scan
+    want = {"detector_stem_bf16": scan}
+    if mode == "pallas2_pallas":
+        want.update(detector_csp_bf16=scan, orient_front_bf16=scan)
+    states, acc, _ = counted(lambda: bench.run_chunk(
+        eng.params, eng.init_states(n_rigs), pool, eng.extrinsics, cfg, key,
+        scan, budget), want)
     _, sub = prng.split(key)
     bright, jitter = bench.draw_perturbations(sub, scan, n_rigs)
     ref_states, ref = eng.init_states(n_rigs), torch.zeros((),
@@ -1410,7 +1541,8 @@ def _int8_layers(device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,size", [(1, 416), (3, 416), (2, 160)])
+@pytest.mark.parametrize("batch,size", [(1, 416), (3, 416), (64, 416),
+                                        (2, 160)])
 def test_int8_gemm_bit_equal_to_f64_conv_at_every_layer(cuda_device, batch,
                                                         size):
     """The int8 conv kernel (csrc/cuda_int8.cu) at every layer's shape (the
@@ -1524,17 +1656,19 @@ def test_bf16_matmul_within_the_cpu_bar(cuda_device, m, k, n):
     sums at the CPU tests' K (tests/test_torch_int8_kernel.py holds the
     tool's Pallas kernel so), and at the tool's K = 2304 within
     cuda_int8.f32_sum_bound (f32 roundings of sums near 200 alone pass
-    1e-4 there)."""
+    1e-4 there). b in both layouts (the kernel's weights are
+    column-major)."""
     from grid_vision_tpu_torch.ops import cuda_int8
     g = torch.Generator(device="cuda").manual_seed(k)
     a = torch.randn((m, k), generator=g, device=cuda_device).bfloat16()
     b = torch.randn((k, n), generator=g, device=cuda_device).bfloat16()
-    got = cuda_int8.bf16_matmul(a, b)
-    assert got.dtype == torch.float32
-    err = (got - cuda_int8.bf16_matmul_plain(a, b)).abs()
-    if k <= 384:
-        assert err.max().item() <= 1e-4
-    assert (err <= cuda_int8.f32_sum_bound(a, b)).all()
+    for bb in (b, b.t().contiguous().t()):    # row- and column-major
+        got = cuda_int8.bf16_matmul(a, bb)
+        assert got.dtype == torch.float32
+        err = (got - cuda_int8.bf16_matmul_plain(a, bb)).abs()
+        if k <= 384:
+            assert err.max().item() <= 1e-4
+        assert (err <= cuda_int8.f32_sum_bound(a, bb)).all()
 
 
 @pytest.mark.cuda

@@ -20,8 +20,9 @@ f32 (PARITY.json production_vs_compat_vision: per-step min 0.97527, mean
 agreement >= 97.5 % every tick and >= 98.5 % on the mean. The PCA
 branch's bf16 mode (its poses come from the f32 cloud; only the boxes
 come from the bf16 detector) is held to >= 99 % every tick and equal box
-counts on >= 99 % of the ticks. chip_smoke.py's phase `jax_fixture` holds the kernels on the card to the
-same file.
+counts on >= 99 % of the ticks. tests/test_torch_cuda_tick.py's
+test_kernel_path_against_the_jax_fixture holds the kernels on the card
+to the same file.
 """
 
 import dataclasses

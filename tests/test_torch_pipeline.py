@@ -205,16 +205,17 @@ def test_import_pulls_in_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-def test_chip_smoke_refuses_without_card(tmp_path):
-    """chip_smoke.py fails, printing no result, without a card and when it
-    stands alone in a directory without the port."""
-    if torch.cuda.is_available():
-        pytest.skip("a card is present")
-    alone = tmp_path / "chip_smoke.py"
-    alone.write_text(open("chip_smoke.py").read())
-    for script in ("chip_smoke.py", str(alone)):
-        r = subprocess.run([sys.executable, script], capture_output=True,
-                           text=True, timeout=120)
-        assert r.returncode != 0
-        assert '"ok"' not in r.stdout
-        assert "no CUDA device" in r.stderr
+@pytest.mark.parametrize("card_file", ["test_torch_cuda",
+                                       "test_torch_cuda_stream",
+                                       "test_torch_cuda_tick",
+                                       "test_torch_cuda_train"])
+def test_card_file_imports_no_jax(card_file):
+    """The card suite runs where only torch is installed: a card file
+    imported in a fresh process, without the tests' conftest, imports
+    nothing of JAX, flax, optax or the JAX package."""
+    code = (f"import sys, tests.{card_file}; bad = [m for m in sys.modules"
+            " if m.split('.')[0] in ('jax', 'flax', 'optax',"
+            " 'grid_vision_tpu')]; print(bad); sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr

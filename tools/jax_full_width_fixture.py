@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Write the full-width reference outputs of the JAX package, which the
 PyTorch / CUDA port is held to (tests/test_torch_full_width.py on the CPU,
-chip_smoke.py's phase `jax_fixture` on the card):
+tests/test_torch_cuda_tick.py's
+test_kernel_path_against_the_jax_fixture on the card):
 
     python3 tools/jax_full_width_fixture.py      # from the repo's root, ~6 min
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Write the JAX package's full-width outputs on its packed wire, which
-the PyTorch / CUDA port's streaming path is held to (chip_smoke.py's phase
-`stream` on the card):
+the PyTorch / CUDA port's streaming path is held to (tests/
+test_torch_cuda_stream.py's test_stream_wires_against_the_jax_fixture on
+the card):
 
     python3 tools/jax_stream_fixture.py      # from the repo's root, ~30 s
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Write the tracked-tick reference outputs of the JAX package, which the
 PyTorch / CUDA port's tracker is held to (tests/test_torch_tracked_step.py
-on the CPU, chip_smoke.py's phase `tracked` on the card):
+on the CPU, tests/test_torch_cuda_stream.py's
+test_tracked_against_the_jax_fixture on the card):
 
     python3 tools/jax_tracked_fixture.py      # from the repo's root, ~1 min
 

@@ -35,7 +35,8 @@ it replaces (ATen's add_ and activation) and its byte bound (2 x the
 output at 3.35 TB/s): one JSON line a shape and one for the forward's sum;
 then its kernels' device time in one folded YOLOv4 forward on the seeded
 recipe (128 random frames, the profiler).
-chip_smoke.py holds the kernels to their twins and times whole calls.
+The card tests (tests/test_torch_cuda*.py) hold the kernels to their
+twins; this tool only times them.
 """
 
 import ctypes

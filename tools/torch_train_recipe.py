@@ -14,8 +14,8 @@ host clock, its output kept in OUT/<step>.log:
 3. train orientation --steps 4000 --scene-crops 768 --out
    OUT/orientation.npz (its angle and dims recovery)
 4. the 64-rig fleet tick on OUT's weights in bf16 on the kernel backends
-   against the plain ones (chip_smoke.bf16_stats; root PERF.md §2's bf16
-   bars, chip_smoke.meets_bf16_bars), and in f32 (chip_smoke.
+   against the plain ones (bf16_stats of tests/test_torch_cuda_tick.py;
+   root PERF.md §2's bf16 bars, its meets_bf16_bars), and in f32 (its
    compare_outputs' bars)
 
 Prints the card's name and power limit, then one JSON line. Never writes
@@ -68,19 +68,19 @@ def fleet_check(det: str, ori: str, rigs: int, device: str = "cuda",
     import torch
 
     sys.path.insert(0, ROOT)
-    import chip_smoke as cs
     from grid_vision_tpu_torch import pipeline
     from grid_vision_tpu_torch.config import GridVisionConfig
     from grid_vision_tpu_torch.demo import default_extrinsics
     from grid_vision_tpu_torch.ops import cuda_build
     from grid_vision_tpu_torch.runtime.stream import FleetPool
+    from tests.test_torch_cuda_tick import (bf16_stats, compare_outputs,
+                                            meets_bf16_bars, run_fleet)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(device)
     if dev.type == "cuda":
         cuda_build.build_all()
-    cs.N_RIGS = rigs
     cfg = GridVisionConfig(
         detection_weights_file=det, vision_weights_file=ori,
         max_points=8192, max_static_depth=16,
@@ -101,16 +101,16 @@ def fleet_check(det: str, ori: str, rigs: int, device: str = "cuda",
         o = obs if dtype == "float32" else [
             dataclasses.replace(x, image=x.image.to(torch.bfloat16))
             for x in obs]
-        _, outs, _ = cs.run_fleet(torch, kern, o, 5 * rigs)
-        _, plain_outs, _ = cs.run_fleet(torch, plain, o, 5 * rigs)
+        outs = run_fleet(kern, o, 5 * rigs)
+        plain_outs = run_fleet(plain, o, 5 * rigs)
         if dtype == "float32":
-            agree, boxes, poses = cs.compare_outputs(
-                torch, c, outs, plain_outs, per_rig=True)
+            agree, boxes, poses = compare_outputs(c, outs, plain_outs,
+                                                  per_rig=True)
             out[dtype] = dict(min_occupancy_i8_agreement_per_rig=agree,
                               boxes_per_tick=boxes, poses_per_tick=poses)
         else:
-            r = cs.bf16_stats(torch, c, outs, plain_outs)
-            out[dtype] = dict(r, section2_bars_met=cs.meets_bf16_bars(r))
+            r = bf16_stats(c, outs, plain_outs)
+            out[dtype] = dict(r, section2_bars_met=meets_bf16_bars(r))
     return out
 
 
